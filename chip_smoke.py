@@ -5,21 +5,43 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device  — a CUDA card must be present; prints its nvidia-smi name and
                power limit;
-  2. build   — builds kernel B1 (csrc/nw_wavefront.cu) with nvcc from the
-               checkout and prints its `-Xptxas -v` report;
+  2. build   — builds the wavefront kernel (csrc/nw_wavefront.cu: modes B1,
+               B2, B3 x windows of 32..128 rows, twelve instantiations) with
+               nvcc from the checkout and prints its `-Xptxas -v` report;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
                32/64/96/128 rows, several blocks, lengths near 250 and
                450): sub, mapq and end must be bitwise equal;
+  3b. modes  — kernels B2 (pairs) and B3 (kinds) against the plain version
+               the same way: windows of 32/64/96/128 rows, several blocks
+               of different query lengths, lengths near 250, and one
+               PacBio full-length 16S set (len ~1450: NDP 3072, L1R 1664,
+               two pairs per block); every output bitwise equal;
   4. small   — derep_fastq(sam1F) -> dada(err=tperr1()) on the card and on
                the CPU: clustering, map, pval, birth_subs, trans identical;
   5. main    — a simulated 120,000-read MiSeq sample (the DADA2 tutorial
                scale) through dada(selfConsist=True) on the card, with the
-               kernel's launch count reset just before and read just after;
-               then the kernel's time (CUDA events) against its plain
-               version and its bound, at the main path's largest shapes;
+               kernels' launch counts reset just before and read just after;
+               then kernel B1's time (CUDA events) against its plain version
+               and its bound, at the main path's largest shapes;
   6. profile — the same selfConsist run again under torch.profiler: device
-               time by kernel and the device's busy share.
+               time by kernel and the device's busy share;
+  7. table   — sam1F and sam2F: derep_fastq -> dada(err=tperr1()) ->
+               make_sequence_table -> remove_bimera_denovo with each of the
+               three methods, on the card and on the CPU: identical;
+  8. grouped — nw_wavefront_grouped (kernel B3's path): one sam1F center
+               against every unique on the card and on the CPU, identical,
+               with B3's launches counted; then B3's time at those shapes;
+  9. chimera — the consensus chimera check at real size (the JAX package's
+               bench_chimera.py fixture: 5000 ASVs x 20 samples, L = 250,
+               seed 7; 7,114,790 query-parent pairs): is_bimera_denovo_table
+               on the card (wall, pairs, blocks, launches, route, flags, peak
+               memory); the five lr/ham arrays of kernel B2's route against
+               kernel B1's per-query route on the card; (nflag, nsam) of the
+               columns with the most pairs against the port on the CPU;
+ 10. B2 time — kernel B2 at one full launch of that table (1024 blocks),
+               CUDA events, against its plain version and its bound;
+ 11. profile — the table run again under torch.profiler.
 It prints one {"kernels": [...]} line and, last, {"ok": true, ...}.
 """
 from __future__ import annotations
@@ -32,6 +54,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAM1F = os.path.join(ROOT, "tests", "extdata", "sam1F.fastq.gz")
+SAM2F = os.path.join(ROOT, "tests", "extdata", "sam2F.fastq.gz")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the int32 rate — 64
 # INT32 lanes per SM (half the 128 FP32 lanes behind the 67 TFLOP/s fp32
@@ -48,7 +71,12 @@ INT32_OPS_PER_S = 67e12 / 4
 # last-row/last-column recalculations are needed only on the band's edges
 # and the last row and column, so they are not counted per cell (the
 # kernel runs them on every cell; that is its overhead, not the bound's).
+# The same count holds in every mode: B2 and B3 add one store per
+# traceback step, not per cell.
 OPS_PER_CELL = 13
+# the table check's per-query route (kernel B1) runs on every column only
+# if that is expected to take at most this long
+PER_QUERY_SECONDS = 60.0
 
 
 def fail(msg: str) -> None:
@@ -62,25 +90,38 @@ def log(msg: str) -> None:
 
 # ---- phase helpers ---------------------------------------------------------
 
+def mutate(rng, s, nops, uniform):
+    """s with up to nops random edits (substitutions only if uniform)."""
+    import numpy as np
+
+    c = list(s)
+    for _ in range(int(rng.integers(0, nops))):
+        p = int(rng.integers(0, len(c)))
+        op = 0 if uniform else int(rng.integers(0, 3))
+        if op == 0:
+            c[p] = int(rng.integers(0, 4))
+        elif op == 1:
+            del c[p]
+        else:
+            c.insert(p, int(rng.integers(0, 4)))
+    return np.array(c, np.uint8)
+
+
+def geometry(nww, maxlen):
+    """The backend's rounding of (NDP, L1R, L2R) for a longest sequence."""
+    return (nww._round_up(2 * maxlen + 1, 256),
+            nww._round_up(maxlen + 1 + 128, 128),
+            nww._round_up(maxlen + 128, 128))
+
+
 def fuzz_case(rng, nww, len1, ncand, nops, band, wp, uniform):
-    """Kernel B1 inputs for one center vs ncand mutated candidates, laid
-    out as the backend lays them (length-sorted 128-lane blocks)."""
+    """Kernel B1 (and B3) inputs for one center vs ncand mutated
+    candidates, laid out as the backend lays them (length-sorted 128-lane
+    blocks)."""
     import numpy as np
 
     s1 = rng.integers(0, 4, len1).astype(np.uint8)
-    cands = []
-    for _ in range(ncand):
-        c = list(s1)
-        for _ in range(int(rng.integers(0, nops))):
-            p = int(rng.integers(0, len(c)))
-            op = 0 if uniform else int(rng.integers(0, 3))
-            if op == 0:
-                c[p] = int(rng.integers(0, 4))
-            elif op == 1:
-                del c[p]
-            else:
-                c.insert(p, int(rng.integers(0, 4)))
-        cands.append(np.array(c, np.uint8))
+    cands = [mutate(rng, s1, nops, uniform) for _ in range(ncand)]
     L2 = max(len(c) for c in cands)
     s2b = np.full((ncand, L2), 255, np.uint8)
     l2b = np.array([len(c) for c in cands], np.int64)
@@ -93,10 +134,7 @@ def fuzz_case(rng, nww, len1, ncand, nops, band, wp, uniform):
     need = max(nww.block_window(len1, l2b[bidx[b]], band) for b in range(nb))
     if need > wp:
         raise ValueError(f"case needs a {need}-row window, asked {wp}")
-    maxlen = max(len1, L2)
-    NDP = nww._round_up(2 * maxlen + 1, 256)
-    L1R = nww._round_up(maxlen + 1 + 128, 128)
-    L2R = nww._round_up(maxlen + 128, 128)
+    NDP, L1R, L2R = geometry(nww, max(len1, L2))
     s2q = nww.pack_s2_blocks(merged, l2b, bidx, L2R)
     scal = np.zeros((nb, 4), np.int32)
     params = np.zeros((nb, 8, nww.LANES), np.int32)
@@ -112,6 +150,48 @@ def fuzz_case(rng, nww, len1, ncand, nops, band, wp, uniform):
     geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=wp, match=5, mismatch=-4,
                 gap_p=-8)
     return (scal, params, s1t, s2q), geom
+
+
+def pairs_case(rng, nww, blocks, band, wp):
+    """Kernel B2 inputs: one block per (len1, npairs, nops, uniform) entry,
+    each lane its own random query of length len1 against a mutated copy;
+    pad lanes repeat lane 0, as the chimera route lays them out."""
+    import numpy as np
+
+    L = nww.LANES
+    nb = len(blocks)
+    queries, parents = [], []
+    for len1, npairs, nops, uniform in blocks:
+        q = [rng.integers(0, 4, len1).astype(np.uint8)
+             for _ in range(npairs)]
+        q += [q[0]] * (L - npairs)
+        queries.append(q)
+        ps = [mutate(rng, s, nops, uniform) for s in q[:npairs]]
+        parents.append(ps + [ps[0]] * (L - npairs))
+    maxlen = max(max(len(p) for p in ps) for ps in parents)
+    maxlen = max(maxlen, max(b[0] for b in blocks))
+    NDP, L1R, L2R = geometry(nww, maxlen)
+    scal = np.zeros((nb, 4), np.int32)
+    params = np.zeros((nb, 8, L), np.int32)
+    s1 = np.zeros((nb, L1R, L), np.int32)
+    s2q = np.zeros((nb, L2R, L), np.int32)
+    for b, (len1, _, _, _) in enumerate(blocks):
+        l2 = np.array([len(p) for p in parents[b]], np.int64)
+        need = nww.block_window(len1, l2, band)
+        if need > wp:
+            raise ValueError(f"case needs a {need}-row window, asked {wp}")
+        C = int(l2.max())
+        scal[b] = (len1, C, band + max(0, C - len1), int(l2.min()))
+        params[b, 0] = l2
+        params[b, 1] = band + np.maximum(0, len1 - l2)
+        params[b, 2] = band + np.maximum(0, l2 - len1)
+        for k in range(L):
+            s1[b, 1: 1 + len1, k] = queries[b][k]
+            p = parents[b][k]
+            s2q[b, C - len(p): C, k] = p[::-1]   # row C - j holds p[j-1]
+    geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=wp, match=5, mismatch=-4,
+                gap_p=-8)
+    return (scal, params, s1, s2q), geom
 
 
 def max_abs_diff(got, want):
@@ -132,6 +212,41 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def inband_cells(scal, params):
+    """In-band DP cells of every lane of kernel blocks (scal [nb, 4],
+    params [nb, 8, 128]): for each row i <= len1, the j in
+    [max(0, i - lb), min(len2, i + rb)]."""
+    import numpy as np
+
+    len1 = np.repeat(scal[:, 0].astype(np.int64), params.shape[2])
+    l2 = params[:, 0].reshape(-1).astype(np.int64)
+    lb = params[:, 1].reshape(-1).astype(np.int64)
+    rb = params[:, 2].reshape(-1).astype(np.int64)
+    cells = 0
+    for k in range(0, len(len1), 8192):
+        sl = slice(k, k + 8192)
+        ii = np.arange(int(len1[sl].max()) + 1)[None, :]
+        lo = np.maximum(0, ii - lb[sl, None])
+        hi = np.minimum(l2[sl, None], ii + rb[sl, None])
+        n = np.clip(hi - lo + 1, 0, None) * (ii <= len1[sl, None])
+        cells += int(n.sum())
+    return cells
+
+
+def bound(args, outs, scal, params):
+    """(bound_ms, bound_by, detail): the larger of the bytes each input
+    read once and each output written once take at the HBM rate, and the
+    in-band cells' OPS_PER_CELL int32 operations at the int32 rate."""
+    nbytes = sum(a.numel() * a.element_size() for a in list(args) + list(outs))
+    cells = inband_cells(scal, params)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, (
+        f"{nbytes} bytes -> {t_bytes:.4f} ms; {cells} in-band cells x "
+        f"{OPS_PER_CELL} int32 ops -> {t_ops:.4f} ms")
 
 
 def simulate_sample(rng, Derep, pack_sequences, asv_seqs, asv_ab, asv_quals,
@@ -191,12 +306,50 @@ def simulate_sample(rng, Derep, pack_sequences, asv_seqs, asv_ab, asv_quals,
                  map=rank[np.ravel(inv)], name=name)
 
 
-def profile_main_path(dt, sim) -> None:
-    """Where the main path's device time goes: a second selfConsist run
-    (fresh backend, so the kernel runs again) under torch.profiler,
-    tracing device activity only. Prints device time by kernel and the
-    device's busy share of the wall time (any profiler overhead lengthens
-    the wall, so the busy share is a lower bound)."""
+def chimera_fixture(ncol=5000, nsam=20, nbase=300, L=250, seed=7):
+    """The JAX package's chimera benchmark table (bench_chimera.py::
+    make_fixture, copied): sparse samples x ASVs counts, ASVs being point
+    mutants and two-parent recombinants of nbase random sequences, or
+    novel."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nt = np.array(list("ACGT"))
+    bases = ["".join(nt[rng.integers(0, 4, L)]) for _ in range(nbase)]
+    seqs = set()
+    out = []
+    while len(out) < ncol:
+        r = rng.random()
+        if r < 0.55:  # point-mutation variant of a base
+            s = list(bases[rng.integers(0, nbase)])
+            for _ in range(int(rng.integers(1, 6))):
+                s[int(rng.integers(0, L))] = nt[rng.integers(0, 4)]
+            s = "".join(s)
+        elif r < 0.75:  # recombinant of two bases (chimera-like)
+            i, j = rng.integers(0, nbase, 2)
+            cut = int(rng.integers(40, L - 40))
+            s = bases[i][:cut] + bases[j][cut:]
+        else:  # novel
+            s = "".join(nt[rng.integers(0, 4, L)])
+        if s not in seqs:
+            seqs.add(s)
+            out.append(s)
+    # sparse occupancy, log-distributed counts
+    mat = np.zeros((nsam, ncol), np.int64)
+    occup = rng.integers(1, 8, ncol)            # samples per ASV
+    for j in range(ncol):
+        rows = rng.choice(nsam, size=occup[j], replace=False)
+        mat[rows, j] = np.maximum(
+            1, np.round(np.exp(rng.normal(3.0, 1.6, occup[j])))
+        ).astype(np.int64)
+    return mat, out
+
+
+def profile_device(label, run) -> None:
+    """Where a run's device time goes: run() under torch.profiler, tracing
+    device activity only. Prints device time by kernel and the device's
+    busy share of the wall time (any profiler overhead lengthens the
+    wall, so the busy share is a lower bound)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -205,8 +358,7 @@ def profile_main_path(dt, sim) -> None:
     # the event collection on exit take seconds and are not the run's
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        dt.dada(sim, err=None, selfConsist=True, device="cuda",
-                verbose=False)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     spans, by_name = [], {}
@@ -218,8 +370,8 @@ def profile_main_path(dt, sim) -> None:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + us, cnt + 1)
     if not spans:
-        log("[profile] device time not measured: the profiler recorded no "
-            "CUDA events")
+        log(f"[profile] {label}: device time not measured: the profiler "
+            "recorded no CUDA events")
         return
     spans.sort()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -230,7 +382,7 @@ def profile_main_path(dt, sim) -> None:
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    log(f"[profile] selfConsist run under torch.profiler: wall "
+    log(f"[profile] {label} under torch.profiler: wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({100 * busy / wall_us:.1f}% busy, {len(spans)} device events)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -249,17 +401,33 @@ def same_result(a, b, what):
     np.testing.assert_array_equal(a.trans, b.trans, err_msg=what)
 
 
+def kernel_vs_plain(nww, dev, arrays, geom, emit, per_block):
+    """Run one mode of the kernel and its plain version on the same card
+    tensors; returns (max |kernel - plain|, tracebacks complete)."""
+    import torch
+
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    got = nww.nw_wavefront(*t, emit_kinds=emit, s1_per_block=per_block,
+                           **geom)
+    torch.cuda.synchronize()
+    want = nww.nw_wavefront_ref(*t, emit_kinds=emit, s1_per_block=per_block,
+                                **geom)
+    return max_abs_diff(got, want), bool((got[-1][:, :2] == 0).all())
+
+
 # ---- main ------------------------------------------------------------------
 
 def main() -> None:
     try:
         import numpy as np
+        import pandas as pd
         import torch
     except ImportError as e:
         fail(f"missing dependency: {e}")
     sys.path.insert(0, ROOT)
     try:
         import dada2_tpu_torch as dt
+        from dada2_tpu_torch import chimeras as chim
         from dada2_tpu_torch.core.backend_cuda import CudaBackend
         from dada2_tpu_torch.core.raws import make_rawset
         from dada2_tpu_torch.encode import pack_sequences
@@ -269,6 +437,11 @@ def main() -> None:
         fail(f"dada2_tpu_torch is not importable next to this script: {e}")
     if "jax" in sys.modules or "dada2_tpu" in sys.modules:
         fail("the port imported jax or dada2_tpu")
+    launches = nww.nw_wavefront.launches
+
+    def reset_launches():
+        for k in launches:
+            launches[k] = 0
 
     # 1. device
     if not torch.cuda.is_available():
@@ -297,8 +470,12 @@ def main() -> None:
         "ptxas report:")
     for line in ptxas.strip().splitlines():
         log(f"[build]   {line.strip()}")
+    entries = ptxas.count("Compiling entry function")
+    if entries != 12:
+        fail(f"expected 12 kernel instantiations (4 windows x 3 modes), "
+             f"ptxas compiled {entries}")
 
-    # 3. kernel against its plain version, bitwise
+    # 3. kernel B1 against its plain version, bitwise
     rng = np.random.default_rng(2024)
     cases = [  # (len1, candidates, max edits, band, WP, substitutions only)
         (250, 400, 12, 16, 32, True),
@@ -306,22 +483,50 @@ def main() -> None:
         (448, 260, 16, 16, 96, False),
         (452, 390, 8, 16, 128, True),
     ]
-    worst = 0
+    err_b = {"B1": 0, "B2": 0, "B3": 0}
     for len1, ncand, nops, band, wp, uniform in cases:
         arrays, geom = fuzz_case(rng, nww, len1, ncand, nops, band, wp,
                                  uniform)
-        t = [torch.from_numpy(a).to(dev) for a in arrays]
-        got = nww.nw_compare(*t, **geom)
-        torch.cuda.synchronize()
-        want = nww.nw_compare_ref(*t, **geom)
-        err = max_abs_diff(got, want)
-        worst = max(worst, err)
-        ok_tb = bool((got[2][:, :2] == 0).all())
+        err, ok_tb = kernel_vs_plain(nww, dev, arrays, geom, False, False)
+        err_b["B1"] = max(err_b["B1"], err)
         log(f"[kernel] len1={len1} blocks={arrays[0].shape[0]} WP={wp} "
             f"{'uniform' if uniform else 'mixed'}: max |kernel - plain| = "
             f"{err}, tracebacks complete: {ok_tb}")
         if err != 0 or not ok_tb:
             fail(f"kernel B1 disagrees with its plain version (WP={wp})")
+
+    # 3b. kernels B2 and B3 against the plain version, bitwise
+    pair_cases = [  # ([(len1, pairs, max edits, subs only) per block], WP)
+        ([(250, 128, 12, False), (248, 128, 12, False),
+          (253, 90, 10, True)], 32),
+        ([(251, 128, 10, False), (240, 128, 14, False)], 64),
+        ([(252, 128, 16, False), (249, 77, 16, False)], 96),
+        ([(250, 128, 8, True), (260, 128, 8, False),
+          (245, 128, 8, False)], 128),
+        ([(1450, 128, 30, False), (1447, 100, 30, False)], 64),
+    ]
+    for blocks, wp in pair_cases:
+        arrays, geom = pairs_case(rng, nww, blocks, 16, wp)
+        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp)
+        err, ok_tb = kernel_vs_plain(nww, dev, arrays, geom, "cls", True)
+        err_b["B2"] = max(err_b["B2"], err)
+        log(f"[modes] B2 len1={[b[0] for b in blocks]} WP={wp} "
+            f"NDP={geom['NDP']} L1R={geom['L1R']} pairs/block={ppb}: max "
+            f"|kernel - plain| = {err}, tracebacks complete: {ok_tb}")
+        if err != 0 or not ok_tb:
+            fail(f"kernel B2 disagrees with its plain version (WP={wp})")
+    kinds_cases = cases + [(1450, 200, 30, 16, 64, False)]
+    for len1, ncand, nops, band, wp, uniform in kinds_cases:
+        arrays, geom = fuzz_case(rng, nww, len1, ncand, nops, band, wp,
+                                 uniform)
+        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp)
+        err, ok_tb = kernel_vs_plain(nww, dev, arrays, geom, True, False)
+        err_b["B3"] = max(err_b["B3"], err)
+        log(f"[modes] B3 len1={len1} blocks={arrays[0].shape[0]} WP={wp} "
+            f"NDP={geom['NDP']} pairs/block={ppb}: max |kernel - plain| = "
+            f"{err}, tracebacks complete: {ok_tb}")
+        if err != 0 or not ok_tb:
+            fail(f"kernel B3 disagrees with its plain version (WP={wp})")
 
     # 4. main path, small: card against CPU, identical
     err41 = dt.data.tperr1()
@@ -352,22 +557,22 @@ def main() -> None:
     dt.PHASES.reset()
     dt.COUNTERS.reset()
     torch.cuda.reset_peak_memory_stats()
-    nww.nw_compare.launches = 0
+    reset_launches()
     t0 = time.time()
     res = dt.dada(sim, err=None, selfConsist=True, device="cuda",
                   verbose=False)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = nww.nw_compare.launches
+    n_b1 = launches["B1"]
     peak = torch.cuda.max_memory_allocated()
     rounds = len(res.err_in)
     log(f"[main] dada(selfConsist=True): {len(sim.uniques)} uniques, "
         f"{rounds} rounds, {len(res.denoised)} ASVs, {wall:.2f}s wall")
     log(f"[main] phases: {dt.PHASES.summary()}")
     log(f"[main] counters: {dt.COUNTERS.summary()}")
-    log(f"[main] kernel B1 launches: {launches}; "
+    log(f"[main] kernel launches: {dict(launches)}; "
         f"max_memory_allocated: {peak} bytes")
-    if launches <= 0:
+    if n_b1 <= 0:
         fail("the main path never launched kernel B1")
     eo = np.asarray(res.err_out)
     if (eo.shape[0] != 16 or not np.isfinite(eo).all() or (eo < 0).any()
@@ -394,7 +599,7 @@ def main() -> None:
     geom = dict(L1R=L1R, L2R=be._pb.L2R, NDP=NDP, WP=w, match=opts.MATCH,
                 mismatch=opts.MISMATCH, gap_p=opts.GAP_PENALTY)
     got = nww.nw_compare(*args, **geom)
-    want = nww.nw_compare_ref(*args, **geom)
+    want = nww.nw_wavefront_ref(*args, **geom)
     err_main = max_abs_diff(got, want)
     log(f"[time] main-path inputs: {len(sel)} blocks x 128 lanes, WP={w}, "
         f"L1R={L1R} L2R={be._pb.L2R} NDP={NDP}; max |kernel - plain| = "
@@ -402,45 +607,209 @@ def main() -> None:
     if err_main != 0:
         fail("kernel B1 disagrees with its plain version on main-path "
              "inputs")
+    err_b["B1"] = max(err_b["B1"], err_main)
     ms = cuda_ms(lambda: nww.nw_compare(*args, **geom), 20)
-    plain_ms = cuda_ms(lambda: nww.nw_compare_ref(*args, **geom), 2)
-    # bound: each input read once and each output written once, or the
-    # fill's integer work over the in-band cells of these pairs
-    nbytes = sum(a.numel() * 4 for a in args) + sum(
-        g.numel() * 4 for g in got)
-    lanes = params[sel]
-    l2 = lanes[:, 0].astype(np.int64)
-    lb = lanes[:, 1].astype(np.int64)
-    rb = lanes[:, 2].astype(np.int64)
-    ii = np.arange(len1 + 1)[None, None, :]
-    lo = np.maximum(0, ii - lb[:, :, None])
-    hi = np.minimum(l2[:, :, None], ii + rb[:, :, None])
-    cells = int(np.clip(hi - lo + 1, 0, None).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"[time] kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes -> "
-        f"{t_bytes:.4f} ms; {cells} in-band cells x {OPS_PER_CELL} int32 "
-        f"ops -> {t_ops:.4f} ms); card {card}")
+    plain_ms = cuda_ms(lambda: nww.nw_wavefront_ref(*args, **geom), 2)
+    bound_ms, bound_by, detail = bound(args, got, scal[sel], params[sel])
+    log(f"[time] kernel B1 {ms:.4f} ms, plain {plain_ms:.2f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({detail}); card {card}")
+    rows = {"B1": dict(launches=n_b1, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)}
 
-    profile_main_path(dt, sim)
+    # 6. where the main path's device time goes (fresh backend, so the
+    # kernel runs again)
+    profile_device("selfConsist run", lambda: dt.dada(
+        sim, err=None, selfConsist=True, device="cuda", verbose=False))
 
-    log(json.dumps({"kernels": [{
-        "name": "nw_wavefront_compare (B1)",
-        "route": "cuda",
-        "source": "dada2_tpu_torch/csrc/nw_wavefront.cu",
-        "replaces": "dada2_tpu/ops/nw_pallas.py:452",
-        "launches": launches,
-        "max_abs_err": max(worst, err_main),
-        "match": True,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+    # 7. the chimera slice, small: card against CPU, identical
+    def small_table(device):
+        dereps = {"sam1": dt.derep_fastq(SAM1F),
+                  "sam2": dt.derep_fastq(SAM2F)}
+        st = dt.make_sequence_table(
+            dt.dada(dereps, err=err41, device=device, verbose=False))
+        return st, {m: dt.remove_bimera_denovo(st, method=m, device=device)
+                    for m in ("consensus", "pooled", "per-sample")}
+
+    t0 = time.time()
+    st_gpu, nochim_gpu = small_table("cuda")
+    t_gpu = time.time() - t0
+    t0 = time.time()
+    st_cpu, nochim_cpu = small_table("cpu")
+    t_cpu = time.time() - t0
+    try:
+        pd.testing.assert_frame_equal(st_gpu, st_cpu)
+        for m in nochim_gpu:
+            pd.testing.assert_frame_equal(nochim_gpu[m], nochim_cpu[m],
+                                          obj=m)
+    except AssertionError as e:
+        fail(f"the sam1F+sam2F chimera slice differs card vs CPU: {e}")
+    log(f"[table] sam1F+sam2F: sequence table {st_gpu.shape}; without "
+        f"bimeras: " + ", ".join(f"{m} {v.shape[1]} ASVs"
+                                 for m, v in nochim_gpu.items())
+        + f"; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; identical")
+
+    # 8. kernel B3's path: one center against every sam1F unique
+    codes, lens = pack_sequences(drp.sequences)
+    gkw = dict(match=5, mismatch=-4, gap_p=-8, band=16)
+    reset_launches()
+    t0 = time.time()
+    g_gpu = nww.nw_wavefront_grouped(codes[0], int(lens[0]), codes, lens,
+                                     device="cuda", **gkw)
+    t_gpu = time.time() - t0
+    n_b3 = launches["B3"]
+    g_cpu = nww.nw_wavefront_grouped(codes[0], int(lens[0]), codes, lens,
+                                     device="cpu", **gkw)
+    same = all(np.array_equal(a, b) for a, b in zip(g_gpu, g_cpu))
+    log(f"[grouped] sam1F center vs {len(lens)} uniques: card {t_gpu:.2f}s, "
+        f"B3 launches {n_b3}; kinds/p0/p1/ham/tvec/ok card == CPU: {same}; "
+        f"all tracebacks ok: {bool(g_gpu[5].all())}")
+    if not same or n_b3 <= 0 or not g_gpu[5].all():
+        fail("nw_wavefront_grouped on the card differs from the CPU or "
+             "never launched kernel B3")
+    _, arrays, ggeom = nww.grouped_inputs(codes[0], int(lens[0]), codes,
+                                          lens, 16)
+    gargs = [torch.from_numpy(a).to(dev) for a in arrays]
+    gkw3 = dict(match=5, mismatch=-4, gap_p=-8, emit_kinds=True, **ggeom)
+    got = nww.nw_wavefront(*gargs, **gkw3)
+    want = nww.nw_wavefront_ref(*gargs, **gkw3)
+    err_b["B3"] = max(err_b["B3"], max_abs_diff(got, want))
+    ms = cuda_ms(lambda: nww.nw_wavefront(*gargs, **gkw3), 20)
+    plain_ms = cuda_ms(lambda: nww.nw_wavefront_ref(*gargs, **gkw3), 2)
+    bound_ms, bound_by, detail = bound(gargs, got, arrays[0], arrays[1])
+    log(f"[time] kernel B3 at {arrays[0].shape[0]} blocks, WP="
+        f"{ggeom['WP']}: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({detail}); max |kernel - plain| "
+        f"= {err_b['B3']}; card {card}")
+    if err_b["B3"] != 0:
+        fail("kernel B3 disagrees with its plain version on the grouped "
+             "path's inputs")
+    rows["B3"] = dict(launches=n_b3, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+
+    # 9. the consensus chimera check at real size
+    mat, seqs = chimera_fixture()
+    st = pd.DataFrame(mat, index=[f"s{i}" for i in range(mat.shape[0])],
+                      columns=seqs)
+    copts = dt.options.current_options()
+    dt.PHASES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    bim = dt.is_bimera_denovo_table(st, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_b2, n_b1_tab = launches["B2"], launches["B1"]
+    peak = torch.cuda.max_memory_allocated()
+    pairs = chim._table_pairs(mat, 1.5, 2)
+    qi = np.ascontiguousarray(pairs[:, 0])
+    pi = np.ascontiguousarray(pairs[:, 1])
+    be, bopts = chim._chimera_backend(seqs, copts.MATCH, copts.MISMATCH,
+                                      copts.GAP_PENALTY, 16, dev)
+    plan = chim._pairs_plan(be, bopts, qi, pi)
+    route = ("pairs" if n_b2 > 0 and n_b1_tab == 0 else
+             "per-query" if n_b1_tab > 0 and n_b2 == 0 else "none")
+    nblocks = plan.qblk.shape[0] if plan is not None else 0
+    log(f"[chimera] is_bimera_denovo_table on {mat.shape[1]} ASVs x "
+        f"{mat.shape[0]} samples: {wall:.2f}s wall, {len(pairs)} pairs, "
+        f"{nblocks} blocks, B2 launches {n_b2}, B1 launches {n_b1_tab}, "
+        f"route {route}, {int(bim.sum())} bimeras flagged, "
+        f"max_memory_allocated {peak} bytes")
+    log(f"[chimera] phases: {dt.PHASES.summary()}")
+    if route != "pairs" or n_b2 <= 0:
+        fail("the table chimera check did not run through kernel B2")
+    rows["B2"] = dict(launches=n_b2)
+    t0 = time.time()
+    b2 = chim._pairs_lr_stats(be, bopts, qi, pi, 16, False)
+    t_b2 = time.time() - t0
+    nflag, nsam = chim._table_votes(mat, seqs, pairs, b2, 1.5, 2, False, 4)
+    is_bim = (nflag >= nsam) | ((nflag > 0) & (nflag >= (nsam - 1) * 0.9))
+    if not np.array_equal(is_bim, bim.values):
+        fail("the table run's flags differ from kernel B2's stats' votes")
+    # kernel B1's per-query route on the same pairs: the first 1000 query
+    # columns, and the rest if they fit PER_QUERY_SECONDS
+    cut = int(np.searchsorted(qi, 1000))
+    t0 = time.time()
+    b1 = chim._per_query_lr_stats(be, bopts, qi[:cut], pi[:cut], 16, False)
+    t_first = time.time() - t0
+    done = cut
+    if t_first * len(qi) / max(cut, 1) <= PER_QUERY_SECONDS:
+        rest = chim._per_query_lr_stats(be, bopts, qi[cut:], pi[cut:], 16,
+                                        False)
+        b1 = tuple(np.concatenate([a, r]) for a, r in zip(b1, rest))
+        done = len(qi)
+    t_b1 = time.time() - t0
+    same = all(np.array_equal(a[:done], b) for a, b in zip(b2, b1))
+    ncols = len(np.unique(qi[:done]))
+    log(f"[chimera] B2 route {t_b2:.2f}s for all {len(qi)} pairs; B1 "
+        f"per-query route {t_b1:.2f}s for {done} pairs of {ncols} query "
+        f"columns" + ("" if done == len(qi) else
+                      " (restricted to the first 1000 query columns: all "
+                      f"would take over {PER_QUERY_SECONDS:.0f}s)")
+        + f"; five lr/ham arrays identical: {same}")
+    if not same:
+        fail("kernel B2's route and kernel B1's per-query route disagree")
+    # the port on the CPU over the columns with the most pairs (the fewest
+    # such columns whose pairs number at least 5,000)
+    cnt = np.bincount(qi, minlength=mat.shape[1])
+    top = np.argsort(-cnt, kind="stable")
+    cols = top[: int(np.searchsorted(np.cumsum(cnt[top]), 5000)) + 1]
+    sub = np.isin(qi, cols)
+    t0 = time.time()
+    stats_cpu = chim._batch_lr_stats(pairs[sub], seqs, 16, copts.MATCH,
+                                     copts.MISMATCH, copts.GAP_PENALTY,
+                                     False, device="cpu")
+    nflag_c, nsam_c = chim._table_votes(mat, seqs, pairs[sub], stats_cpu,
+                                        1.5, 2, False, 4)
+    t_cpu = time.time() - t0
+    same = (np.array_equal(nflag_c[cols], nflag[cols])
+            and np.array_equal(nsam_c[cols], nsam[cols])
+            and all(np.array_equal(a, b[sub]) for a, b in zip(stats_cpu,
+                                                              b2)))
+    log(f"[chimera] CPU check: columns {cols.tolist()} ({int(sub.sum())} "
+        f"pairs) in {t_cpu:.2f}s: nflag {nflag[cols].tolist()}, nsam "
+        f"{nsam[cols].tolist()}; card == CPU: {same}")
+    if not same:
+        fail("the table's (nflag, nsam) on the card differ from the CPU")
+
+    # 10. kernel B2's time at one full launch of the table
+    CH = chim.CH_BLOCKS
+    args = chim._pairs_launch_inputs(be, plan, 0, CH)
+    gkw2 = dict(L1R=plan.L1R, L2R=plan.L2R, NDP=plan.NDP, WP=plan.WP,
+                match=copts.MATCH, mismatch=copts.MISMATCH,
+                gap_p=copts.GAP_PENALTY, emit_kinds="cls", s1_per_block=True)
+    got = nww.nw_wavefront(*args, **gkw2)
+    want = nww.nw_wavefront_ref(*args, **gkw2)
+    err_b["B2"] = max(err_b["B2"], max_abs_diff(got, want))
+    del want
+    ms = cuda_ms(lambda: nww.nw_wavefront(*args, **gkw2), 10)
+    plain_ms = cuda_ms(lambda: nww.nw_wavefront_ref(*args, **gkw2), 1)
+    bound_ms, bound_by, detail = bound(args, got, args[0].cpu().numpy(),
+                                       args[1].cpu().numpy())
+    log(f"[time] kernel B2 at one launch ({CH} blocks x 128 pairs, "
+        f"WP={plan.WP}, L1R={plan.L1R} L2R={plan.L2R} NDP={plan.NDP}): "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({detail}); max |kernel - plain| = {err_b['B2']}; "
+        f"card {card}")
+    if err_b["B2"] != 0:
+        fail("kernel B2 disagrees with its plain version on the table's "
+             "inputs")
+    rows["B2"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+    del args, got, be
+
+    # 11. where the table run's device time goes
+    profile_device("is_bimera_denovo_table run", lambda:
+                   dt.is_bimera_denovo_table(st, device="cuda"))
+
+    names = {"B1": "nw_wavefront compare (B1)",
+             "B2": "nw_wavefront pairs (B2)",
+             "B3": "nw_wavefront kinds (B3)"}
+    log(json.dumps({"kernels": [dict(
+        name=names[k], route="cuda",
+        source="dada2_tpu_torch/csrc/nw_wavefront.cu",
+        replaces="dada2_tpu/ops/nw_pallas.py:452",
+        max_abs_err=err_b[k], match=err_b[k] == 0, library_ms=None,
+        **rows[k]) for k in ("B1", "B2", "B3")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

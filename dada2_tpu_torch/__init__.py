@@ -7,8 +7,9 @@ Hopper card through a hand-written wavefront Needleman-Wunsch kernel
 (ops/nw_wavefront.py, csrc/nw_wavefront.cu). Entry points run on CUDA
 unless given device="cpu", and raise when there is no card.
 
-This slice ports the main path: derep_fastq -> dada (incl. selfConsist,
-pool, pseudo) -> learn_errors on one device.
+Ported so far: derep_fastq -> dada (incl. selfConsist, pool, pseudo) ->
+learn_errors on one device, then make_sequence_table ->
+remove_bimera_denovo (chimera removal through the kernel's pairs mode).
 """
 # Allocator policy first: large numpy temporaries must reuse heap pages
 # (see utils/hostmem.py).
@@ -25,6 +26,10 @@ from .errors import (loess_errfun, noqual_errfun, pacbio_errfun,
                      accumulate_trans)
 from .encode import rc, is_acgt
 from .learn import learn_errors
+from .seqtab import (make_sequence_table, merge_sequence_tables,
+                     get_uniques, get_sequences)
+from .chimeras import (is_bimera, is_bimera_denovo, is_bimera_denovo_table,
+                       remove_bimera_denovo)
 from .core.backend_cuda import CudaBackend
 from . import data, interop, trace
 from .trace import COUNTERS, PHASES, profile_trace

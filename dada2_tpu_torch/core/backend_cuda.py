@@ -361,25 +361,34 @@ class CudaBackend(CompareBackend):
         reference: R/dada.R:228-237 forces VECTORIZED off for them)."""
         return not opts.VECTORIZED_ALIGNMENT and opts.BAND_SIZE != 0
 
+    def _kernel_misfit(self, len1: int, opts: DadaOptions) -> Optional[str]:
+        """Why kernel B1 cannot serve a center of length len1 under opts
+        (ROADMAP A5), or None if it can; decided before any launch."""
+        if opts.BAND_SIZE <= 0:
+            return (f"BAND_SIZE={opts.BAND_SIZE}: only banded alignment "
+                    "runs on the wavefront kernel (ROADMAP A5)")
+        if self._scalar_mode(opts):
+            return ("VECTORIZED_ALIGNMENT=False: the scalar/homopolymer "
+                    "aligner is not ported yet (ROADMAP A5)")
+        wmax = int(self._pb.block_wp(len1, opts.BAND_SIZE).max())
+        if wmax > nww.WP_MAX:
+            return (f"window of {wmax} rows is wider than the wavefront "
+                    f"kernel's {nww.WP_MAX} (ROADMAP A5)")
+        NDP, L1R = self._pb.geometry()
+        if (self.device.type == "cuda"
+                and nww.pairs_per_block(L1R, self._pb.L2R, NDP, wmax) == 0):
+            return (f"window WP={wmax}, NDP={NDP} exceeds one block's "
+                    "shared memory (ROADMAP A5)")
+        return None
+
     def _kernel_geom(self, len1: int, opts: DadaOptions):
         """(per-block WP, NDP, L1R) for kernel B1 vs a center of length
         len1; raises for configurations the kernel does not serve."""
-        if opts.BAND_SIZE <= 0:
-            raise NotImplementedError(
-                f"BAND_SIZE={opts.BAND_SIZE}: only banded alignment runs "
-                "on the wavefront kernel (ROADMAP A5)")
-        if self._scalar_mode(opts):
-            raise NotImplementedError(
-                "VECTORIZED_ALIGNMENT=False: the scalar/homopolymer "
-                "aligner is not ported yet (ROADMAP A5)")
-        wp = self._pb.block_wp(len1, opts.BAND_SIZE)
+        why = self._kernel_misfit(len1, opts)
+        if why is not None:
+            raise NotImplementedError(why)
         NDP, L1R = self._pb.geometry()
-        wmax = int(wp.max())
-        if wmax > nww.WP_MAX:   # the shared-memory fit is checked at launch
-            raise NotImplementedError(
-                f"window of {wmax} rows is wider than the wavefront "
-                f"kernel's {nww.WP_MAX} (ROADMAP A5)")
-        return wp, NDP, L1R
+        return self._pb.block_wp(len1, opts.BAND_SIZE), NDP, L1R
 
     def _shroud_thr(self, kdist_cutoff: float):
         """[maxlen+1] table: row d holds the smallest integer minsum NOT

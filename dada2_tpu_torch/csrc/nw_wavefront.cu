@@ -1,13 +1,30 @@
-// Banded ends-free Needleman-Wunsch in compare mode (kernel B1), for Hopper.
+// Banded ends-free Needleman-Wunsch on the wavefront, for Hopper: one
+// kernel body in three modes, chosen at compile time.
 //
 // Replaces the TPU kernel dada2_tpu/ops/nw_pallas.py::_make_kernel as
-// launched by _pallas_call in compare mode (emit_kinds=False,
-// s1_per_block=False, end_gap_p=0; caller dada2_tpu/core/backend_tpu.py
-// _fused_align_base). Same arrays in and out, bit for bit:
+// launched by _pallas_call (end_gap_p = 0) in its three modes:
+//   B1 compare (emit_kinds=False, s1_per_block=False; caller
+//      dada2_tpu/core/backend_tpu.py _fused_align_base): one center s1
+//      shared by every lane;
+//   B2 pairs (emit_kinds="cls", s1_per_block=True; caller
+//      dada2_tpu/chimeras.py _pairs_lr_stats): every lane carries its own
+//      query, len1 is block-uniform; adds the per-diagonal alignment-column
+//      class;
+//   B3 kinds (emit_kinds=True; caller nw_pallas.py nw_pallas_grouped):
+//      as B1, adds the raw per-diagonal traceback kind.
+// Same arrays in and out, bit for bit:
 //   scal   [nb, 4]          int32  len1, len2max (C), rbmax, len2min per block
 //   params [nb, 8, 128]     int32  rows 0..2: len2, lband, rband per lane
-//   s1t    [L1R, 128]       int32  row m = center char s1[m-1]
+//   s1     [L1R, 128]       int32  row m = center char s1[m-1] (B1, B3), or
+//          [nb, L1R, 128]          per block and lane (B2)
 //   s2q    [nb, L2R, 128]   int32  row C-j = (qual << 2) | nt of s2[j-1]
+//   kinds  [nb, NDP, 128]   int32  B3: row d = traceback kind of the step
+//                                  taken on diagonal d (1 diag, 2 left,
+//                                  3 up), 0 where no step was taken;
+//                                  B2: row d = column class (1 s2-insertion
+//                                  = left, 2 s1-char vs gap = up,
+//                                  3 substitution, 4 match), 0 where no
+//                                  step was taken (not written in B1)
 //   sub    [nb, L2R, 128]   int32  row C-j = 1 + nt0 where the aligned
 //                                  column (i, j) is a substitution, else 0
 //   mapq   [nb, L1R, 128]   int32  row i: (q << 17) | (j << 3) | (nt1 + 2)
@@ -40,14 +57,30 @@
 // shared memory (ceil(NDP / 4) * WP bytes per pair) and never touch device
 // memory; the center and candidate columns are staged into shared memory
 // once, and lane 0 of the warp runs the traceback from shared memory.
-// The uniform-origin storage tricks, `halves` and the four-diagonal
-// chunking of the TPU kernel were workarounds for its layout and loop
-// overhead and are not reproduced.
+// The modes differ only in where the s1 column is staged from and in the
+// traceback's extra per-diagonal write, so they are template parameters of
+// one body. The uniform-origin storage tricks, `halves` and the
+// four-diagonal chunking of the TPU kernel were workarounds for its layout
+// and loop overhead and are not reproduced.
 #include <cuda_runtime.h>
 
 #define LANES 128
 #define NEG (-(1 << 29))
 #define SMEM_MAX 232448  // 227 KB: the most one block may use on sm_90
+
+enum Emit { EMIT_NONE = 0, EMIT_KINDS = 1, EMIT_CLS = 2 };
+
+struct Args {
+  const int* scal;
+  const int* params;
+  const int* s1;
+  const int* s2q;
+  int* kinds;
+  int* sub;
+  int* mapq;
+  int* endo;
+  int L1R, L2R, NDP, ppb, match, mismatch, gap_p;
+};
 
 __host__ __device__ static inline int pair_smem_bytes(int L1R, int L2R,
                                                       int NDP, int WP) {
@@ -62,18 +95,11 @@ __device__ __forceinline__ int origin(int d, int C, int rbmax) {
   return m > 0 ? m : 0;
 }
 
-template <int RPT>
-__global__ void nw_compare_kernel(const int* __restrict__ scal,
-                                  const int* __restrict__ params,
-                                  const int* __restrict__ s1t,
-                                  const int* __restrict__ s2q,
-                                  int* __restrict__ sub,
-                                  int* __restrict__ mapq,
-                                  int* __restrict__ endo, int L1R, int L2R,
-                                  int NDP, int ppb, int match, int mismatch,
-                                  int gap_p) {
+template <int RPT, bool S1LANE, int EMIT>
+__global__ void nw_wavefront_kernel(const Args a) {
   constexpr int WP = RPT * 32;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int L1R = a.L1R, L2R = a.L2R, NDP = a.NDP, ppb = a.ppb;
   const int per_pair = pair_smem_bytes(L1R, L2R, NDP, WP);
   const int warp = threadIdx.x >> 5;
   const int t = threadIdx.x & 31;
@@ -85,19 +111,26 @@ __global__ void nw_compare_kernel(const int* __restrict__ scal,
   for (int k = threadIdx.x; k < L2R * ppb; k += blockDim.x) {
     int row = k / ppb, l = k % ppb;
     size_t g = ((size_t)b * L2R + row) * LANES + lane0 + l;
-    sub[g] = 0;
+    a.sub[g] = 0;
     int* s2c = (int*)(smem + (size_t)l * per_pair);
-    s2c[row] = s2q[g];
+    s2c[row] = a.s2q[g];
   }
   for (int k = threadIdx.x; k < L1R * ppb; k += blockDim.x) {
     int row = k / ppb, l = k % ppb;
-    mapq[((size_t)b * L1R + row) * LANES + lane0 + l] = 0;
+    size_t g = ((size_t)b * L1R + row) * LANES + lane0 + l;
+    a.mapq[g] = 0;
     int* s1c = (int*)(smem + (size_t)l * per_pair) + L2R;
-    s1c[row] = s1t[(size_t)row * LANES + lane0 + l];
+    s1c[row] = S1LANE ? a.s1[g] : a.s1[(size_t)row * LANES + lane0 + l];
+  }
+  if (EMIT != EMIT_NONE) {
+    for (int k = threadIdx.x; k < NDP * ppb; k += blockDim.x) {
+      int row = k / ppb, l = k % ppb;
+      a.kinds[((size_t)b * NDP + row) * LANES + lane0 + l] = 0;
+    }
   }
   for (int k = threadIdx.x; k < 6 * ppb; k += blockDim.x) {
     int row = 2 + k / ppb, l = k % ppb;
-    endo[((size_t)b * 8 + row) * LANES + lane0 + l] = 0;
+    a.endo[((size_t)b * 8 + row) * LANES + lane0 + l] = 0;
   }
   __syncthreads();
 
@@ -108,12 +141,12 @@ __global__ void nw_compare_kernel(const int* __restrict__ scal,
   unsigned char* slab =
       smem + (size_t)warp * per_pair + 4 * (L2R + L1R + 3 * WP);
 
-  const int len1 = scal[b * 4 + 0];
-  const int C = scal[b * 4 + 1];
-  const int rbmax = scal[b * 4 + 2];
-  const int l2 = params[((size_t)b * 8 + 0) * LANES + lane];
-  const int lb = params[((size_t)b * 8 + 1) * LANES + lane];
-  const int rb = params[((size_t)b * 8 + 2) * LANES + lane];
+  const int len1 = a.scal[b * 4 + 0];
+  const int C = a.scal[b * 4 + 1];
+  const int rbmax = a.scal[b * 4 + 2];
+  const int l2 = a.params[((size_t)b * 8 + 0) * LANES + lane];
+  const int lb = a.params[((size_t)b * 8 + 1) * LANES + lane];
+  const int rb = a.params[((size_t)b * 8 + 2) * LANES + lane];
   const int nd = len1 + l2;  // later diagonals never reach the traceback
   const size_t e0 = ((size_t)b * 8 + 0) * LANES + lane;
   const size_t e1 = ((size_t)b * 8 + 1) * LANES + lane;
@@ -122,8 +155,8 @@ __global__ void nw_compare_kernel(const int* __restrict__ scal,
   if (len1 < 0 || l2 < 0 || l2 > C || C > L2R || len1 >= L1R ||
       len1 + C >= NDP) {
     if (t == 0) {
-      endo[e0] = len1 > 0 ? len1 : 1;
-      endo[e1] = l2;
+      a.endo[e0] = len1 > 0 ? len1 : 1;
+      a.endo[e1] = l2;
     }
     return;
   }
@@ -138,6 +171,7 @@ __global__ void nw_compare_kernel(const int* __restrict__ scal,
   }
   __syncwarp();
 
+  const int match = a.match, mismatch = a.mismatch, gap_p = a.gap_p;
   const int j_first = lb < len1 ? len1 - lb : 0;
   const int i_first = rb < l2 ? l2 - rb : 0;
   unsigned acc[RPT];
@@ -238,8 +272,12 @@ __global__ void nw_compare_kernel(const int* __restrict__ scal,
 
   // ---- traceback from (len1, len2) ----
   // The cell in hand always lies on diagonal d = i + j (a diagonal step
-  // skips one diagonal, on which the TPU kernel's loop idles).
+  // skips one diagonal, on which the TPU kernel's loop idles and writes
+  // kind / class 0).
   if (t != 0) return;
+  // row d of this lane's kinds / class column sits at emit[d * LANES]
+  int* emit =
+      EMIT == EMIT_NONE ? nullptr : a.kinds + (size_t)b * NDP * LANES + lane;
   int i = len1, j = l2;
   while (i + j >= 1) {
     const int d = i + j;
@@ -247,32 +285,41 @@ __global__ void nw_compare_kernel(const int* __restrict__ scal,
     const int kind =
         (r >= 0 && r < WP) ? (slab[(d >> 2) * WP + r] >> (2 * (d & 3))) & 3
                            : 0;
+    if (EMIT == EMIT_KINDS) emit[(size_t)d * LANES] = kind;
     if (kind == 1) {
       const int c1 = s1c[i];
       const int sq = s2c[C - j];
       const int c2 = sq & 3;
-      if (c1 != c2) sub[((size_t)b * L2R + C - j) * LANES + lane] = c1 + 1;
-      mapq[((size_t)b * L1R + i) * LANES + lane] =
+      if (c1 != c2) a.sub[((size_t)b * L2R + C - j) * LANES + lane] = c1 + 1;
+      if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = c1 != c2 ? 3 : 4;
+      a.mapq[((size_t)b * L1R + i) * LANES + lane] =
           ((sq >> 2) << 17) | (j << 3) | (c2 + 2);
       --i;
       --j;
     } else if (kind == 3) {
-      mapq[((size_t)b * L1R + i) * LANES + lane] = 1;
+      if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = 2;
+      a.mapq[((size_t)b * L1R + i) * LANES + lane] = 1;
       --i;
     } else if (kind == 2) {
+      if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = 1;
       --j;
     } else {
-      break;  // no pointer here: the traceback is stuck, end != (0, 0)
+      // no pointer here: the traceback is stuck, end != (0, 0). The TPU
+      // kernel still classes this active step (as 4, "not an insertion,
+      // gap or substitution"), so the class row does too.
+      if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = 4;
+      break;
     }
   }
-  endo[e0] = i;
-  endo[e1] = j;
+  a.endo[e0] = i;
+  a.endo[e1] = j;
 }
 
 // Pairs (warps) per block: the largest of 4, 2, 1 whose shared memory fits
 // one block's 227 KB; 0 if even one pair does not fit or WP is not a
 // multiple of 32 up to 128. This is the one place that decides the fit
-// (the TPU kernel's VMEM_SLAB_CAP check does not carry over).
+// (the TPU kernel's VMEM_SLAB_CAP check does not carry over). The modes
+// share the layout: the kinds / class rows go straight to device memory.
 extern "C" int nw_wavefront_pairs_per_block(int L1R, int L2R, int NDP,
                                             int WP) {
   if (WP < 32 || WP > 128 || WP % 32) return 0;
@@ -282,49 +329,61 @@ extern "C" int nw_wavefront_pairs_per_block(int L1R, int L2R, int NDP,
   return 0;
 }
 
-template <int RPT>
-static int launch(const int* scal, const int* params, const int* s1t,
-                  const int* s2q, int* sub, int* mapq, int* endo, int nb,
-                  int L1R, int L2R, int NDP, int ppb, int match, int mismatch,
-                  int gap_p, cudaStream_t stream) {
-  const int bytes = ppb * pair_smem_bytes(L1R, L2R, NDP, RPT * 32);
+template <int RPT, bool S1LANE, int EMIT>
+static int launch(const Args& a, int nb, cudaStream_t stream) {
+  const int bytes = a.ppb * pair_smem_bytes(a.L1R, a.L2R, a.NDP, RPT * 32);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nw_compare_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        nw_wavefront_kernel<RPT, S1LANE, EMIT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(nb * (LANES / ppb)), block(32 * ppb);
-  nw_compare_kernel<RPT><<<grid, block, bytes, stream>>>(
-      scal, params, s1t, s2q, sub, mapq, endo, L1R, L2R, NDP, ppb, match,
-      mismatch, gap_p);
+  dim3 grid(nb * (LANES / a.ppb)), block(32 * a.ppb);
+  nw_wavefront_kernel<RPT, S1LANE, EMIT><<<grid, block, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Launches kernel B1 on `stream`; returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue if the window does not
-// fit one block (nw_wavefront_pairs_per_block == 0).
-extern "C" int nw_wavefront_compare(const int* scal, const int* params,
-                                    const int* s1t, const int* s2q, int* sub,
-                                    int* mapq, int* endo, int nb, int L1R,
-                                    int L2R, int NDP, int WP, int match,
-                                    int mismatch, int gap_p, void* stream) {
+template <bool S1LANE, int EMIT>
+static int launch_wp(const Args& a, int nb, int WP, cudaStream_t stream) {
+  switch (WP / 32) {
+    case 1:
+      return launch<1, S1LANE, EMIT>(a, nb, stream);
+    case 2:
+      return launch<2, S1LANE, EMIT>(a, nb, stream);
+    case 3:
+      return launch<3, S1LANE, EMIT>(a, nb, stream);
+    default:
+      return launch<4, S1LANE, EMIT>(a, nb, stream);
+  }
+}
+
+// Launches one mode on `stream`: mode 1 = B1 compare, 2 = B2 pairs (s1 per
+// block and lane, class rows into `kinds`), 3 = B3 kinds (shared s1, kind
+// rows into `kinds`); `kinds` is unused in mode 1. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for an unknown mode or a window that does not fit
+// one block (nw_wavefront_pairs_per_block == 0).
+extern "C" int nw_wavefront_run(const int* scal, const int* params,
+                                const int* s1, const int* s2q, int* kinds,
+                                int* sub, int* mapq, int* endo, int nb,
+                                int L1R, int L2R, int NDP, int WP, int mode,
+                                int match, int mismatch, int gap_p,
+                                void* stream) {
   if (nb <= 0) return 0;
   const int ppb = nw_wavefront_pairs_per_block(L1R, L2R, NDP, WP);
   if (ppb == 0) return (int)cudaErrorInvalidValue;
+  const Args a = {scal, params, s1,  s2q, kinds, sub,      mapq,
+                  endo, L1R,    L2R, NDP, ppb,   match, mismatch,
+                  gap_p};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (WP / 32) {
+  switch (mode) {
     case 1:
-      return launch<1>(scal, params, s1t, s2q, sub, mapq, endo, nb, L1R, L2R,
-                       NDP, ppb, match, mismatch, gap_p, s);
+      return launch_wp<false, EMIT_NONE>(a, nb, WP, s);
     case 2:
-      return launch<2>(scal, params, s1t, s2q, sub, mapq, endo, nb, L1R, L2R,
-                       NDP, ppb, match, mismatch, gap_p, s);
+      return launch_wp<true, EMIT_CLS>(a, nb, WP, s);
     case 3:
-      return launch<3>(scal, params, s1t, s2q, sub, mapq, endo, nb, L1R, L2R,
-                       NDP, ppb, match, mismatch, gap_p, s);
+      return launch_wp<false, EMIT_KINDS>(a, nb, WP, s);
     default:
-      return launch<4>(scal, params, s1t, s2q, sub, mapq, endo, nb, L1R, L2R,
-                       NDP, ppb, match, mismatch, gap_p, s);
+      return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,13 +1,19 @@
-"""Wavefront banded ends-free Needleman-Wunsch, compare mode (kernel B1).
+"""Wavefront banded ends-free Needleman-Wunsch (kernels B1, B2, B3).
 
-`nw_compare` keeps the interface of the TPU kernel it replaces
-(dada2_tpu/ops/nw_pallas.py::_pallas_call in compare mode: emit_kinds=False,
-s1_per_block=False, end_gap_p=0): the same scal/params/s1t/s2q in and the
-same sub/mapq/end out, so the two compare array for array. On a CUDA
-tensor it launches the hand-written Hopper kernel in
-csrc/nw_wavefront.cu (built with nvcc at first use, loaded through
-ctypes); on a CPU tensor it runs `nw_compare_ref`, the plain PyTorch
-version of the same recurrences. There is no fallback between the two.
+`nw_wavefront` keeps the interface of the TPU kernel it replaces
+(dada2_tpu/ops/nw_pallas.py::_pallas_call with end_gap_p=0): the same
+scal/params/s1/s2q in and the same list of arrays out, so the two compare
+array for array. It serves the TPU kernel's three modes:
+
+  B1 compare  emit_kinds=False, s1_per_block=False  (the dada() sweep)
+  B2 pairs    emit_kinds="cls", s1_per_block=True   (chimera removal)
+  B3 kinds    emit_kinds=True,  s1_per_block=False  (nw_wavefront_grouped)
+
+On CUDA tensors it launches the hand-written Hopper kernel in
+csrc/nw_wavefront.cu (one source, the modes are template variants; built
+with nvcc at first use, loaded through ctypes); on CPU tensors it runs
+`nw_wavefront_ref`, the plain PyTorch version of the same recurrences.
+There is no fallback between the two. `nw_compare` is the B1 call.
 
 Semantics are those of ops/nw_ref.py mode="vec" (reference:
 src/nwalign_vectorized.cpp:71-318): tie precedence up >= left > diag, band
@@ -35,6 +41,10 @@ NEG = -(2**29)
 LANES = 128
 WP_MAX = 128    # widest window (rows) the kernel serves, in steps of 32
 
+# (emit_kinds, s1_per_block) -> (name, the C entry's mode number)
+MODES = {(False, False): ("B1", 1), ("cls", True): ("B2", 2),
+         (True, False): ("B3", 3)}
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "nw_wavefront.cu")
 _BUILD_DIR = os.path.join(_PKG, "build")
@@ -57,7 +67,8 @@ def _nvcc() -> str:
 def build_kernel() -> str:
     """Compile csrc/nw_wavefront.cu for sm_90a into build/ (if the library
     is missing or older than its source) and return the compiler's
-    `-Xptxas -v` report (registers, shared memory, spills)."""
+    `-Xptxas -v` report (registers, shared memory, spills) for every
+    instantiation (window widths 32..128 x the three modes)."""
     with _lock:
         fresh = (os.path.exists(_SO) and os.path.exists(_PTXAS_LOG)
                  and os.path.getmtime(_SO) >= os.path.getmtime(_SRC))
@@ -87,8 +98,8 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(_SO)
             V, I = ctypes.c_void_p, ctypes.c_int
-            lib.nw_wavefront_compare.restype = I
-            lib.nw_wavefront_compare.argtypes = [V] * 7 + [I] * 8 + [V]
+            lib.nw_wavefront_run.restype = I
+            lib.nw_wavefront_run.argtypes = [V] * 8 + [I] * 9 + [V]
             lib.nw_wavefront_pairs_per_block.restype = I
             lib.nw_wavefront_pairs_per_block.argtypes = [I] * 4
             _lib = lib
@@ -105,10 +116,11 @@ def pairs_per_block(L1R: int, L2R: int, NDP: int, WP: int) -> int:
 
 # ---- the wrapper ---------------------------------------------------------
 
-def _check(scal, params, s1t, s2q, L1R, L2R, WP):
+def _check(scal, params, s1, s2q, L1R, L2R, WP, s1_per_block):
     nb = s2q.shape[0] if s2q.dim() == 3 else -1
+    s1_shape = (nb, L1R, LANES) if s1_per_block else (L1R, LANES)
     want = {"scal": (scal, (nb, 4)), "params": (params, (nb, 8, LANES)),
-            "s1t": (s1t, (L1R, LANES)), "s2q": (s2q, (nb, L2R, LANES))}
+            "s1": (s1, s1_shape), "s2q": (s2q, (nb, L2R, LANES))}
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, "
@@ -124,60 +136,86 @@ def _check(scal, params, s1t, s2q, L1R, L2R, WP):
                          f"up to {WP_MAX}")
 
 
-def nw_compare(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
-               WP: int, match: int, mismatch: int, gap_p: int):
-    """Kernel B1: align one center (s1t) against nb blocks of 128
-    candidates (s2q). Returns (sub [nb, L2R, 128], mapq [nb, L1R, 128],
-    end [nb, 8, 128]), all int32, in the TPU kernel's layouts (see
-    csrc/nw_wavefront.cu). Ends-free (end_gap_p = 0) requires gap_p < 0.
+def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
+                 WP: int, match: int, mismatch: int, gap_p: int,
+                 emit_kinds=False, s1_per_block: bool = False):
+    """The wavefront kernel in one of its three modes (see the module
+    docstring): align nb blocks of 128 pairs, s1 against s2q. Returns
+    [kinds [nb, NDP, 128] unless B1,] sub [nb, L2R, 128], mapq
+    [nb, L1R, 128], end [nb, 8, 128], all int32, in the TPU kernel's
+    layouts (see csrc/nw_wavefront.cu). Ends-free (end_gap_p = 0)
+    requires gap_p < 0.
 
-    CUDA tensors launch the kernel on the current stream (and count one
-    launch in nw_compare.launches); CPU tensors run nw_compare_ref."""
-    _check(scal, params, s1t, s2q, L1R, L2R, WP)
+    CUDA tensors launch the kernel on the current stream and count one
+    launch in nw_wavefront.launches[mode]; CPU tensors run
+    nw_wavefront_ref."""
+    mode = MODES.get((emit_kinds, bool(s1_per_block)))
+    if mode is None:
+        raise ValueError(f"emit_kinds={emit_kinds!r}, s1_per_block="
+                         f"{s1_per_block} is none of the kernel's modes "
+                         f"{sorted(MODES, key=str)}")
+    _check(scal, params, s1, s2q, L1R, L2R, WP, s1_per_block)
     if gap_p >= 0:
-        raise ValueError("compare mode is ends-free: gap_p must be < 0")
+        raise ValueError("the kernel is ends-free: gap_p must be < 0")
+    geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=WP, match=match,
+                mismatch=mismatch, gap_p=gap_p, emit_kinds=emit_kinds,
+                s1_per_block=s1_per_block)
     dev = s2q.device
     if dev.type == "cpu":
-        return nw_compare_ref(scal, params, s1t, s2q, L1R=L1R, L2R=L2R,
-                              NDP=NDP, WP=WP, match=match,
-                              mismatch=mismatch, gap_p=gap_p)
+        return nw_wavefront_ref(scal, params, s1, s2q, **geom)
     if dev.type != "cuda":
-        raise ValueError(f"nw_compare runs on cuda or cpu, not {dev}")
+        raise ValueError(f"nw_wavefront runs on cuda or cpu, not {dev}")
     if pairs_per_block(L1R, L2R, NDP, WP) == 0:
         raise NotImplementedError(
             f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
             "(ROADMAP A5: the scalar/wide-window aligner)")
     nb = s2q.shape[0]
-    sub = torch.empty((nb, L2R, LANES), dtype=torch.int32, device=dev)
-    mapq = torch.empty((nb, L1R, LANES), dtype=torch.int32, device=dev)
-    end = torch.empty((nb, 8, LANES), dtype=torch.int32, device=dev)
+    outs = [torch.empty((nb, rows, LANES), dtype=torch.int32, device=dev)
+            for rows in (L2R, L1R, 8)]
+    if emit_kinds:
+        outs.insert(0, torch.empty((nb, NDP, LANES), dtype=torch.int32,
+                                   device=dev))
     if nb == 0:
-        return sub, mapq, end
+        return outs
+    kinds_ptr = outs[0].data_ptr() if emit_kinds else None
+    sub, mapq, end = outs[-3:]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _load().nw_wavefront_compare(
-        scal.data_ptr(), params.data_ptr(), s1t.data_ptr(), s2q.data_ptr(),
-        sub.data_ptr(), mapq.data_ptr(), end.data_ptr(), nb, L1R, L2R, NDP,
-        WP, int(match), int(mismatch), int(gap_p), stream)
+    rc = _load().nw_wavefront_run(
+        scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
+        kinds_ptr, sub.data_ptr(), mapq.data_ptr(), end.data_ptr(), nb,
+        L1R, L2R, NDP, WP, mode[1], int(match), int(mismatch), int(gap_p),
+        stream)
     if rc != 0:
-        raise RuntimeError(f"nw_wavefront kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"nw_wavefront kernel {mode[0]} launch failed: "
+                           f"CUDA error {rc}")
     with _count_lock:   # multi-sample dada() launches from worker threads
-        nw_compare.launches += 1
-    return sub, mapq, end
+        nw_wavefront.launches[mode[0]] += 1
+    return outs
 
 
-nw_compare.launches = 0
+nw_wavefront.launches = {name: 0 for name, _ in MODES.values()}
 _count_lock = threading.Lock()
+
+
+def nw_compare(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
+               WP: int, match: int, mismatch: int, gap_p: int):
+    """Kernel B1: align one center (s1t [L1R, 128]) against nb blocks of
+    128 candidates (s2q). Returns (sub, mapq, end)."""
+    return tuple(nw_wavefront(scal, params, s1t, s2q, L1R=L1R, L2R=L2R,
+                              NDP=NDP, WP=WP, match=match,
+                              mismatch=mismatch, gap_p=gap_p))
 
 
 # ---- the plain PyTorch version -------------------------------------------
 
-def nw_compare_ref(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
-                   WP: int, match: int, mismatch: int, gap_p: int):
-    """Plain PyTorch version of kernel B1, batched over every pair (lane)
-    and window row: one vectorized step per anti-diagonal for the fill,
-    one per diagonal for the traceback. Same inputs, outputs and
-    semantics as the kernel (including its geometry guard)."""
+def nw_wavefront_ref(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
+                     WP: int, match: int, mismatch: int, gap_p: int,
+                     emit_kinds=False, s1_per_block: bool = False):
+    """Plain PyTorch version of the kernel in all three modes, batched over
+    every pair (lane) and window row: one vectorized step per
+    anti-diagonal for the fill, one per diagonal for the traceback. Same
+    inputs, outputs and semantics as the kernel (including its geometry
+    guard)."""
     dev = s2q.device
     nb = s2q.shape[0]
     P = nb * LANES
@@ -193,7 +231,10 @@ def nw_compare_ref(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
     l2 = params[blk, 0, lane]
     lb = params[blk, 1, lane]
     rb = params[blk, 2, lane]
-    s1c = s1t.to(i64).t()[lane]                               # [P, L1R]
+    if s1_per_block:
+        s1c = s1.to(i64).permute(0, 2, 1).reshape(P, L1R)     # [P, L1R]
+    else:
+        s1c = s1.to(i64).t()[lane]
     s2c = s2q.to(i64).permute(0, 2, 1).reshape(P, L2R)        # [P, L2R]
     fail = ((len1 < 0) | (l2 < 0) | (l2 > C) | (C > L2R) | (len1 >= L1R)
             | (len1 + C >= NDP))
@@ -270,6 +311,8 @@ def nw_compare_ref(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
     # on diagonal d while i + j == d
     sub = torch.zeros((P, L2R), dtype=i64, device=dev)
     mapq = torch.zeros((P, L1R), dtype=i64, device=dev)
+    kinds = (torch.zeros((P, NDP), dtype=i64, device=dev) if emit_kinds
+             else None)
     i = torch.where(fail, torch.clamp_min(len1, 1), len1)
     j = l2.clone()
     alive = ~fail
@@ -287,6 +330,15 @@ def nw_compare_ref(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
         sq = s2c[pid, jrow]
         c2 = sq & 3
         issub = diag & (c1 != c2)
+        if emit_kinds == "cls":
+            # column class: kind 2 (left) -> 1, kind 3 (up) -> 2, a
+            # diagonal -> 3 (substitution) or 4 (match); an active step
+            # with no pointer (stuck traceback) also reads 4
+            cls = torch.where(kind == 2, 1, torch.where(
+                up, 2, torch.where(issub, 3, 4)))
+            kinds[:, d] = torch.where(act, cls, 0)
+        elif emit_kinds:
+            kinds[:, d] = kind
         sub[pid[issub], jrow[issub]] = c1[issub] + 1
         rec = torch.where(diag, ((sq >> 2) << 17) | (j << 3) | (c2 + 2), 1)
         take1 = diag | up
@@ -301,7 +353,130 @@ def nw_compare_ref(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
         return x.reshape(nb, LANES, -1).permute(0, 2, 1).contiguous().to(
             torch.int32)
 
-    return blocks(sub), blocks(mapq), blocks(end)
+    outs = [blocks(sub), blocks(mapq), blocks(end)]
+    if emit_kinds:
+        outs.insert(0, blocks(kinds))
+    return outs
+
+
+# ---- B3's host side: one center against candidates of any lengths --------
+
+def derive_from_kinds(kinds, s1pad, len1b, s2pad, len2b, *, nd):
+    """Positions, hamming and transition vectors from diagonal-indexed step
+    kinds (counterpart of nw_pallas.derive_from_kinds).
+
+    At diagonal d the pair is at (i, j) with i + j = d; after the step its
+    position is len - (suffix count of consumed steps), so one reversed
+    cumsum per axis reconstructs p0/p1 without a sequential walk.
+    Returns (p0, p1, ham, tvec int8, ok), one row per pair."""
+    i64 = torch.int64
+    kinds = kinds[:, :nd].to(i64)
+    n, W2 = s2pad.shape
+    W1 = s1pad.shape[1]
+    l1 = len1b.to(i64)[:, None]
+    l2 = len2b.to(i64)[:, None]
+    takes1 = ((kinds == 1) | (kinds == 3)).to(i64)
+    takes2 = ((kinds == 1) | (kinds == 2)).to(i64)
+    cum1 = takes1.flip(1).cumsum(1).flip(1)
+    cum2 = takes2.flip(1).cumsum(1).flip(1)
+    p0 = l1 - cum1
+    p1 = l2 - cum2
+    diag = kinds == 1
+    s1 = s1pad.to(i64)
+    s2 = s2pad.to(i64)
+    nt0 = torch.gather(s1, 1, p0.clamp(0, W1 - 1))
+    nt1 = torch.gather(s2, 1, p1.clamp(0, W2 - 1))
+    ham = (diag & (nt0 != nt1)).sum(1)
+    pos = torch.arange(W2, device=s2.device)[None, :]
+    tvec = torch.where(pos < l2, 5 * s2, 16)
+    # non-diagonal steps land in a spare column W2, which is cut off (the
+    # TPU post-pass drops them with an out-of-range scatter)
+    tvec = torch.cat([tvec, torch.zeros_like(tvec[:, :1])], 1)
+    tvec.scatter_(1, torch.where(diag, p1, W2),
+                  torch.where(diag, 4 * nt0 + nt1, 0))
+    tvec = tvec[:, :W2]
+    if nd > 0:
+        ok = (cum1[:, 0] == l1[:, 0]) & (cum2[:, 0] == l2[:, 0])
+    else:
+        ok = (l1[:, 0] + l2[:, 0]) == 0
+    return p0, p1, ham, tvec.to(torch.int8), ok
+
+
+def grouped_inputs(s1: np.ndarray, len1: int, s2b, len2b, band: int):
+    """Kernel B3's inputs for one center against candidates: length-sorted
+    128-lane blocks (as nw_pallas.nw_pallas_grouped lays them out).
+    Returns (block_idx, (scal, params, s1t, s2q) as numpy, geometry)."""
+    s2b = np.asarray(s2b)
+    len2b = np.asarray(len2b, np.int64)
+    block_idx = assemble_blocks(s2b, len2b)
+    nblocks = block_idx.shape[0]
+    W = max(block_window(len1, len2b[block_idx[bi]], band)
+            for bi in range(nblocks))
+    WP = _round_up(max(W, 8), 32)
+    NDP = _round_up(len1 + int(len2b.max()) + 1, 8)
+    L1R = _round_up(len1 + 1 + WP, 8)
+    L2R = _round_up(int(len2b.max()) + WP, 8)
+    s2r = pack_s2_blocks(s2b, len2b, block_idx, L2R)
+    scal = np.zeros((nblocks, 4), np.int32)
+    params = np.zeros((nblocks, 8, LANES), np.int32)
+    for bi in range(nblocks):
+        l2 = len2b[block_idx[bi]]
+        if band < 0:
+            lb = np.full(LANES, len1)
+            rb = l2
+        else:
+            lb = band + np.maximum(0, len1 - l2)
+            rb = band + np.maximum(0, l2 - len1)
+        scal[bi] = (len1, int(l2.max()), int(rb.max()), int(l2.min()))
+        params[bi, 0] = l2
+        params[bi, 1] = lb
+        params[bi, 2] = rb
+    s1t = np.zeros((L1R, LANES), np.int32)
+    s1t[1: 1 + len1, :] = np.asarray(s1[:len1], np.int32)[:, None]
+    geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=WP)
+    return block_idx, (scal, params, s1t, s2r), geom
+
+
+def nw_wavefront_grouped(s1: np.ndarray, len1: int, s2b, len2b, *, match,
+                         mismatch, gap_p, band=16, device=None):
+    """Align one center against candidates (any length mix) with kernel B3
+    (counterpart of nw_pallas.nw_pallas_grouped, ends-free). Results are
+    returned in the ORIGINAL row order: (kinds [n, nd], p0, p1, ham [n],
+    tvec [n, L2], ok [n]) as numpy, in the traceback-order convention
+    shared with dada2_tpu's ops/nw_batch.nw_batch. device: "cuda" by
+    default (raises without a card) or "cpu" for the plain version."""
+    from ..core.backend_cuda import resolve_device
+
+    dev = resolve_device(device)
+    s2b = np.asarray(s2b)
+    len2b = np.asarray(len2b, np.int64)
+    n = s2b.shape[0]
+    block_idx, arrays, geom = grouped_inputs(s1, len1, s2b, len2b, band)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    kinds_blocks = nw_wavefront(
+        *(put(a) for a in arrays), match=int(match), mismatch=int(mismatch),
+        gap_p=int(gap_p), emit_kinds=True, **geom)[0]
+
+    # un-block: rows for the first occurrence of each original index
+    flat_idx = block_idx.reshape(-1)
+    inv = np.full(n, -1, np.int64)
+    inv[flat_idx[::-1]] = np.arange(len(flat_idx))[::-1]
+    kb = kinds_blocks.permute(0, 2, 1).reshape(flat_idx.shape[0], -1)
+    kinds = kb[put(inv)]
+
+    s1row = put(np.asarray(s1[:len1]).astype(np.int8))
+    p0, p1, ham, tvec, ok = derive_from_kinds(
+        kinds, s1row[None, :].expand(n, len1),
+        torch.full((n,), len1, dtype=torch.int64, device=dev),
+        put(s2b.astype(np.int8)), put(len2b), nd=geom["NDP"])
+    # kinds rows are diagonal-ascending = forward alignment order; flip to
+    # the traceback-reverse convention shared with nw_batch
+    return (kinds.flip(1).cpu().numpy(), p0.flip(1).cpu().numpy(),
+            p1.flip(1).cpu().numpy(), ham.cpu().numpy(),
+            tvec.cpu().numpy(), ok.cpu().numpy())
 
 
 # ---- host helpers (copies of dada2_tpu/ops/nw_pallas.py) -------------------

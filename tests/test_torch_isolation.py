@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -17,7 +18,8 @@ ROOT = PKG.parent
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, dada2_tpu_torch; "
+    code = ("import sys, dada2_tpu_torch, dada2_tpu_torch.chimeras, "
+            "dada2_tpu_torch.seqtab; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'dada2_tpu' "
             "or m.startswith('dada2_tpu.')]; print(bad)")
@@ -54,6 +56,21 @@ def test_default_device_raises_without_card(extdata):
                         dt.DEFAULT_OPTIONS, 0, False)
 
 
+def test_chimera_default_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    rng = np.random.default_rng(42)
+    a, b = ("".join("ACGT"[i] for i in rng.integers(0, 4, 120))
+            for _ in range(2))
+    st = pd.DataFrame([[100, 80, 5], [50, 60, 3]], index=["s1", "s2"],
+                      columns=[a, b, a[:60] + b[60:]])
+    for method in ("consensus", "pooled", "per-sample"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dt.remove_bimera_denovo(st, method=method)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dt.is_bimera(a[:60] + b[60:], [a, b])
+
+
 def test_mesh_raises(extdata):
     drp = dt.derep_fastq(str(extdata / "sam1F.fastq.gz"))
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
@@ -68,9 +85,9 @@ def test_cpu_device_runs_plain_version():
     rs = dt.core.raws.make_rawset(["ACGTACGTAC" * 3, "ACGTACGTAA" * 3],
                                   [3, 1])
     be = dt.CudaBackend(rs, device="cpu")
-    before = nww.nw_compare.launches
+    before = dict(nww.nw_wavefront.launches)
     lam, ham = be.compare(0, np.zeros(2, bool), dt.DEFAULT_OPTIONS,
                           dt.data.tperr1(), False, 1.0)
-    assert nww.nw_compare.launches == before
+    assert nww.nw_wavefront.launches == before
     assert ham.tolist() == [0, 3]
     assert lam[0] > lam[1] > 0

@@ -1,0 +1,208 @@
+"""Parity: the plain PyTorch version of the wavefront kernel's pairs mode
+(B2) and kinds mode (B3), what nw_wavefront runs on CPU tensors, against
+the TPU Pallas kernel in the same modes, run in interpret mode; and
+nw_wavefront_grouped against nw_pallas_grouped. Tolerance: exact (every
+output is an integer or a boolean). The CUDA kernel itself is held against
+the plain version on the card by chip_smoke.py and the gpu-marked test."""
+import numpy as np
+import pytest
+import torch
+
+from dada2_tpu.ops import nw_pallas as nwp
+from dada2_tpu_torch.ops import nw_wavefront as nww
+from test_torch_nw_wavefront import _mutate, make_inputs
+
+LANES = nww.LANES
+GEOM = dict(match=5, mismatch=-4, gap_p=-8)
+
+
+def pairs_inputs(rng, blocks, band=16):
+    """Pairs-mode kernel inputs: blocks is a list of (len1, pairs) with
+    pairs a list of (query [len1], parent) code arrays, at most 128 per
+    block; pad lanes repeat lane 0 of their block, as the chimera route
+    lays them out."""
+    nb = len(blocks)
+    cand, block_idx, len1s = [], [], []
+    queries = np.zeros((nb, LANES), object)
+    for b, (len1, pairs) in enumerate(blocks):
+        rows = [len(cand) + k for k in range(len(pairs))]
+        cand.extend(p for _, p in pairs)
+        rows += [rows[0]] * (LANES - len(rows))
+        block_idx.append(rows)
+        len1s.append(len1)
+        for k in range(LANES):
+            queries[b, k] = pairs[k if k < len(pairs) else 0][0]
+    block_idx = np.array(block_idx, np.int64)
+    l2all = np.array([len(c) for c in cand], np.int64)
+    s2b = np.full((len(cand), int(l2all.max())), 255, np.uint8)
+    for k, c in enumerate(cand):
+        s2b[k, : len(c)] = c
+    WP = max(nww.block_window(len1s[b], l2all[block_idx[b]], band)
+             for b in range(nb))
+    WP = nww._round_up(max(WP, 8), 32)
+    NDP = nww._round_up(max(len1s) + int(l2all.max()) + 1, 8)
+    L1R = nww._round_up(max(len1s) + 1 + WP, 8)
+    L2R = nww._round_up(int(l2all.max()) + WP, 8)
+    s2q = nww.pack_s2_blocks(s2b.astype(np.int64) & 3, l2all, block_idx,
+                             L2R)
+    scal = np.zeros((nb, 4), np.int32)
+    params = np.zeros((nb, 8, LANES), np.int32)
+    s1 = np.zeros((nb, L1R, LANES), np.int32)
+    for b in range(nb):
+        len1 = len1s[b]
+        l2 = l2all[block_idx[b]]
+        scal[b] = (len1, int(l2.max()), band + max(0, int(l2.max()) - len1),
+                   int(l2.min()))
+        params[b, 0] = l2
+        params[b, 1] = band + np.maximum(0, len1 - l2)
+        params[b, 2] = band + np.maximum(0, l2 - len1)
+        for k in range(LANES):
+            s1[b, 1: 1 + len1, k] = queries[b, k]
+    geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=WP, **GEOM)
+    return (scal, params, s1, s2q), geom
+
+
+def _check(arrays, geom, emit_kinds, s1_per_block, names):
+    want = nwp._pallas_call(*arrays, end_gap_p=0, interpret=True,
+                            emit_kinds=emit_kinds, halves=1,
+                            s1_per_block=s1_per_block, **geom)
+    got = nww.nw_wavefront(*(torch.from_numpy(a) for a in arrays),
+                           emit_kinds=emit_kinds, s1_per_block=s1_per_block,
+                           **geom)
+    assert len(got) == len(want) == len(names)
+    for name, w, g in zip(names, want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy(),
+                                      err_msg=name)
+    end = got[-1].numpy()
+    assert (end[:, :2] == 0).all()      # every traceback completed
+    return got
+
+
+def _family(rng, len1, n, nops):
+    """n (query, parent) pairs: distinct queries of length len1, each
+    against a mutated copy of itself (indels change the parent's length)."""
+    out = []
+    for _ in range(n):
+        q = rng.integers(0, 4, len1).astype(np.uint8)
+        out.append((q, _mutate(rng, q, nops=nops)))
+    return out
+
+
+PAIRS_CASES = {
+    # per-lane distinct queries, one len1, substitutions and indels
+    "distinct_queries": lambda rng: [(60, _family(rng, 60, 128, 8))],
+    # mixed parent lengths: shifts and truncations past the band
+    "mixed_l2": lambda rng: [(70, [
+        (q, p) for q in [rng.integers(0, 4, 70).astype(np.uint8)]
+        for p in (q[5:], q[:61], np.concatenate([q, q[:9]]),
+                  rng.integers(0, 4, 50).astype(np.uint8))]
+        + _family(rng, 70, 60, 12))],
+    # two blocks of different len1 in one launch
+    "two_len1": lambda rng: [(48, _family(rng, 48, 128, 6)),
+                             (90, _family(rng, 90, 128, 10))],
+    # a ragged tail: pad lanes repeat lane 0
+    "pad_tail": lambda rng: [(150, _family(rng, 150, 128, 20)),
+                             (150, _family(rng, 150, 37, 20))],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAIRS_CASES))
+def test_pairs_mode_b2(case):
+    rng = np.random.default_rng(len(case))
+    arrays, geom = pairs_inputs(rng, PAIRS_CASES[case](rng))
+    got = _check(arrays, geom, "cls", True, ("cls", "sub", "mapq", "end"))
+    cls = got[0].numpy()
+    assert set(np.unique(cls)) <= {0, 1, 2, 3, 4}
+    # every pair's columns: one active step per column
+    nact = (cls != 0).sum(axis=1)
+    l2 = arrays[1][:, 0]
+    assert (nact >= np.maximum(arrays[0][:, :1], l2)).all()
+
+
+KINDS_CASES = {
+    "uniform_band4": (4, 40, 6, None, 1, True),
+    "uniform_band16": (16, 40, 6, None, 1, True),
+    "mixed_lengths": (16, 50, 6, None, 1, False),
+    "wide_window_multi_block": (8, 24, 3, 64, 140, False),
+    "amplicon_length": (16, 150, 20, None, 10, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KINDS_CASES))
+def test_kinds_mode_b3(case):
+    """B3 on the B1 tests' fuzz mixes (tests/test_torch_nw_wavefront.py)."""
+    band, len1, nops, wp, ncand, uniform = KINDS_CASES[case]
+    rng = np.random.default_rng(len1 + band)
+    s1 = rng.integers(0, 4, len1).astype(np.uint8)
+    if uniform:
+        cands = []
+        for _ in range(5):
+            c = s1.copy()
+            c[rng.integers(0, len1, int(rng.integers(0, nops)))] = \
+                rng.integers(0, 4)
+            cands.append(c)
+    else:
+        cands = [_mutate(rng, s1, nops=nops) for _ in range(ncand)]
+    cands.append(rng.integers(0, 4, len1 - 3).astype(np.uint8))
+    arrays, geom = make_inputs(rng, s1, cands, band, wp=wp)
+    got = _check(arrays, geom, True, False, ("kinds", "sub", "mapq", "end"))
+    assert set(np.unique(got[0].numpy())) <= {0, 1, 2, 3}
+
+
+def test_wrapper_modes():
+    """Only the kernel's three modes are accepted, and B2 wants s1 per
+    block."""
+    rng = np.random.default_rng(3)
+    arrays, geom = pairs_inputs(rng, [(30, _family(rng, 30, 4, 2))])
+    t = [torch.from_numpy(a) for a in arrays]
+    with pytest.raises(ValueError, match="modes"):
+        nww.nw_wavefront(*t, emit_kinds="cls", s1_per_block=False, **geom)
+    with pytest.raises(ValueError, match="modes"):
+        nww.nw_wavefront(*t, emit_kinds=True, s1_per_block=True, **geom)
+    with pytest.raises(ValueError, match="s1 has shape"):
+        nww.nw_wavefront(t[0], t[1], t[2][0], t[3], emit_kinds="cls",
+                         s1_per_block=True, **geom)
+
+
+@pytest.mark.parametrize("band", [4, 16])
+def test_grouped_matches_pallas_grouped(band):
+    """nw_wavefront_grouped against nw_pallas_grouped on
+    tests/test_nw_pallas.py's mixed-length case: kinds, p0, p1, ham, tvec
+    and ok."""
+    rng = np.random.default_rng(99)
+    s1 = rng.integers(0, 4, 50).astype(np.uint8)
+    cands = [_mutate(rng, s1) for _ in range(9)]
+    cands += [s1[5:], s1[:44], rng.integers(0, 4, 31).astype(np.uint8)]
+    s2b = np.full((len(cands), max(len(c) for c in cands)), 255, np.uint8)
+    l2b = np.array([len(c) for c in cands], np.int64)
+    for k, c in enumerate(cands):
+        s2b[k, : len(c)] = c
+    want = nwp.nw_pallas_grouped(s1, len(s1), s2b, l2b, band=band,
+                                 interpret=True, **GEOM)
+    got = nww.nw_wavefront_grouped(s1, len(s1), s2b, l2b, band=band,
+                                   device="cpu", **GEOM)
+    for name, w, g in zip(("kinds", "p0", "p1", "ham", "tvec", "ok"),
+                          want, got):
+        np.testing.assert_array_equal(w, g, err_msg=name)
+    assert got[5].all()
+
+
+@pytest.mark.gpu
+def test_modes_match_plain_on_card():
+    """B2 and B3 against their plain version on the card, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run through chip_smoke.py)")
+    rng = np.random.default_rng(11)
+    arrays, geom = pairs_inputs(rng, [(250, _family(rng, 250, 128, 12)),
+                                      (247, _family(rng, 247, 100, 12))])
+    s1 = rng.integers(0, 4, 250).astype(np.uint8)
+    kin, kgeom = make_inputs(rng, s1, [_mutate(rng, s1, nops=12)
+                                       for _ in range(300)], 16)
+    for arr, g, emit, per in ((arrays, geom, "cls", True),
+                              (kin, kgeom, True, False)):
+        t = [torch.from_numpy(a).cuda() for a in arr]
+        got = nww.nw_wavefront(*t, emit_kinds=emit, s1_per_block=per, **g)
+        want = nww.nw_wavefront_ref(*t, emit_kinds=emit, s1_per_block=per,
+                                    **g)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)

@@ -1,7 +1,7 @@
-"""Parity: the port's plain PyTorch version of kernel B1 (nw_compare_ref,
+"""Parity: the port's plain PyTorch version of kernel B1 (nw_wavefront_ref,
 what nw_compare runs on CPU tensors) against the TPU Pallas kernel in
 compare mode, run in interpret mode. Tolerance: exact (integer outputs).
-The CUDA kernel itself is held against nw_compare_ref on the card by
+The CUDA kernel itself is held against nw_wavefront_ref on the card by
 chip_smoke.py and by the gpu-marked test below."""
 import numpy as np
 import pytest
@@ -146,7 +146,7 @@ def test_kernel_matches_plain_on_card():
     arrays, geom = make_inputs(rng, s1, cands, 16)
     t = [torch.from_numpy(a).cuda() for a in arrays]
     got = nww.nw_compare(*t, **geom)
-    want = nww.nw_compare_ref(*t, **geom)
+    want = nww.nw_wavefront_ref(*t, **geom)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert nww.pairs_per_block(384, 384, 512, 32) == 4
