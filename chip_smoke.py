@@ -6,17 +6,20 @@ Phases (any failure exits non-zero and prints no result line):
   1. device  — a CUDA card must be present; prints its nvidia-smi name and
                power limit;
   2. build   — builds the wavefront kernel (csrc/nw_wavefront.cu: modes B1,
-               B2, B3 x windows of 32..128 rows, twelve instantiations) with
-               nvcc from the checkout and prints its `-Xptxas -v` report;
+               B2, B3, B2 stats x windows of 32..128 rows, sixteen
+               instantiations) with nvcc from the checkout and prints its
+               `-Xptxas -v` report;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
                32/64/96/128 rows, several blocks, lengths near 250 and
                450): sub, mapq and end must be bitwise equal;
-  3b. modes  — kernels B2 (pairs) and B3 (kinds) against the plain version
-               the same way: windows of 32/64/96/128 rows, several blocks
-               of different query lengths, lengths near 250, and one
-               PacBio full-length 16S set (len ~1450: NDP 3072, L1R 1664,
-               two pairs per block); every output bitwise equal;
+  3b. modes  — kernels B2 (pairs), B2 stats (nw_pairs_stats, with and
+               without one-off, max_shift 1, 4 and 16) and B3 (kinds)
+               against their plain versions the same way: windows of
+               32/64/96/128 rows, several blocks of different query
+               lengths, lengths near 250, and one PacBio full-length 16S
+               set (len ~1450: NDP 3072, L1R 1664); every output bitwise
+               equal;
   4. small   — derep_fastq(sam1F) -> dada(err=tperr1()) on the card and on
                the CPU: clustering, map, pval, birth_subs, trans identical;
   5. main    — a simulated 120,000-read MiSeq sample (the DADA2 tutorial
@@ -39,9 +42,13 @@ Phases (any failure exits non-zero and prints no result line):
                memory); the five lr/ham arrays of kernel B2's route against
                kernel B1's per-query route on the card; (nflag, nsam) of the
                columns with the most pairs against the port on the CPU;
- 10. B2 time — kernel B2 at one full launch of that table (1024 blocks),
-               CUDA events, against its plain version and its bound;
- 11. profile — the table run again under torch.profiler.
+ 10. B2 time — at one full launch of that table (1024 blocks), CUDA events
+               in turns on one card: the stats kernel (the route's B2)
+               against the class-row kernel followed by the torch scans
+               it replaces, each checked against its plain version, and
+               the stats kernel's plain version time and bound;
+ 11. profile — the table run again under torch.profiler: no class-row
+               kernel and no scan kernel may appear.
 It prints one {"kernels": [...]} line and, last, {"ok": true, ...}.
 """
 from __future__ import annotations
@@ -349,7 +356,8 @@ def profile_device(label, run) -> None:
     """Where a run's device time goes: run() under torch.profiler, tracing
     device activity only. Prints device time by kernel and the device's
     busy share of the wall time (any profiler overhead lengthens the
-    wall, so the busy share is a lower bound)."""
+    wall, so the busy share is a lower bound); returns {kernel name:
+    (device us, count)}, empty if the profiler saw no device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -372,7 +380,7 @@ def profile_device(label, run) -> None:
     if not spans:
         log(f"[profile] {label}: device time not measured: the profiler "
             "recorded no CUDA events")
-        return
+        return {}
     spans.sort()
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -388,6 +396,7 @@ def profile_device(label, run) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, cnt) in top:
         log(f"[profile]   {us / 1e3:9.3f} ms {cnt:6d}x  {name[:90]}")
+    return by_name
 
 
 def same_result(a, b, what):
@@ -403,7 +412,8 @@ def same_result(a, b, what):
 
 def kernel_vs_plain(nww, dev, arrays, geom, emit, per_block):
     """Run one mode of the kernel and its plain version on the same card
-    tensors; returns (max |kernel - plain|, tracebacks complete)."""
+    tensors; returns (max |kernel - plain|, tracebacks complete, the card
+    tensors, the plain outputs)."""
     import torch
 
     t = [torch.from_numpy(a).to(dev) for a in arrays]
@@ -412,7 +422,29 @@ def kernel_vs_plain(nww, dev, arrays, geom, emit, per_block):
     torch.cuda.synchronize()
     want = nww.nw_wavefront_ref(*t, emit_kinds=emit, s1_per_block=per_block,
                                 **geom)
-    return max_abs_diff(got, want), bool((got[-1][:, :2] == 0).all())
+    return (max_abs_diff(got, want), bool((got[-1][:, :2] == 0).all()), t,
+            want)
+
+
+STATS_SETTINGS = [(oo, ms) for oo in (False, True) for ms in (1, 4, 16)]
+
+
+def stats_vs_plain(nww, t, want, geom, settings=STATS_SETTINGS):
+    """The stats kernel on card tensors t against its plain version,
+    nw_pairs_stats_ref = stats_from_cls over nw_wavefront_ref's B2 class
+    rows and ends (`want`, computed once for every setting); returns the
+    largest |kernel - plain| over the (allow_one_off, max_shift)
+    settings."""
+    import torch
+
+    err = 0
+    for oo, ms in settings:
+        got = nww.nw_pairs_stats(*t, allow_one_off=oo, max_shift=ms, **geom)
+        torch.cuda.synchronize()
+        ref = nww.stats_from_cls(want[0], want[3], allow_one_off=oo,
+                                 max_shift=ms)
+        err = max(err, max_abs_diff([got], [ref]))
+    return err
 
 
 # ---- main ------------------------------------------------------------------
@@ -471,8 +503,8 @@ def main() -> None:
     for line in ptxas.strip().splitlines():
         log(f"[build]   {line.strip()}")
     entries = ptxas.count("Compiling entry function")
-    if entries != 12:
-        fail(f"expected 12 kernel instantiations (4 windows x 3 modes), "
+    if entries != 16:
+        fail(f"expected 16 kernel instantiations (4 windows x 4 modes), "
              f"ptxas compiled {entries}")
 
     # 3. kernel B1 against its plain version, bitwise
@@ -483,11 +515,12 @@ def main() -> None:
         (448, 260, 16, 16, 96, False),
         (452, 390, 8, 16, 128, True),
     ]
-    err_b = {"B1": 0, "B2": 0, "B3": 0}
+    err_b = {"B1": 0, "B2": 0, "B2cls": 0, "B3": 0}
     for len1, ncand, nops, band, wp, uniform in cases:
         arrays, geom = fuzz_case(rng, nww, len1, ncand, nops, band, wp,
                                  uniform)
-        err, ok_tb = kernel_vs_plain(nww, dev, arrays, geom, False, False)
+        err, ok_tb, _, _ = kernel_vs_plain(nww, dev, arrays, geom, False,
+                                           False)
         err_b["B1"] = max(err_b["B1"], err)
         log(f"[kernel] len1={len1} blocks={arrays[0].shape[0]} WP={wp} "
             f"{'uniform' if uniform else 'mixed'}: max |kernel - plain| = "
@@ -495,7 +528,7 @@ def main() -> None:
         if err != 0 or not ok_tb:
             fail(f"kernel B1 disagrees with its plain version (WP={wp})")
 
-    # 3b. kernels B2 and B3 against the plain version, bitwise
+    # 3b. kernels B2, B2 stats and B3 against the plain version, bitwise
     pair_cases = [  # ([(len1, pairs, max edits, subs only) per block], WP)
         ([(250, 128, 12, False), (248, 128, 12, False),
           (253, 90, 10, True)], 32),
@@ -507,20 +540,31 @@ def main() -> None:
     ]
     for blocks, wp in pair_cases:
         arrays, geom = pairs_case(rng, nww, blocks, 16, wp)
-        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp)
-        err, ok_tb = kernel_vs_plain(nww, dev, arrays, geom, "cls", True)
-        err_b["B2"] = max(err_b["B2"], err)
+        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp,
+                                  2)
+        ppb_s = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"],
+                                    wp, nww.STATS_MODE)
+        err, ok_tb, t, want = kernel_vs_plain(nww, dev, arrays, geom, "cls",
+                                              True)
+        err_b["B2cls"] = max(err_b["B2cls"], err)
+        err_s = stats_vs_plain(nww, t, want, geom)
+        err_b["B2"] = max(err_b["B2"], err_s)
         log(f"[modes] B2 len1={[b[0] for b in blocks]} WP={wp} "
-            f"NDP={geom['NDP']} L1R={geom['L1R']} pairs/block={ppb}: max "
-            f"|kernel - plain| = {err}, tracebacks complete: {ok_tb}")
-        if err != 0 or not ok_tb:
+            f"NDP={geom['NDP']} L1R={geom['L1R']} pairs/block={ppb} (stats "
+            f"{ppb_s}): class rows max |kernel - plain| = {err}, tracebacks "
+            f"complete: {ok_tb}; stats over {len(STATS_SETTINGS)} "
+            f"(allow_one_off, max_shift) settings max |kernel - plain| = "
+            f"{err_s}")
+        if err != 0 or not ok_tb or err_s != 0:
             fail(f"kernel B2 disagrees with its plain version (WP={wp})")
     kinds_cases = cases + [(1450, 200, 30, 16, 64, False)]
     for len1, ncand, nops, band, wp, uniform in kinds_cases:
         arrays, geom = fuzz_case(rng, nww, len1, ncand, nops, band, wp,
                                  uniform)
-        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp)
-        err, ok_tb = kernel_vs_plain(nww, dev, arrays, geom, True, False)
+        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp,
+                                  3)
+        err, ok_tb, _, _ = kernel_vs_plain(nww, dev, arrays, geom, True,
+                                           False)
         err_b["B3"] = max(err_b["B3"], err)
         log(f"[modes] B3 len1={len1} blocks={arrays[0].shape[0]} WP={wp} "
             f"NDP={geom['NDP']} pairs/block={ppb}: max |kernel - plain| = "
@@ -771,38 +815,83 @@ def main() -> None:
     if not same:
         fail("the table's (nflag, nsam) on the card differ from the CPU")
 
-    # 10. kernel B2's time at one full launch of the table
+    # 10. kernel B2 at one full launch of the table: the stats kernel
+    # against the class-row kernel plus the torch scans it replaced
     CH = chim.CH_BLOCKS
     args = chim._pairs_launch_inputs(be, plan, 0, CH)
-    gkw2 = dict(L1R=plan.L1R, L2R=plan.L2R, NDP=plan.NDP, WP=plan.WP,
-                match=copts.MATCH, mismatch=copts.MISMATCH,
-                gap_p=copts.GAP_PENALTY, emit_kinds="cls", s1_per_block=True)
-    got = nww.nw_wavefront(*args, **gkw2)
-    want = nww.nw_wavefront_ref(*args, **gkw2)
-    err_b["B2"] = max(err_b["B2"], max_abs_diff(got, want))
+    g2 = dict(L1R=plan.L1R, L2R=plan.L2R, NDP=plan.NDP, WP=plan.WP,
+              match=copts.MATCH, mismatch=copts.MISMATCH,
+              gap_p=copts.GAP_PENALTY)
+    skw = dict(allow_one_off=False, max_shift=16)
+    ckw = dict(emit_kinds="cls", s1_per_block=True, **g2)
+    got = nww.nw_wavefront(*args, **ckw)
+    want = nww.nw_wavefront_ref(*args, **ckw)
+    err_b["B2cls"] = max(err_b["B2cls"], max_abs_diff(got, want))
+    del got
+    err_b["B2"] = max(err_b["B2"], stats_vs_plain(
+        nww, args, want, g2, [(False, 16), (True, 16)]))
     del want
-    ms = cuda_ms(lambda: nww.nw_wavefront(*args, **gkw2), 10)
-    plain_ms = cuda_ms(lambda: nww.nw_wavefront_ref(*args, **gkw2), 1)
-    bound_ms, bound_by, detail = bound(args, got, args[0].cpu().numpy(),
+
+    def cls_route():   # what the route ran before: class rows, then scans
+        cls_b, _s, _m, end_b = nww.nw_wavefront(*args, **ckw)
+        return nww.stats_from_cls(cls_b, end_b, **skw)
+
+    def stats_kernel():
+        return nww.nw_pairs_stats(*args, **g2, **skw)
+
+    if not torch.equal(cls_route(), stats_kernel()):
+        fail("the stats kernel differs from class rows + torch scans on "
+             "the table's launch")
+    # in turns on one card: class rows + scans, stats, stats, class rows +
+    # scans (and the class-row kernel alone, first and last)
+    t_cls = [cuda_ms(lambda: nww.nw_wavefront(*args, **ckw), 10)]
+    t_route = [cuda_ms(cls_route, 10)]
+    t_stats = [cuda_ms(stats_kernel, 10), cuda_ms(stats_kernel, 10)]
+    t_route.append(cuda_ms(cls_route, 10))
+    t_cls.append(cuda_ms(lambda: nww.nw_wavefront(*args, **ckw), 10))
+    ms = t_stats[0]
+    plain_ms = cuda_ms(lambda: nww.nw_pairs_stats_ref(*args, **g2, **skw), 1)
+    bound_ms, bound_by, detail = bound(args, [stats_kernel()],
+                                       args[0].cpu().numpy(),
                                        args[1].cpu().numpy())
     log(f"[time] kernel B2 at one launch ({CH} blocks x 128 pairs, "
-        f"WP={plan.WP}, L1R={plan.L1R} L2R={plan.L2R} NDP={plan.NDP}): "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({detail}); max |kernel - plain| = {err_b['B2']}; "
-        f"card {card}")
-    if err_b["B2"] != 0:
+        f"WP={plan.WP}, L1R={plan.L1R} L2R={plan.L2R} NDP={plan.NDP}), in "
+        f"turns: class rows + torch scans {t_route[0]:.4f} ms, stats kernel "
+        f"{t_stats[0]:.4f} ms, {t_stats[1]:.4f} ms, class rows + torch "
+        f"scans {t_route[1]:.4f} ms; the class-row kernel alone "
+        f"{t_cls[0]:.4f} / {t_cls[1]:.4f} ms; stats plain {plain_ms:.2f} "
+        f"ms; bound {bound_ms:.4f} ms by {bound_by} ({detail}); max "
+        f"|kernel - plain| = {err_b['B2']} (stats), {err_b['B2cls']} (class "
+        f"rows); card {card}")
+    if err_b["B2"] != 0 or err_b["B2cls"] != 0:
         fail("kernel B2 disagrees with its plain version on the table's "
              "inputs")
     rows["B2"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by)
-    del args, got, be
+                      bound_by=bound_by, cls_kernel_ms=t_cls[0],
+                      cls_route_ms=t_route[0],
+                      cls_max_abs_err=err_b["B2cls"])
+    del args, be
 
-    # 11. where the table run's device time goes
-    profile_device("is_bimera_denovo_table run", lambda:
-                   dt.is_bimera_denovo_table(st, device="cuda"))
+    # 11. where the table run's device time goes; the route must launch
+    # the stats kernel only: no class rows, no torch scans over them
+    by_name = profile_device("is_bimera_denovo_table run", lambda:
+                             dt.is_bimera_denovo_table(st, device="cuda"))
+    if by_name:
+        names = list(by_name)
+        scans = [n for n in names
+                 if "tensor_kernel_scan_innermost_dim" in n]
+        cls_k = [n for n in names if "nw_wavefront_kernel" in n
+                 and ", true, 2>" in n]
+        stats_k = [n for n in names if "nw_wavefront_kernel" in n
+                   and ", true, 3>" in n]
+        log(f"[profile] table run: stats kernel {stats_k}, class-row "
+            f"kernel {cls_k}, scan kernels {scans}")
+        if scans or cls_k or not stats_k:
+            fail("the table run launched a class-row or scan kernel, or "
+                 "not the stats kernel")
 
     names = {"B1": "nw_wavefront compare (B1)",
-             "B2": "nw_wavefront pairs (B2)",
+             "B2": "nw_wavefront pairs stats (B2)",
              "B3": "nw_wavefront kinds (B3)"}
     log(json.dumps({"kernels": [dict(
         name=names[k], route="cuda",

@@ -6,19 +6,19 @@ isBimeraDenovo :105, isBimeraDenovoTable :220, removeBimeraDenovo :294).
 
 The PyTorch counterpart of dada2_tpu/chimeras.py. The pairwise alignments
 (query vs candidate parents, ends-free vectorized NW with band = maxShift)
-run through the wavefront kernel (ops/nw_wavefront.py): first kernel B2,
-the pairs mode, where every lane carries its own (query, parent) pair and
-the kernel emits each alignment column's class; where the pairs' geometry
-does not fit it, kernel B1 once per distinct query, reading the merged map
-rows. Both routes feed the left/right overlap credit scans (get_lr) and the
-ends-free hamming as VECTORIZED scans in torch, first-index/cummax
-formulations of the reference's pointer walks that reproduce their quirks
-exactly (position-based shift crediting with the asymmetric right-side
-bound, the one-off double-credit of the first post-mismatch match, the
-AND-carried end-gap trimming). Both routes give identical statistics; the
-route is chosen from geometry before any launch. The host numpy scans
-(_lr_ham_batch) are kept as the reference the tests hold the torch scans
-to.
+run through the wavefront kernel (ops/nw_wavefront.py): first kernel B2
+(`nw_pairs_stats`), where every lane carries its own (query, parent) pair
+and the kernel computes the left/right overlap credits (get_lr) and the
+ends-free hamming from its own traceback, one row of ints per pair; where
+the pairs' geometry does not fit it, kernel B1 once per distinct query,
+reading the merged map rows, with those scans in torch (`_lr_accum`).
+Both compute first-index formulations of the reference's pointer walks
+that reproduce their quirks exactly (position-based shift crediting with
+the asymmetric right-side bound, the one-off double-credit of the first
+post-mismatch match, the AND-carried end-gap trimming). Both routes give
+identical statistics; the route is chosen from geometry before any
+launch. The host numpy scans (_lr_ham_batch) are kept as the reference
+the tests hold the torch scans to.
 
 Public functions take device=None, which means the CUDA card (raising
 without one); device="cpu" runs the kernels' plain PyTorch versions.
@@ -42,6 +42,10 @@ from .core.backend_cuda import (CudaBackend, _fetch, _pack_s2_dev,
 from .core.raws import make_rawset
 from .ops import nw_wavefront as nww
 from .ops.nw_ref import GAP
+# the torch scans over B2's class rows live beside the kernel (its plain
+# version uses them); re-exported under their old names here
+from .ops.nw_wavefront import (  # noqa: F401
+    _first_false_t, _lr_accum_pairs, _take)
 from .options import DEFAULT_OPTIONS, current_options
 from .trace import PHASES
 
@@ -146,92 +150,7 @@ def _lr_ham_batch(A, B, m, allow_one_off, max_shift):
             ham.astype(np.int64))
 
 
-# ---- torch scans over the kernels' outputs --------------------------------
-
-def _first_false_t(mask, start, L: int):
-    """Per row: smallest index >= start[p] with mask False, else L. An
-    integer min over the hit indices (no argmax over bools, whose tie
-    order is not a contract)."""
-    idx = torch.arange(L, dtype=torch.int32, device=mask.device)[None, :]
-    hit = ~mask & (idx >= start[:, None])
-    return torch.where(hit, idx, L).amin(1)
-
-
-def _take(x, col):
-    """x[p, col[p]] for a per-row column index."""
-    return torch.gather(x, 1, col.long()[:, None])[:, 0]
-
-
-def _lr_accum_pairs(cls_rows, *, allow_one_off: bool, max_shift: int):
-    """lr/ham stats for arbitrary pairs straight from kernel B2's
-    per-diagonal alignment-column classes (0 = inactive diagonal,
-    1 = s2-insertion/A-gap, 2 = A-char-vs-B-gap, 3 = substitution,
-    4 = match, in forward diagonal order); the counterpart of
-    dada2_tpu/chimeras.py::_lr_accum_pairs_trace.
-
-    The column-space scans (_lr_one_side/_lr_ham_batch) run in DIAGONAL
-    space with inactive steps transparent: a step's column index is the
-    running count of active steps before it, so every column-bound
-    predicate maps to a masked cumsum, with no column scatter. Returns
-    stats [CNT, 5] int64 (left, right, left_oo, right_oo, ham)."""
-    CNT, D = cls_rows.shape
-    cls_f = cls_rows.to(torch.int32)
-    a_f = cls_f != 0
-    m = a_f.sum(1)
-    zero = torch.zeros_like(m)
-
-    def colof(cv, d_idx):
-        # column index of the active step at diagonal d_idx; d_idx == D
-        # (not found) maps to column m
-        got = _take(cv, d_idx.clamp(0, D - 1))
-        return torch.where(d_idx >= D, m, got)
-
-    def one_side(cls_, shift_bound):
-        act = cls_ != 0
-        cv = torch.cumsum(act, 1, dtype=torch.int32) - 1
-        # leading A-gap (class 1) run, inactive steps transparent
-        q0_d = _first_false_t(~act | (cls_ == 1), zero, D)
-        q0 = colof(cv, q0_d)
-        # B-gap (class 2) overhang while column < shift_bound
-        s_d = _first_false_t(~act | ((cls_ == 2) & (cv < shift_bound)),
-                             q0_d, D)
-        # match run
-        eqmask = ~act | (cls_ == 4)
-        e_d = _first_false_t(eqmask, s_d, D)
-        e = colof(cv, e_d)
-        credit = e - q0
-        if not allow_one_off:
-            return credit, credit
-        # one-off: the single column after the run must exist and not be
-        # an A-gap, then the match run continues
-        n_d = _first_false_t(~act, e_d + 1, D)
-        ncls = _take(cls_, n_d.clamp(0, D - 1))
-        bonus = (n_d < D) & (ncls != 1)
-        f_d = _first_false_t(eqmask, n_d, D)
-        f = torch.where(n_d >= D, e + 1, colof(cv, f_d))
-        return credit, credit + bonus + (f - (e + 1)).clamp_min(0)
-
-    cls_r = cls_f.flip(1)
-    left, left_oo = one_side(cls_f, max_shift)
-    right, right_oo = one_side(cls_r, max_shift - 1)
-
-    # ends-free hamming: trim the max of the two leading gap runs on each
-    # side, count non-match columns in between
-    cv_f = torch.cumsum(a_f, 1, dtype=torch.int32) - 1
-    a_r = cls_r != 0
-    cv_r = torch.cumsum(a_r, 1, dtype=torch.int32) - 1
-    startc = torch.maximum(
-        colof(cv_f, _first_false_t(~a_f | (cls_f == 1), zero, D)),
-        colof(cv_f, _first_false_t(~a_f | (cls_f == 2), zero, D)))
-    rtrim = torch.maximum(
-        colof(cv_r, _first_false_t(~a_r | (cls_r == 1), zero, D)),
-        colof(cv_r, _first_false_t(~a_r | (cls_r == 2), zero, D)))
-    end = m - rtrim
-    ham = (a_f & (cls_f != 4) & (cv_f >= startc[:, None])
-           & (cv_f < end[:, None])).sum(1)
-    return torch.stack([left, right, left_oo, right_oo, ham],
-                       1).to(torch.int64)
-
+# ---- the routes ----------------------------------------------------------
 
 def _pairs_params(pblk, scal_c, lens, *, band: int):
     """[CH, 8, 128] per-lane kernel params (l2, lb, rb rows) built on the
@@ -300,8 +219,8 @@ def _pairs_plan(be, opts, qi, pi) -> Optional[_PairsPlan]:
     WP = nww._round_up(WPmax, 32)
     if WP > nww.WP_MAX:
         return None
-    if (be.device.type == "cuda"
-            and nww.pairs_per_block(L1R, L2R, NDP, WP) == 0):
+    if (be.device.type == "cuda" and nww.pairs_per_block(
+            L1R, L2R, NDP, WP, nww.STATS_MODE) == 0):
         return None
     # pair t of group g lands in block base[g] + t//128, lane t%128;
     # padding lanes repeat lane 0 of their block
@@ -351,10 +270,10 @@ def _pairs_launch_inputs(be, plan: _PairsPlan, c0: int, CH: int):
 def _pairs_lr_stats(be, opts, qi, pi, maxShift, allow_one_off):
     """lr/ham stats for arbitrary pairs through kernel B2: every pair its
     own kernel lane, CH_BLOCKS blocks of 128 pairs per launch, the stats
-    computed on the device from the kernel's column classes, one fetch for
-    the whole pair set. Returns the five stat arrays in input order, or
-    None (before any launch) when the pairs' window does not fit the
-    kernel, so that the caller takes the per-query route."""
+    computed inside the kernel (nww.nw_pairs_stats), one fetch for the
+    whole pair set. Returns the five stat arrays in input order, or None
+    (before any launch) when the pairs' window does not fit the kernel, so
+    that the caller takes the per-query route."""
     plan = _pairs_plan(be, opts, qi, pi)
     if plan is None:
         return None
@@ -366,19 +285,13 @@ def _pairs_lr_stats(be, opts, qi, pi, maxShift, allow_one_off):
     parts = []
     for c0 in range(0, nb, CH):
         args = _pairs_launch_inputs(be, plan, c0, CH)
-        cls_b, _sub, _mapq, end_b = nww.nw_wavefront(
+        stats = nww.nw_pairs_stats(
             *args, L1R=plan.L1R, L2R=plan.L2R, NDP=plan.NDP, WP=plan.WP,
             match=int(opts.MATCH), mismatch=int(opts.MISMATCH),
-            gap_p=int(opts.GAP_PENALTY), emit_kinds="cls",
-            s1_per_block=True)
-        cls_rows = cls_b.permute(0, 2, 1).reshape(-1, plan.NDP)
-        end_rows = end_b.permute(0, 2, 1).reshape(-1, 8)
-        stats = _lr_accum_pairs(cls_rows, allow_one_off=allow_one_off,
-                                max_shift=maxShift)
-        okc = end_rows[:, 0] | end_rows[:, 1]
+            gap_p=int(opts.GAP_PENALTY), allow_one_off=bool(allow_one_off),
+            max_shift=int(maxShift))
         nreal = (min(c0 + CH, nb) - c0) * LANES
-        parts.append(torch.cat([stats, okc[:, None]], 1)[:nreal]
-                     .to(torch.int32))
+        parts.append(stats[:nreal])
     got = _fetch(torch.cat(parts))
     # only real lanes count: pad lanes and pad blocks repeat real pairs
     if got[plan.pos, 5].any():

@@ -6,14 +6,19 @@ scal/params/s1/s2q in and the same list of arrays out, so the two compare
 array for array. It serves the TPU kernel's three modes:
 
   B1 compare  emit_kinds=False, s1_per_block=False  (the dada() sweep)
-  B2 pairs    emit_kinds="cls", s1_per_block=True   (chimera removal)
+  B2 pairs    emit_kinds="cls", s1_per_block=True   (its class rows)
   B3 kinds    emit_kinds=True,  s1_per_block=False  (nw_wavefront_grouped)
 
-On CUDA tensors it launches the hand-written Hopper kernel in
+`nw_pairs_stats` is the chimera route's B2: the same alignments as B2
+pairs, with the lr/ham statistics that `_lr_accum_pairs` derives from the
+class rows computed inside the kernel (one row of six int32 per pair).
+
+On CUDA tensors they launch the hand-written Hopper kernel in
 csrc/nw_wavefront.cu (one source, the modes are template variants; built
-with nvcc at first use, loaded through ctypes); on CPU tensors it runs
-`nw_wavefront_ref`, the plain PyTorch version of the same recurrences.
-There is no fallback between the two. `nw_compare` is the B1 call.
+with nvcc at first use, loaded through ctypes); on CPU tensors they run
+`nw_wavefront_ref` / `nw_pairs_stats_ref`, the plain PyTorch versions of
+the same recurrences. There is no fallback between the two. `nw_compare`
+is the B1 call.
 
 Semantics are those of ops/nw_ref.py mode="vec" (reference:
 src/nwalign_vectorized.cpp:71-318): tie precedence up >= left > diag, band
@@ -44,6 +49,7 @@ WP_MAX = 128    # widest window (rows) the kernel serves, in steps of 32
 # (emit_kinds, s1_per_block) -> (name, the C entry's mode number)
 MODES = {(False, False): ("B1", 1), ("cls", True): ("B2", 2),
          (True, False): ("B3", 3)}
+STATS_MODE = 4  # B2 stats (nw_pairs_stats); its launches count as "B2"
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "nw_wavefront.cu")
@@ -100,18 +106,23 @@ def _load():
             V, I = ctypes.c_void_p, ctypes.c_int
             lib.nw_wavefront_run.restype = I
             lib.nw_wavefront_run.argtypes = [V] * 8 + [I] * 9 + [V]
+            lib.nw_pairs_stats_run.restype = I
+            lib.nw_pairs_stats_run.argtypes = [V] * 5 + [I] * 10 + [V]
             lib.nw_wavefront_pairs_per_block.restype = I
-            lib.nw_wavefront_pairs_per_block.argtypes = [I] * 4
+            lib.nw_wavefront_pairs_per_block.argtypes = [I] * 5
             _lib = lib
     return _lib
 
 
-def pairs_per_block(L1R: int, L2R: int, NDP: int, WP: int) -> int:
-    """Pairs (warps) one block of the kernel holds at this geometry, 0 if
-    the window does not fit one block's shared memory. The shared-memory
-    layout and the fit live in csrc/nw_wavefront.cu; this asks the built
-    library (so it needs nvcc)."""
-    return int(_load().nw_wavefront_pairs_per_block(L1R, L2R, NDP, WP))
+def pairs_per_block(L1R: int, L2R: int, NDP: int, WP: int,
+                    mode: int = 1) -> int:
+    """Pairs (warps) one block of the kernel holds at this geometry in a
+    mode (1 B1, 2 B2, 3 B3, STATS_MODE), 0 if the window does not fit one
+    block's shared memory. The shared-memory layout and the fit live in
+    csrc/nw_wavefront.cu; this asks the built library (so it needs
+    nvcc)."""
+    return int(_load().nw_wavefront_pairs_per_block(L1R, L2R, NDP, WP,
+                                                    mode))
 
 
 # ---- the wrapper ---------------------------------------------------------
@@ -165,7 +176,7 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
         return nw_wavefront_ref(scal, params, s1, s2q, **geom)
     if dev.type != "cuda":
         raise ValueError(f"nw_wavefront runs on cuda or cpu, not {dev}")
-    if pairs_per_block(L1R, L2R, NDP, WP) == 0:
+    if pairs_per_block(L1R, L2R, NDP, WP, mode[1]) == 0:
         raise NotImplementedError(
             f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
             "(ROADMAP A5: the scalar/wide-window aligner)")
@@ -195,6 +206,54 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
 
 nw_wavefront.launches = {name: 0 for name, _ in MODES.values()}
 _count_lock = threading.Lock()
+
+
+def nw_pairs_stats(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
+                   WP: int, match: int, mismatch: int, gap_p: int,
+                   allow_one_off: bool, max_shift: int):
+    """Kernel B2 for the chimera route: align nb blocks of 128 pairs (s1
+    per block and lane, [nb, L1R, 128], as B2 pairs takes it) and return
+    their lr/ham statistics, stats [nb * 128, 6] int32 in row order
+    block * 128 + lane: left, right, left_oo, right_oo, ham (the five of
+    `_lr_accum_pairs`) and end0 | end1 (0 iff the traceback completed).
+
+    CUDA tensors launch the kernel's B2 stats mode on the current stream
+    and count one launch in nw_wavefront.launches["B2"]; CPU tensors run
+    nw_pairs_stats_ref."""
+    _check(scal, params, s1, s2q, L1R, L2R, WP, True)
+    if gap_p >= 0:
+        raise ValueError("the kernel is ends-free: gap_p must be < 0")
+    if not isinstance(allow_one_off, (bool, np.bool_)):
+        raise ValueError(f"allow_one_off must be a bool, got "
+                         f"{allow_one_off!r}")
+    geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=WP, match=match,
+                mismatch=mismatch, gap_p=gap_p)
+    dev = s2q.device
+    if dev.type == "cpu":
+        return nw_pairs_stats_ref(scal, params, s1, s2q, **geom,
+                                  allow_one_off=allow_one_off,
+                                  max_shift=max_shift)
+    if dev.type != "cuda":
+        raise ValueError(f"nw_pairs_stats runs on cuda or cpu, not {dev}")
+    if pairs_per_block(L1R, L2R, NDP, WP, STATS_MODE) == 0:
+        raise NotImplementedError(
+            f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
+            "(ROADMAP A5: the scalar/wide-window aligner)")
+    nb = s2q.shape[0]
+    stats = torch.empty((nb * LANES, 6), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return stats
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _load().nw_pairs_stats_run(
+        scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
+        stats.data_ptr(), nb, L1R, L2R, NDP, WP, int(match), int(mismatch),
+        int(gap_p), int(bool(allow_one_off)), int(max_shift), stream)
+    if rc != 0:
+        raise RuntimeError(f"nw_pairs_stats kernel B2 launch failed: CUDA "
+                           f"error {rc}")
+    with _count_lock:
+        nw_wavefront.launches["B2"] += 1
+    return stats
 
 
 def nw_compare(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
@@ -357,6 +416,117 @@ def nw_wavefront_ref(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
     if emit_kinds:
         outs.insert(0, blocks(kinds))
     return outs
+
+
+def nw_pairs_stats_ref(scal, params, s1, s2q, *, L1R: int, L2R: int,
+                       NDP: int, WP: int, match: int, mismatch: int,
+                       gap_p: int, allow_one_off: bool, max_shift: int):
+    """Plain PyTorch version of nw_pairs_stats: B2 pairs' class rows and
+    ends from nw_wavefront_ref, then stats_from_cls."""
+    cls_b, _sub, _mapq, end_b = nw_wavefront_ref(
+        scal, params, s1, s2q, L1R=L1R, L2R=L2R, NDP=NDP, WP=WP,
+        match=match, mismatch=mismatch, gap_p=gap_p, emit_kinds="cls",
+        s1_per_block=True)
+    return stats_from_cls(cls_b, end_b, allow_one_off=allow_one_off,
+                          max_shift=max_shift)
+
+
+def stats_from_cls(cls_b, end_b, *, allow_one_off: bool, max_shift: int):
+    """nw_pairs_stats' rows from B2 pairs' outputs (class rows
+    [nb, NDP, 128], end [nb, 8, 128]): _lr_accum_pairs' five statistics
+    and end0 | end1, [nb * 128, 6] int32."""
+    NDP = cls_b.shape[1]
+    cls_rows = cls_b.permute(0, 2, 1).reshape(-1, NDP)
+    end_rows = end_b.permute(0, 2, 1).reshape(-1, 8)
+    stats = _lr_accum_pairs(cls_rows, allow_one_off=allow_one_off,
+                            max_shift=max_shift)
+    ok = (end_rows[:, 0] | end_rows[:, 1]).to(stats.dtype)
+    return torch.cat([stats, ok[:, None]], 1).to(torch.int32)
+
+
+def _first_false_t(mask, start, L: int):
+    """Per row: smallest index >= start[p] with mask False, else L. An
+    integer min over the hit indices (no argmax over bools, whose tie
+    order is not a contract)."""
+    idx = torch.arange(L, dtype=torch.int32, device=mask.device)[None, :]
+    hit = ~mask & (idx >= start[:, None])
+    return torch.where(hit, idx, L).amin(1)
+
+
+def _take(x, col):
+    """x[p, col[p]] for a per-row column index."""
+    return torch.gather(x, 1, col.long()[:, None])[:, 0]
+
+
+def _lr_accum_pairs(cls_rows, *, allow_one_off: bool, max_shift: int):
+    """lr/ham stats for arbitrary pairs straight from kernel B2's
+    per-diagonal alignment-column classes (0 = inactive diagonal,
+    1 = s2-insertion/A-gap, 2 = A-char-vs-B-gap, 3 = substitution,
+    4 = match, in forward diagonal order); the counterpart of
+    dada2_tpu/chimeras.py::_lr_accum_pairs_trace.
+
+    The column-space scans (chimeras._lr_one_side/_lr_ham_batch) run in
+    DIAGONAL space with inactive steps transparent: a step's column index
+    is the running count of active steps before it, so every column-bound
+    predicate maps to a masked cumsum, with no column scatter. Returns
+    stats [CNT, 5] int64 (left, right, left_oo, right_oo, ham)."""
+    CNT, D = cls_rows.shape
+    cls_f = cls_rows.to(torch.int32)
+    a_f = cls_f != 0
+    m = a_f.sum(1)
+    zero = torch.zeros_like(m)
+
+    def colof(cv, d_idx):
+        # column index of the active step at diagonal d_idx; d_idx == D
+        # (not found) maps to column m
+        got = _take(cv, d_idx.clamp(0, D - 1))
+        return torch.where(d_idx >= D, m, got)
+
+    def one_side(cls_, shift_bound):
+        act = cls_ != 0
+        cv = torch.cumsum(act, 1, dtype=torch.int32) - 1
+        # leading A-gap (class 1) run, inactive steps transparent
+        q0_d = _first_false_t(~act | (cls_ == 1), zero, D)
+        q0 = colof(cv, q0_d)
+        # B-gap (class 2) overhang while column < shift_bound
+        s_d = _first_false_t(~act | ((cls_ == 2) & (cv < shift_bound)),
+                             q0_d, D)
+        # match run
+        eqmask = ~act | (cls_ == 4)
+        e_d = _first_false_t(eqmask, s_d, D)
+        e = colof(cv, e_d)
+        credit = e - q0
+        if not allow_one_off:
+            return credit, credit
+        # one-off: the single column after the run must exist and not be
+        # an A-gap, then the match run continues
+        n_d = _first_false_t(~act, e_d + 1, D)
+        ncls = _take(cls_, n_d.clamp(0, D - 1))
+        bonus = (n_d < D) & (ncls != 1)
+        f_d = _first_false_t(eqmask, n_d, D)
+        f = torch.where(n_d >= D, e + 1, colof(cv, f_d))
+        return credit, credit + bonus + (f - (e + 1)).clamp_min(0)
+
+    cls_r = cls_f.flip(1)
+    left, left_oo = one_side(cls_f, max_shift)
+    right, right_oo = one_side(cls_r, max_shift - 1)
+
+    # ends-free hamming: trim the max of the two leading gap runs on each
+    # side, count non-match columns in between
+    cv_f = torch.cumsum(a_f, 1, dtype=torch.int32) - 1
+    a_r = cls_r != 0
+    cv_r = torch.cumsum(a_r, 1, dtype=torch.int32) - 1
+    startc = torch.maximum(
+        colof(cv_f, _first_false_t(~a_f | (cls_f == 1), zero, D)),
+        colof(cv_f, _first_false_t(~a_f | (cls_f == 2), zero, D)))
+    rtrim = torch.maximum(
+        colof(cv_r, _first_false_t(~a_r | (cls_r == 1), zero, D)),
+        colof(cv_r, _first_false_t(~a_r | (cls_r == 2), zero, D)))
+    end = m - rtrim
+    ham = (a_f & (cls_f != 4) & (cv_f >= startc[:, None])
+           & (cv_f < end[:, None])).sum(1)
+    return torch.stack([left, right, left_oo, right_oo, ham],
+                       1).to(torch.int64)
 
 
 # ---- B3's host side: one center against candidates of any lengths --------

@@ -175,6 +175,28 @@ def test_pairs_route_equals_per_query_route():
     assert sum(int(x.sum()) for x in b2) > 0
 
 
+@pytest.mark.parametrize("max_shift", [1, 4, 16])
+@pytest.mark.parametrize("oo", [False, True])
+def test_pairs_stats_route_matches_jax_pairs_route(monkeypatch, oo,
+                                                   max_shift):
+    """The pairs route (kernel B2's stats mode, its plain version here)
+    against the JAX package's pairs route (the Pallas kernel in interpret
+    mode, then _lr_accum_pairs_trace) and against the port's per-query
+    route (kernel B1), at band = max_shift."""
+    monkeypatch.setenv("DADA2_TPU_PALLAS", "1")
+    pairs, seqs = _route_parity_pairs()
+    want = jch._batch_lr_stats(pairs, seqs, max_shift, 5, -4, -8, oo)
+    be, opts = tch._chimera_backend(seqs, 5, -4, -8, max_shift, "cpu")
+    qi = np.array([p[0] for p in pairs], np.int64)
+    pi = np.array([p[1] for p in pairs], np.int64)
+    got = tch._pairs_lr_stats(be, opts, qi, pi, max_shift, oo)
+    b1 = tch._per_query_lr_stats(be, opts, qi, pi, max_shift, oo)
+    assert got is not None and b1 is not None
+    for w, g, q, name in zip(want, got, b1, STATS):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+        np.testing.assert_array_equal(q, w, err_msg=name)
+
+
 def _random_alignment_pair(rng, n, gap):
     """A plausible gapped alignment (tests/test_chimeras.py's generator):
     never a gap in both rows at once, end-gap runs, interior indels."""

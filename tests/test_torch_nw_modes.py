@@ -1,13 +1,20 @@
 """Parity: the plain PyTorch version of the wavefront kernel's pairs mode
-(B2) and kinds mode (B3), what nw_wavefront runs on CPU tensors, against
-the TPU Pallas kernel in the same modes, run in interpret mode; and
-nw_wavefront_grouped against nw_pallas_grouped. Tolerance: exact (every
-output is an integer or a boolean). The CUDA kernel itself is held against
-the plain version on the card by chip_smoke.py and the gpu-marked test."""
+(B2), its stats mode (B2 stats, nw_pairs_stats) and kinds mode (B3), what
+the wrappers run on CPU tensors, against the TPU Pallas kernel in the same
+modes, run in interpret mode (B2 stats: followed by the JAX package's
+_lr_accum_pairs_trace); and nw_wavefront_grouped against
+nw_pallas_grouped. Tolerance: exact (every output is an integer or a
+boolean). The CUDA kernel itself is held against the plain version on the
+card by chip_smoke.py and the gpu-marked test."""
+import functools
+import itertools
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dada2_tpu.chimeras import _lr_accum_pairs_trace
 from dada2_tpu.ops import nw_pallas as nwp
 from dada2_tpu_torch.ops import nw_wavefront as nww
 from test_torch_nw_wavefront import _mutate, make_inputs
@@ -119,6 +126,82 @@ def test_pairs_mode_b2(case):
     assert (nact >= np.maximum(arrays[0][:, :1], l2)).all()
 
 
+@functools.lru_cache(maxsize=None)
+def _pairs_case_pallas(case):
+    """A PAIRS_CASES mix and the Pallas kernel's class rows and ends on it
+    (interpret mode), made once per mix."""
+    rng = np.random.default_rng(len(case))
+    arrays, geom = pairs_inputs(rng, PAIRS_CASES[case](rng))
+    cls, _sub, _mapq, end = nwp._pallas_call(
+        *arrays, end_gap_p=0, interpret=True, emit_kinds="cls", halves=1,
+        s1_per_block=True, **geom)
+    return arrays, geom, np.asarray(cls), np.asarray(end)
+
+
+SHIFTS = [1, 4, 16]
+
+
+@pytest.mark.parametrize("max_shift", SHIFTS)
+@pytest.mark.parametrize("oo", [False, True])
+@pytest.mark.parametrize("case", sorted(PAIRS_CASES))
+def test_pairs_stats_ref_matches_pallas(case, oo, max_shift):
+    """nw_pairs_stats_ref against the Pallas kernel's pairs mode followed
+    by the JAX package's _lr_accum_pairs_trace, and the ends' OR."""
+    arrays, geom, cls, end = _pairs_case_pallas(case)
+    rows = cls.transpose(0, 2, 1).reshape(-1, geom["NDP"])
+    want = np.asarray(_lr_accum_pairs_trace(
+        jnp.asarray(rows), allow_one_off=oo, max_shift=max_shift))
+    end_rows = end.transpose(0, 2, 1).reshape(-1, 8)
+    got = nww.nw_pairs_stats_ref(*(torch.from_numpy(a) for a in arrays),
+                                 allow_one_off=oo, max_shift=max_shift,
+                                 **geom)
+    assert got.dtype == torch.int32
+    assert tuple(got.shape) == (arrays[0].shape[0] * LANES, 6)
+    np.testing.assert_array_equal(got[:, :5].numpy(), want)
+    np.testing.assert_array_equal(got[:, 5].numpy(),
+                                  end_rows[:, 0] | end_rows[:, 1])
+    assert (got[:, 5] == 0).all()       # every traceback completed
+    assert (got[:, :5] >= 0).all() and got[:, :5].sum() > 0
+
+
+@pytest.mark.parametrize("max_shift", SHIFTS)
+@pytest.mark.parametrize("oo", [False, True])
+def test_pairs_stats_wrapper_cpu_is_ref(oo, max_shift):
+    """nw_pairs_stats on CPU tensors is its plain version, on the mix with
+    shifted and truncated parents."""
+    arrays, geom, _, _ = _pairs_case_pallas("mixed_l2")
+    t = [torch.from_numpy(a) for a in arrays]
+    got = nww.nw_pairs_stats(*t, allow_one_off=oo, max_shift=max_shift,
+                             **geom)
+    want = nww.nw_pairs_stats_ref(*t, allow_one_off=oo, max_shift=max_shift,
+                                  **geom)
+    assert torch.equal(got, want)
+
+
+_BAD_STATS_CALLS = {
+    # B1/B3's shared s1 [L1R, 128] is not the pairs layout
+    "shared_s1": (lambda t, g: ((t[0], t[1], t[2][0], t[3]), g),
+                  "s1 has shape"),
+    "int64_s2q": (lambda t, g: ((*t[:3], t[3].long()), g), "int32"),
+    "wp_48": (lambda t, g: (t, {**g, "WP": 48}), "multiples of 32"),
+    "not_ends_free": (lambda t, g: (t, {**g, "gap_p": 0}), "ends-free"),
+    "oo_not_bool": (lambda t, g: (t, {**g, "allow_one_off": "yes"}),
+                    "allow_one_off"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_BAD_STATS_CALLS))
+def test_pairs_stats_wrapper_rejects(bad):
+    """The stats mode takes only B2's operands and an ends-free score."""
+    rng = np.random.default_rng(3)
+    arrays, geom = pairs_inputs(rng, [(30, _family(rng, 30, 4, 2))])
+    t = [torch.from_numpy(a) for a in arrays]
+    make, msg = _BAD_STATS_CALLS[bad]
+    args, kw = make(t, {**geom, "allow_one_off": False, "max_shift": 16})
+    with pytest.raises(ValueError, match=msg):
+        nww.nw_pairs_stats(*args, **kw)
+
+
 KINDS_CASES = {
     "uniform_band4": (4, 40, 6, None, 1, True),
     "uniform_band16": (16, 40, 6, None, 1, True),
@@ -189,7 +272,8 @@ def test_grouped_matches_pallas_grouped(band):
 
 @pytest.mark.gpu
 def test_modes_match_plain_on_card():
-    """B2 and B3 against their plain version on the card, bitwise."""
+    """B2, B2 stats and B3 against their plain versions on the card,
+    bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run through chip_smoke.py)")
     rng = np.random.default_rng(11)
@@ -206,3 +290,9 @@ def test_modes_match_plain_on_card():
                                     **g)
         for x, y in zip(got, want):
             assert torch.equal(x, y)
+    t = [torch.from_numpy(a).cuda() for a in arrays]
+    for oo, ms in itertools.product((False, True), SHIFTS):
+        got = nww.nw_pairs_stats(*t, allow_one_off=oo, max_shift=ms, **geom)
+        want = nww.nw_pairs_stats_ref(*t, allow_one_off=oo, max_shift=ms,
+                                      **geom)
+        assert torch.equal(got, want)
