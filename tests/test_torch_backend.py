@@ -170,8 +170,7 @@ def test_finalize_subs_paths(sample):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(BAND_SIZE=0), dict(BAND_SIZE=-1),
-    dict(VECTORIZED_ALIGNMENT=False)])
+    dict(BAND_SIZE=-1), dict(VECTORIZED_ALIGNMENT=False)])
 def test_unserved_configs_raise(sample, overrides):
     """Configurations kernel B1 does not serve raise, naming ROADMAP A5,
     instead of rerouting."""
@@ -179,3 +178,87 @@ def test_unserved_configs_raise(sample, overrides):
     be = CudaBackend(rs_t, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         be.compare(0, np.zeros(rs_t.n, bool), opts_t, err_t, True, 1.0)
+
+
+def _same_subs(subs_j, subs_t):
+    assert len(subs_j) == len(subs_t)
+    for a, b in zip(subs_j, subs_t):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert (a.nsubs, a.len0) == (b.nsubs, b.len0)
+        for f in ("map", "pos", "nt0", "nt1"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.parametrize("entry", ["compare", "compare_kdist", "subs",
+                                   "subs_info", "cluster_stats_all"])
+def test_band0_entry_points(sample, entry):
+    """BAND_SIZE=0: every candidate is aligned gapless on the host, as in
+    dada2_tpu; each CudaBackend entry point matches TpuBackend bit for
+    bit, on every row."""
+    (rs, err, opts), (rs_t, err_t, opts_t) = _states(sample, BAND_SIZE=0)
+    assert not opts_t.VECTORIZED_ALIGNMENT       # normalized() at band 0
+    be_j = TpuBackend(rs)
+    be_t = CudaBackend(rs_t, device="cpu")
+    members = np.array([0, 4, 9, 33, 71, 120, 149], np.int64)
+    if entry.startswith("compare"):
+        kdist = 0.42 if entry == "compare_kdist" else 1.0
+        skip = np.zeros(rs.n, dtype=bool)
+        skip[[3, 17]] = True
+        for center in (0, 5):
+            lam_j, ham_j = be_j.compare(center, skip, opts, err, True, kdist)
+            lam_t, ham_t = be_t.compare(center, skip, opts_t, err_t, True,
+                                        kdist)
+            np.testing.assert_array_equal(ham_j, ham_t)
+            np.testing.assert_array_equal(lam_j, lam_t)
+            assert (ham_t[~skip] >= 0).any()
+    elif entry == "subs":
+        _same_subs(be_j.subs_to_center(2, members, opts),
+                   be_t.subs_to_center(2, members, opts_t))
+        pairs = [(0, 7), (7, 0), (2, 44), (5, 149)]
+        _same_subs(be_j.subs_pairs(pairs, opts, True, 1.0),
+                   be_t.subs_pairs(pairs, opts_t, True, 1.0))
+        _same_subs([be_j.subs_pair(0, 9, opts, True, 0.42)],
+                   [be_t.subs_pair(0, 9, opts_t, True, 0.42)])
+    elif entry == "subs_info":
+        for a, b in zip(be_j.subs_info(2, members, opts),
+                        be_t.subs_info(2, members, opts_t)):
+            np.testing.assert_array_equal(a, b)
+    else:
+        correct = np.ones(len(members), bool)
+        correct[2] = False
+        clusters = [(0, members, correct), (5, members[:3], correct[:3])]
+        for use_quals in (True, False):
+            got_j = be_j.cluster_stats_all(clusters, opts, err.shape[1],
+                                           use_quals)
+            got_t = be_t.cluster_stats_all(clusters, opts_t, err.shape[1],
+                                           use_quals)
+            for a, b in zip(got_j, got_t):
+                for x, y in zip(a, b):
+                    np.testing.assert_array_equal(x, y)
+
+
+def test_band0_dada_sam1f(extdata, monkeypatch):
+    """dada(sam1F, BAND_SIZE=0) through CudaBackend on the CPU equals
+    dada2_tpu's: clustering, map, p-values, birth subs and trans, and
+    kernel B1 (here its plain version) is never called."""
+    import dada2_tpu as dj
+    import dada2_tpu_torch as dt
+    from dada2_tpu_torch.ops import nw_wavefront as nww
+
+    def no_sweep(*args, **kwargs):
+        raise AssertionError("kernel B1 called at BAND_SIZE=0")
+
+    monkeypatch.setattr(nww, "nw_wavefront", no_sweep)
+    path = str(extdata / "sam1F.fastq.gz")
+    res_j = dj.dada(dj.derep_fastq(path), err=dj.data.tperr1(),
+                    BAND_SIZE=0, verbose=False)
+    res_t = dt.dada(dt.derep_fastq(path), err=dt.data.tperr1(),
+                    BAND_SIZE=0, device="cpu", verbose=False)
+    assert len(res_t.denoised) > 1
+    pd.testing.assert_frame_equal(res_j.clustering, res_t.clustering)
+    pd.testing.assert_frame_equal(res_j.birth_subs, res_t.birth_subs)
+    np.testing.assert_array_equal(res_j.map, res_t.map)
+    np.testing.assert_array_equal(res_j.pval, res_t.pval)
+    np.testing.assert_array_equal(res_j.trans, res_t.trans)
