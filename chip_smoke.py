@@ -5,14 +5,16 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device  — a CUDA card must be present; prints its nvidia-smi name and
                power limit;
-  2. build   — builds the wavefront kernel (csrc/nw_wavefront.cu: modes B1,
-               B2, B3, B2 stats x windows of 32..128 rows, sixteen
-               instantiations) with nvcc from the checkout and prints its
-               `-Xptxas -v` report;
+  2. build   — builds the wavefront kernels (csrc/nw_wavefront.cu: B1's
+               nw_compare_kernel and the B2, B3, B2 stats body x windows of
+               32..128 rows, sixteen instantiations) with nvcc from the
+               checkout and prints its `-Xptxas -v` report;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
-               32/64/96/128 rows, several blocks, lengths near 250 and
-               450): sub, mapq and end must be bitwise equal;
+               32/64/96/128 rows, lengths near 250 and 450, launches of 1
+               to 66 blocks so that every pairs-per-block choice runs, a
+               PacBio full-length set, and lanes and a block whose geometry
+               fails): sub, mapq and end must be bitwise equal;
   3b. modes  — kernels B2 (pairs), B2 stats (nw_pairs_stats, with and
                without one-off, max_shift 1, 4 and 16) and B3 (kinds)
                against their plain versions the same way: windows of
@@ -22,11 +24,14 @@ Phases (any failure exits non-zero and prints no result line):
                equal;
   4. small   — derep_fastq(sam1F) -> dada(err=tperr1()) on the card and on
                the CPU: clustering, map, pval, birth_subs, trans identical;
+               then the same at BAND_SIZE=0 (every candidate gapless on the
+               host), which must launch no kernel;
   5. main    — a simulated 120,000-read MiSeq sample (the DADA2 tutorial
                scale) through dada(selfConsist=True) on the card, with the
                kernels' launch counts reset just before and read just after;
                then kernel B1's time (CUDA events) against its plain version
-               and its bound, at the main path's largest shapes;
+               and its bound, at the main path's largest shapes, and also at
+               one block and at samPB.fastq.gz's geometry (BAND_SIZE=32);
   6. profile — the same selfConsist run again under torch.profiler: device
                time by kernel and the device's busy share;
   7. table   — sam1F and sam2F: derep_fastq -> dada(err=tperr1()) ->
@@ -62,6 +67,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAM1F = os.path.join(ROOT, "tests", "extdata", "sam1F.fastq.gz")
 SAM2F = os.path.join(ROOT, "tests", "extdata", "sam2F.fastq.gz")
+SAMPB = os.path.join(ROOT, "tests", "extdata", "samPB.fastq.gz")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the int32 rate — 64
 # INT32 lanes per SM (half the 128 FP32 lanes behind the 67 TFLOP/s fp32
@@ -199,6 +205,45 @@ def pairs_case(rng, nww, blocks, band, wp):
     geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=wp, match=5, mismatch=-4,
                 gap_p=-8)
     return (scal, params, s1, s2q), geom
+
+
+def b1_bucket_inputs(nww, be, opts, dev, center=0):
+    """Kernel B1's inputs as the compare sweep launches them: one center of
+    a CudaBackend's rawset against the blocks of its most-populated window
+    bucket. Returns (card tensors, geometry, scal, params)."""
+    import numpy as np
+    import torch
+
+    rs = be.rs
+    len1 = int(rs.lens[center])
+    wp = be._pb.block_wp(len1, opts.BAND_SIZE)
+    NDP, L1R = be._pb.geometry()
+    scal, params = be._pb.scal_params(len1, opts.BAND_SIZE)
+    w = int(np.bincount(wp).argmax())
+    sel = np.nonzero(wp == w)[0]
+    s1t = np.zeros((L1R, nww.LANES), np.int32)
+    s1t[1: 1 + len1] = rs.seqs[center, :len1].astype(np.int32)[:, None]
+    sel_d = torch.from_numpy(sel).to(dev)
+    args = (torch.from_numpy(scal[sel]).to(dev),
+            torch.from_numpy(params[sel]).to(dev),
+            torch.from_numpy(s1t).to(dev), be._pb.d_s2q[sel_d].contiguous())
+    geom = dict(L1R=L1R, L2R=be._pb.L2R, NDP=NDP, WP=w, match=opts.MATCH,
+                mismatch=opts.MISMATCH, gap_p=opts.GAP_PENALTY)
+    return args, geom, scal[sel], params[sel]
+
+
+def ptxas_registers(ptxas, kernel):
+    """{rows per thread: registers} of one kernel's instantiations in an
+    `-Xptxas -v` report."""
+    import re
+
+    regs = {}
+    for chunk in ptxas.split("Compiling entry function")[1:]:
+        m = re.search(kernel + r"ILi(\d)E", chunk)
+        r = re.search(r"Used (\d+) registers", chunk)
+        if m and r and int(m.group(1)) not in regs:
+            regs[int(m.group(1))] = int(r.group(1))
+    return regs
 
 
 def max_abs_diff(got, want):
@@ -504,8 +549,23 @@ def main() -> None:
         log(f"[build]   {line.strip()}")
     entries = ptxas.count("Compiling entry function")
     if entries != 16:
-        fail(f"expected 16 kernel instantiations (4 windows x 4 modes), "
-             f"ptxas compiled {entries}")
+        fail(f"expected 16 kernel instantiations (4 windows x B1's kernel "
+             f"and three modes of the other body), ptxas compiled {entries}")
+    b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
+    if sorted(b1_regs) != [1, 2, 3, 4]:
+        fail(f"B1's four instantiations not found in the ptxas report: "
+             f"{b1_regs}")
+
+    def b1_fit(geom, nb):
+        """B1's pairs per block for a launch, its blocks per SM and the
+        instantiation's registers, as printed on the [kernel]/[time]
+        lines."""
+        P = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"],
+                                geom["WP"], 1, nb)
+        bps = nww.compare_blocks_per_sm(geom["L1R"], geom["L2R"],
+                                        geom["NDP"], geom["WP"], P)
+        return (f"P={P} pairs/block, {bps} blocks/SM, "
+                f"{b1_regs[geom['WP'] // 32]} registers"), P
 
     # 3. kernel B1 against its plain version, bitwise
     rng = np.random.default_rng(2024)
@@ -515,18 +575,54 @@ def main() -> None:
         (448, 260, 16, 16, 96, False),
         (452, 390, 8, 16, 128, True),
     ]
+    # B1 launches of 1 to 66 blocks (each pairs-per-block choice the fit
+    # makes as the launch grows) and PacBio full-length 16S launches
+    b1_cases = cases + [
+        (250, 100, 12, 16, 32, True),
+        (251, 5 * 128 - 7, 12, 16, 32, True),
+        (249, 9 * 128 - 50, 10, 16, 32, True),
+        (250, 17 * 128, 12, 16, 32, True),
+        (252, 33 * 128 - 1, 12, 16, 32, True),
+        (250, 66 * 128, 8, 16, 32, True),
+        (253, 17 * 128 - 3, 10, 16, 64, False),
+        (1450, 200, 30, 16, 64, False),
+        (1450, 9 * 128 - 20, 30, 16, 64, False),
+    ]
     err_b = {"B1": 0, "B2": 0, "B2cls": 0, "B3": 0}
-    for len1, ncand, nops, band, wp, uniform in cases:
+    b1_ps = set()
+    for len1, ncand, nops, band, wp, uniform in b1_cases:
         arrays, geom = fuzz_case(rng, nww, len1, ncand, nops, band, wp,
                                  uniform)
         err, ok_tb, _, _ = kernel_vs_plain(nww, dev, arrays, geom, False,
                                            False)
         err_b["B1"] = max(err_b["B1"], err)
+        fit, P = b1_fit(geom, arrays[0].shape[0])
+        b1_ps.add(P)
         log(f"[kernel] len1={len1} blocks={arrays[0].shape[0]} WP={wp} "
-            f"{'uniform' if uniform else 'mixed'}: max |kernel - plain| = "
-            f"{err}, tracebacks complete: {ok_tb}")
+            f"NDP={geom['NDP']} {'uniform' if uniform else 'mixed'}, {fit}: "
+            f"max |kernel - plain| = {err}, tracebacks complete: {ok_tb}")
         if err != 0 or not ok_tb:
             fail(f"kernel B1 disagrees with its plain version (WP={wp})")
+    # geometry that fails: one lane with len2 > len2max, and (NDP cut
+    # below len1 + len2max of the longer blocks) whole blocks
+    arrays, geom = fuzz_case(rng, nww, 250, 3 * 128, 12, 16, 64, False)
+    scal, params = arrays[0].copy(), arrays[1].copy()
+    params[0, 0, 5] = scal[0, 1] + 1
+    geom = dict(geom, NDP=int(scal[0, 0] + scal[:, 1].min() + 1))
+    nfail = int((scal[:, 0] + scal[:, 1] >= geom["NDP"]).sum())
+    err, _, t, _ = kernel_vs_plain(nww, dev, (scal, params) + arrays[2:],
+                                   geom, False, False)
+    got_end = nww.nw_compare(*t, **geom)[2]
+    nbad = int(((got_end[:, 0] != 0) | (got_end[:, 1] != 0)).sum())
+    err_b["B1"] = max(err_b["B1"], err)
+    log(f"[kernel] failed geometry: one lane and {nfail} of "
+        f"{scal.shape[0]} blocks (NDP={geom['NDP']}), {b1_fit(geom, 3)[0]}: "
+        f"max |kernel - plain| = {err}, {nbad} lanes report a failed "
+        "traceback")
+    if err != 0 or nbad < 1 + 128 * nfail or nfail < 1:
+        fail("kernel B1 disagrees with its plain version where the "
+             "geometry fails")
+    log(f"[kernel] B1 pairs per block covered: {sorted(b1_ps)}")
 
     # 3b. kernels B2, B2 stats and B3 against the plain version, bitwise
     pair_cases = [  # ([(len1, pairs, max edits, subs only) per block], WP)
@@ -589,6 +685,22 @@ def main() -> None:
     log(f"[small] sam1F: {len(drp.uniques)} uniques -> "
         f"{len(res_gpu.denoised)} ASVs; card {t_gpu:.2f}s, CPU "
         f"{t_cpu:.2f}s; clustering/map/pval/birth_subs/trans identical")
+    # BAND_SIZE=0: every candidate gapless on the host, no kernel
+    reset_launches()
+    res0_gpu = dt.dada(drp, err=err41, BAND_SIZE=0, device="cuda",
+                       verbose=False)
+    n_band0 = dict(launches)
+    res0_cpu = dt.dada(dt.derep_fastq(SAM1F), err=err41, BAND_SIZE=0,
+                       device="cpu", verbose=False)
+    try:
+        same_result(res0_gpu, res0_cpu, "sam1F BAND_SIZE=0 card vs CPU")
+    except AssertionError as e:
+        fail(f"sam1F dada(BAND_SIZE=0) on the card differs from the CPU "
+             f"run: {e}")
+    log(f"[small] sam1F BAND_SIZE=0: {len(res0_gpu.denoised)} ASVs, "
+        f"kernel launches {n_band0}; card == CPU")
+    if any(n_band0.values()):
+        fail("dada(BAND_SIZE=0) launched a kernel")
 
     # 5. main path at the tutorial scale
     err = np.hstack([err41] + [err41[:, -1:]] * 10)  # cover q <= 50
@@ -629,36 +741,52 @@ def main() -> None:
     rs = make_rawset(sim.sequences, sim.abundances, None, sim.quals)
     be = CudaBackend(rs, device=dev)
     opts = DEFAULT_OPTIONS.normalized()
-    len1 = int(rs.lens[0])
-    wp, NDP, L1R = be._kernel_geom(len1, opts)
-    scal, params = be._pb.scal_params(len1, opts.BAND_SIZE)
-    w = int(np.bincount(wp).argmax())
-    sel = np.nonzero(wp == w)[0]
-    s1t = np.zeros((L1R, nww.LANES), np.int32)
-    s1t[1: 1 + len1] = rs.seqs[0, :len1].astype(np.int32)[:, None]
-    sel_d = torch.from_numpy(sel).to(dev)
-    args = (torch.from_numpy(scal[sel]).to(dev),
-            torch.from_numpy(params[sel]).to(dev),
-            torch.from_numpy(s1t).to(dev), be._pb.d_s2q[sel_d].contiguous())
-    geom = dict(L1R=L1R, L2R=be._pb.L2R, NDP=NDP, WP=w, match=opts.MATCH,
-                mismatch=opts.MISMATCH, gap_p=opts.GAP_PENALTY)
+    be._kernel_geom(int(rs.lens[0]), opts)   # the sweep's own fit check
+    args, geom, scal, params = b1_bucket_inputs(nww, be, opts, dev)
     got = nww.nw_compare(*args, **geom)
     want = nww.nw_wavefront_ref(*args, **geom)
     err_main = max_abs_diff(got, want)
-    log(f"[time] main-path inputs: {len(sel)} blocks x 128 lanes, WP={w}, "
-        f"L1R={L1R} L2R={be._pb.L2R} NDP={NDP}; max |kernel - plain| = "
-        f"{err_main}")
+    nb = args[0].shape[0]
+    fit, P = b1_fit(geom, nb)
+    log(f"[time] main-path inputs: {nb} blocks x 128 lanes, WP="
+        f"{geom['WP']}, L1R={geom['L1R']} L2R={geom['L2R']} NDP="
+        f"{geom['NDP']}, {fit}; max |kernel - plain| = {err_main}")
     if err_main != 0:
         fail("kernel B1 disagrees with its plain version on main-path "
              "inputs")
     err_b["B1"] = max(err_b["B1"], err_main)
     ms = cuda_ms(lambda: nww.nw_compare(*args, **geom), 20)
     plain_ms = cuda_ms(lambda: nww.nw_wavefront_ref(*args, **geom), 2)
-    bound_ms, bound_by, detail = bound(args, got, scal[sel], params[sel])
-    log(f"[time] kernel B1 {ms:.4f} ms, plain {plain_ms:.2f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({detail}); card {card}")
+    bound_ms, bound_by, detail = bound(args, got, scal, params)
+    log(f"[time] kernel B1 {ms:.4f} ms ({fit}), plain {plain_ms:.2f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({detail}); card {card}")
     rows = {"B1": dict(launches=n_b1, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)}
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       pairs_per_block=P)}
+    # B1 at one block of those inputs, and at samPB's geometry (BAND_SIZE
+    # 32: the center is the most abundant unique)
+    one = (args[0][:1], args[1][:1], args[2], args[3][:1].contiguous())
+    drp_pb = dt.derep_fastq(SAMPB)
+    rs_pb = make_rawset(drp_pb.sequences, drp_pb.abundances, None,
+                        drp_pb.quals)
+    opts_pb = DEFAULT_OPTIONS.replace(BAND_SIZE=32).normalized()
+    pb_args, pb_geom, pb_scal, pb_params = b1_bucket_inputs(
+        nww, CudaBackend(rs_pb, device=dev), opts_pb, dev)
+    for label, a1, g1, sp in (
+            ("one block", one, geom, (scal[:1], params[:1])),
+            ("samPB", pb_args, pb_geom, (pb_scal, pb_params))):
+        got1 = nww.nw_compare(*a1, **g1)
+        e1 = max_abs_diff(got1, nww.nw_wavefront_ref(*a1, **g1))
+        err_b["B1"] = max(err_b["B1"], e1)
+        t1 = cuda_ms(lambda: nww.nw_compare(*a1, **g1), 20)
+        b1_ms, b1_by, _ = bound(a1, got1, *sp)
+        log(f"[time] kernel B1 at {label} ({a1[0].shape[0]} blocks, WP="
+            f"{g1['WP']}, NDP={g1['NDP']}, L1R={g1['L1R']}, "
+            f"{b1_fit(g1, a1[0].shape[0])[0]}): {t1:.4f} ms, bound "
+            f"{b1_ms:.4f} ms by {b1_by}; max |kernel - plain| = {e1}; card "
+            f"{card}")
+        if e1 != 0:
+            fail(f"kernel B1 disagrees with its plain version at {label}")
 
     # 6. where the main path's device time goes (fresh backend, so the
     # kernel runs again)

@@ -13,9 +13,11 @@ array for array. It serves the TPU kernel's three modes:
 pairs, with the lr/ham statistics that `_lr_accum_pairs` derives from the
 class rows computed inside the kernel (one row of six int32 per pair).
 
-On CUDA tensors they launch the hand-written Hopper kernel in
-csrc/nw_wavefront.cu (one source, the modes are template variants; built
-with nvcc at first use, loaded through ctypes); on CPU tensors they run
+On CUDA tensors they launch the hand-written Hopper kernels in
+csrc/nw_wavefront.cu (one source: B1 is nw_compare_kernel, which holds up
+to 32 pairs per block and traces them back one lane per pair; B2, B2
+stats and B3 are template variants of one body; built with nvcc at first
+use, loaded through ctypes); on CPU tensors they run
 `nw_wavefront_ref` / `nw_pairs_stats_ref`, the plain PyTorch versions of
 the same recurrences. There is no fallback between the two. `nw_compare`
 is the B1 call.
@@ -74,7 +76,7 @@ def build_kernel() -> str:
     """Compile csrc/nw_wavefront.cu for sm_90a into build/ (if the library
     is missing or older than its source) and return the compiler's
     `-Xptxas -v` report (registers, shared memory, spills) for every
-    instantiation (window widths 32..128 x the three modes)."""
+    instantiation (window widths 32..128 x B1, B2, B2 stats and B3)."""
     with _lock:
         fresh = (os.path.exists(_SO) and os.path.exists(_PTXAS_LOG)
                  and os.path.getmtime(_SO) >= os.path.getmtime(_SRC))
@@ -105,24 +107,37 @@ def _load():
             lib = ctypes.CDLL(_SO)
             V, I = ctypes.c_void_p, ctypes.c_int
             lib.nw_wavefront_run.restype = I
-            lib.nw_wavefront_run.argtypes = [V] * 8 + [I] * 9 + [V]
+            lib.nw_wavefront_run.argtypes = [V] * 8 + [I] * 10 + [V]
             lib.nw_pairs_stats_run.restype = I
             lib.nw_pairs_stats_run.argtypes = [V] * 5 + [I] * 10 + [V]
             lib.nw_wavefront_pairs_per_block.restype = I
-            lib.nw_wavefront_pairs_per_block.argtypes = [I] * 5
+            lib.nw_wavefront_pairs_per_block.argtypes = [I] * 6
+            lib.nw_compare_blocks_per_sm.restype = I
+            lib.nw_compare_blocks_per_sm.argtypes = [I] * 5
             _lib = lib
     return _lib
 
 
 def pairs_per_block(L1R: int, L2R: int, NDP: int, WP: int,
-                    mode: int = 1) -> int:
+                    mode: int = 1, nb: int = 1) -> int:
     """Pairs (warps) one block of the kernel holds at this geometry in a
-    mode (1 B1, 2 B2, 3 B3, STATS_MODE), 0 if the window does not fit one
-    block's shared memory. The shared-memory layout and the fit live in
-    csrc/nw_wavefront.cu; this asks the built library (so it needs
-    nvcc)."""
+    mode (1 B1, 2 B2, 3 B3, STATS_MODE) for a launch of nb blocks of 128
+    lanes, 0 if the window does not fit one block's shared memory. B1's
+    choice depends on nb and on the card (a launch too small to give every
+    SM two blocks gets fewer pairs per block). The shared-memory layout and
+    the fit live in csrc/nw_wavefront.cu; this asks the built library (so
+    it needs nvcc, and for B1 the current CUDA device)."""
     return int(_load().nw_wavefront_pairs_per_block(L1R, L2R, NDP, WP,
-                                                    mode))
+                                                    mode, nb))
+
+
+def compare_blocks_per_sm(L1R: int, L2R: int, NDP: int, WP: int,
+                          P: int) -> int:
+    """Blocks of kernel B1 holding P pairs each that one SM of the current
+    CUDA device keeps resident at this geometry (the CUDA occupancy
+    calculator), 0 if such a block cannot run. For reports; B1's choice
+    of P is pairs_per_block's."""
+    return int(_load().nw_compare_blocks_per_sm(L1R, L2R, NDP, WP, P))
 
 
 # ---- the wrapper ---------------------------------------------------------
@@ -151,7 +166,9 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
                  WP: int, match: int, mismatch: int, gap_p: int,
                  emit_kinds=False, s1_per_block: bool = False):
     """The wavefront kernel in one of its three modes (see the module
-    docstring): align nb blocks of 128 pairs, s1 against s2q. Returns
+    docstring): align nb blocks of 128 pairs, s1 against s2q (B1 reads
+    one column of s1 per block: its caller gives one center in every
+    lane, as the TPU kernel's B1 caller does). Returns
     [kinds [nb, NDP, 128] unless B1,] sub [nb, L2R, 128], mapq
     [nb, L1R, 128], end [nb, 8, 128], all int32, in the TPU kernel's
     layouts (see csrc/nw_wavefront.cu). Ends-free (end_gap_p = 0)
@@ -176,11 +193,11 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
         return nw_wavefront_ref(scal, params, s1, s2q, **geom)
     if dev.type != "cuda":
         raise ValueError(f"nw_wavefront runs on cuda or cpu, not {dev}")
-    if pairs_per_block(L1R, L2R, NDP, WP, mode[1]) == 0:
+    nb = s2q.shape[0]
+    if pairs_per_block(L1R, L2R, NDP, WP, mode[1], nb) == 0:
         raise NotImplementedError(
             f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
             "(ROADMAP A5: the scalar/wide-window aligner)")
-    nb = s2q.shape[0]
     outs = [torch.empty((nb, rows, LANES), dtype=torch.int32, device=dev)
             for rows in (L2R, L1R, 8)]
     if emit_kinds:
@@ -195,7 +212,7 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
         scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
         kinds_ptr, sub.data_ptr(), mapq.data_ptr(), end.data_ptr(), nb,
         L1R, L2R, NDP, WP, mode[1], int(match), int(mismatch), int(gap_p),
-        stream)
+        0, stream)
     if rc != 0:
         raise RuntimeError(f"nw_wavefront kernel {mode[0]} launch failed: "
                            f"CUDA error {rc}")
@@ -258,8 +275,10 @@ def nw_pairs_stats(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
 
 def nw_compare(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,
                WP: int, match: int, mismatch: int, gap_p: int):
-    """Kernel B1: align one center (s1t [L1R, 128]) against nb blocks of
-    128 candidates (s2q). Returns (sub, mapq, end)."""
+    """Kernel B1: align one center (s1t [L1R, 128], the same column in
+    every lane, as the compare sweep builds it: the kernel stages one
+    column per block) against nb blocks of 128 candidates (s2q). Returns
+    (sub, mapq, end)."""
     return tuple(nw_wavefront(scal, params, s1t, s2q, L1R=L1R, L2R=L2R,
                               NDP=NDP, WP=WP, match=match,
                               mismatch=mismatch, gap_p=gap_p))

@@ -32,7 +32,9 @@ def test_import_loads_no_jax():
 def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|dada2_tpu)(\s|\.|,|$)",
                      re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "ab_b1.py", "ab_b2.py",
+                                 "sass_fill.py")]
     assert len(files) > 15
     for f in files:
         hits = pat.findall(f.read_text())
