@@ -149,5 +149,10 @@ def test_kernel_matches_plain_on_card():
     want = nww.nw_wavefront_ref(*t, **geom)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert nww.pairs_per_block(384, 384, 512, 32) == 4
+    # B1's pairs per block: one for a one-block launch; for the main
+    # path's 169 blocks a larger P that keeps four blocks per SM
+    assert nww.pairs_per_block(384, 384, 512, 32, 1, 1) == 1
+    P = nww.pairs_per_block(384, 384, 512, 32, 1, 169)
+    assert P > 1 and nww.compare_blocks_per_sm(384, 384, 512, 32, P) >= 4
+    assert nww.pairs_per_block(384, 384, 512, 32, 2, 169) == 4
     assert nww.pairs_per_block(384, 384, 512, 160) == 0
