@@ -35,6 +35,7 @@ copies of the TPU package's (they fix the block layout both kernels read).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -126,7 +127,16 @@ def pairs_per_block(L1R: int, L2R: int, NDP: int, WP: int,
     choice depends on nb and on the card (a launch too small to give every
     SM two blocks gets fewer pairs per block). The shared-memory layout and
     the fit live in csrc/nw_wavefront.cu; this asks the built library (so
-    it needs nvcc, and for B1 the current CUDA device)."""
+    it needs nvcc, and for B1 the current CUDA device), once per geometry,
+    launch size and device: B1's answer takes a few dozen CUDA runtime
+    calls, as long as a small launch itself."""
+    return _pairs_per_block(torch.cuda.current_device(), L1R, L2R, NDP, WP,
+                            mode, nb)
+
+
+@functools.lru_cache(maxsize=1024)
+def _pairs_per_block(device: int, L1R: int, L2R: int, NDP: int, WP: int,
+                     mode: int, nb: int) -> int:
     return int(_load().nw_wavefront_pairs_per_block(L1R, L2R, NDP, WP,
                                                     mode, nb))
 
@@ -194,7 +204,8 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
     if dev.type != "cuda":
         raise ValueError(f"nw_wavefront runs on cuda or cpu, not {dev}")
     nb = s2q.shape[0]
-    if pairs_per_block(L1R, L2R, NDP, WP, mode[1], nb) == 0:
+    ppb = pairs_per_block(L1R, L2R, NDP, WP, mode[1], nb)
+    if ppb == 0:
         raise NotImplementedError(
             f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
             "(ROADMAP A5: the scalar/wide-window aligner)")
@@ -212,7 +223,7 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
         scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
         kinds_ptr, sub.data_ptr(), mapq.data_ptr(), end.data_ptr(), nb,
         L1R, L2R, NDP, WP, mode[1], int(match), int(mismatch), int(gap_p),
-        0, stream)
+        ppb, stream)
     if rc != 0:
         raise RuntimeError(f"nw_wavefront kernel {mode[0]} launch failed: "
                            f"CUDA error {rc}")
