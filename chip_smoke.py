@@ -5,10 +5,13 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device  — a CUDA card must be present; prints its nvidia-smi name and
                power limit;
-  2. build   — builds the wavefront kernels (csrc/nw_wavefront.cu: B1's
+  2. build   — builds the two kernel sources with nvcc from the checkout,
+               one nvcc each, started together: csrc/nw_wavefront.cu (B1's
                nw_compare_kernel and the B2, B3, B2 stats body x windows of
-               32..128 rows, sixteen instantiations) with nvcc from the
-               checkout and prints its `-Xptxas -v` report;
+               32..128 rows, sixteen instantiations) and csrc/nw_batch.cu
+               (kernel B4: vec, scalar and homopolymer aligners x pointer
+               slab in shared or device memory, six); prints their
+               `-Xptxas -v` reports;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
                32/64/96/128 rows, lengths near 250 and 450, launches of 1
@@ -53,7 +56,32 @@ Phases (any failure exits non-zero and prints no result line):
                it replaces, each checked against its plain version, and
                the stats kernel's plain version time and bound;
  11. profile — the table run again under torch.profiler: no class-row
-               kernel and no scan kernel may appear.
+               kernel and no scan kernel may appear;
+ 12. batch   — kernel B4 (ops/nw_batch.py) against its plain version on
+               the card, on seeded fuzz batches: vec and scalar aligners,
+               bands 2, 4, 16, 32 and none, homopolymer gap penalty none,
+               -1 and -3, end gaps free and -8, mixed lengths, lengths near
+               250, the merge scorings, samPB.fastq.gz's full-length reads
+               at band 32 and some unbanded (the device-memory pointer
+               slab), chunked and not: all six outputs bitwise equal;
+ 13. paired  — sam1 and sam2, forward and reverse: dada -> merge_pairs ->
+               make_sequence_table -> collapse_no_mismatch ->
+               remove_bimera_denovo(consensus) -> is_shift_denovo on the
+               card and on the CPU, identical (the forward dada results are
+               phase 7's); then dada(sam1F) with HOMOPOLYMER_GAP_PENALTY=-1,
+               BAND_SIZE=32 (B4 must launch, B1 must not) and with
+               BAND_SIZE=-1 (the CPU check on its 100 most abundant
+               uniques: the unbanded plain version is slow), card == CPU;
+               kernel launches printed for each;
+ 14. B4 size — phase 5's sample through dada(selfConsist=True,
+               HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32) (B4's path: its
+               launches counted there; wall, B4 device time, bound over the
+               run's launches, plain version at its largest launch); B4 at
+               merge shapes (4,096 pairs, F = 240 nt against rc(R) = 200 nt
+               from phase 9's ASVs with seeded substitutions, scoring
+               (1, -64, -64), no band; CUDA events); is_shift_denovo on
+               phase 9's first 500 ASVs (124,750 unbanded pairs): wall, B4
+               device time, bound, plain version on one 4,096-pair chunk.
 It prints one {"kernels": [...]} line and, last, {"ok": true, ...}.
 """
 from __future__ import annotations
@@ -62,12 +90,15 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAM1F = os.path.join(ROOT, "tests", "extdata", "sam1F.fastq.gz")
 SAM2F = os.path.join(ROOT, "tests", "extdata", "sam2F.fastq.gz")
 SAMPB = os.path.join(ROOT, "tests", "extdata", "samPB.fastq.gz")
+SAM1R = os.path.join(ROOT, "tests", "extdata", "sam1R.fastq.gz")
+SAM2R = os.path.join(ROOT, "tests", "extdata", "sam2R.fastq.gz")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the int32 rate — 64
 # INT32 lanes per SM (half the 128 FP32 lanes behind the 67 TFLOP/s fp32
@@ -87,6 +118,10 @@ INT32_OPS_PER_S = 67e12 / 4
 # The same count holds in every mode: B2 and B3 add one store per
 # traceback step, not per cell.
 OPS_PER_CELL = 13
+# kernel B4 (the batch aligner) needs the same 13 per in-band cell in both
+# of its aligners (the scalar one's tie rules are as many compares and
+# selects), plus 2 selects of the gap penalty by the homopolymer masks
+B4_HOMO_OPS = 2
 # the table check's per-query route (kernel B1) runs on every column only
 # if that is expected to take at most this long
 PER_QUERY_SECONDS = 60.0
@@ -492,6 +527,81 @@ def stats_vs_plain(nww, t, want, geom, settings=STATS_SETTINGS):
     return err
 
 
+def b4_pairs(rng, n, len1, nops, lo=None, homo=False):
+    """n pairs (s1, s2): random s1 of length len1 (or lo..len1), runs of
+    3..7 equal bases planted if homo, and s2 = s1 with up to nops random
+    substitutions, insertions and deletions."""
+    import numpy as np
+
+    out = []
+    for _ in range(n):
+        L = len1 if lo is None else int(rng.integers(lo, len1 + 1))
+        a = rng.integers(0, 4, L).astype(np.uint8)
+        if homo:
+            for _ in range(max(1, L // 40)):
+                p = int(rng.integers(0, L - 8))
+                a[p: p + int(rng.integers(3, 8))] = int(rng.integers(0, 4))
+        out.append((a, mutate(rng, a, nops, False)))
+    return out
+
+
+def b4_tensors(pairs, dev):
+    """Kernel B4's inputs for pairs: codes padded with 255 and lengths, as
+    tensors on dev."""
+    import numpy as np
+    import torch
+
+    n = len(pairs)
+    L1 = max(len(a) for a, _ in pairs)
+    L2 = max(len(b) for _, b in pairs)
+    s1 = np.full((n, L1), 255, np.uint8)
+    s2 = np.full((n, L2), 255, np.uint8)
+    for k, (a, b) in enumerate(pairs):
+        s1[k, : len(a)] = a
+        s2[k, : len(b)] = b
+    lens = [np.array([len(x[i]) for x in pairs], np.int64) for i in (0, 1)]
+    return [torch.from_numpy(x).to(dev) for x in (s1, lens[0], s2, lens[1])]
+
+
+def pair_cells(l1, l2, band):
+    """In-band DP cells of each pair: for each row i <= len1, the j in
+    [max(0, i - lband), min(len2, i + rband)] (every cell if band < 0)."""
+    import numpy as np
+
+    l1 = np.asarray(l1, np.int64)
+    l2 = np.asarray(l2, np.int64)
+    if band < 0:
+        return int(((l1 + 1) * (l2 + 1)).sum())
+    lb = band + np.maximum(0, l1 - l2)
+    rb = band + np.maximum(0, l2 - l1)
+    cells = 0
+    for k in range(0, len(l1), 8192):
+        sl = slice(k, k + 8192)
+        ii = np.arange(int(l1[sl].max()) + 1)[None, :]
+        lo = np.maximum(0, ii - lb[sl, None])
+        hi = np.minimum(l2[sl, None], ii + rb[sl, None])
+        n = np.clip(hi - lo + 1, 0, None) * (ii <= l1[sl, None])
+        cells += int(n.sum())
+    return cells
+
+
+def b4_bound(nbytes, cells, homo):
+    """(bound_ms, bound_by, detail) of kernel B4 for nbytes read and
+    written once and cells in-band cells."""
+    ops = OPS_PER_CELL + (B4_HOMO_OPS if homo else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = cells * ops / INT32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, (
+        f"{nbytes} bytes -> {t_bytes:.4f} ms; {cells} in-band cells x {ops} "
+        f"int32 ops -> {t_ops:.4f} ms")
+
+
+def nbytes_of(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 # ---- main ------------------------------------------------------------------
 
 def main() -> None:
@@ -507,7 +617,8 @@ def main() -> None:
         from dada2_tpu_torch import chimeras as chim
         from dada2_tpu_torch.core.backend_cuda import CudaBackend
         from dada2_tpu_torch.core.raws import make_rawset
-        from dada2_tpu_torch.encode import pack_sequences
+        from dada2_tpu_torch.encode import pack_sequences, rc
+        from dada2_tpu_torch.ops import nw_batch as nwb
         from dada2_tpu_torch.ops import nw_wavefront as nww
         from dada2_tpu_torch.options import DEFAULT_OPTIONS
     except ImportError as e:
@@ -519,6 +630,10 @@ def main() -> None:
     def reset_launches():
         for k in launches:
             launches[k] = 0
+        nwb.nw_batch.launches = 0
+
+    def counts():
+        return dict(launches, B4=nwb.nw_batch.launches)
 
     # 1. device
     if not torch.cuda.is_available():
@@ -537,20 +652,39 @@ def main() -> None:
         f"{torch.cuda.device_count()} device(s), python "
         f"{sys.version.split()[0]}")
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.time()
-    try:
-        ptxas = nww.build_kernel()
-    except RuntimeError as e:
-        fail(f"kernel build: {e}")
-    log(f"[build] nw_wavefront.cu built in {time.time() - t0:.1f}s; "
-        "ptxas report:")
-    for line in ptxas.strip().splitlines():
-        log(f"[build]   {line.strip()}")
+    reports, build_errors = {}, {}
+
+    def build(name, fn):
+        try:
+            reports[name] = fn()
+        except RuntimeError as e:
+            build_errors[name] = e
+
+    builders = [threading.Thread(target=build, args=job) for job in (
+        ("nw_wavefront.cu", nww.build_kernel),
+        ("nw_batch.cu", nwb.build_kernel))]
+    for th in builders:
+        th.start()
+    for th in builders:
+        th.join()
+    if build_errors:
+        fail(f"kernel build: {build_errors}")
+    log(f"[build] nw_wavefront.cu and nw_batch.cu built in "
+        f"{time.time() - t0:.1f}s; ptxas reports:")
+    for name, rep in reports.items():
+        for line in rep.strip().splitlines():
+            log(f"[build]   {name}: {line.strip()}")
+    ptxas = reports["nw_wavefront.cu"]
     entries = ptxas.count("Compiling entry function")
     if entries != 16:
         fail(f"expected 16 kernel instantiations (4 windows x B1's kernel "
              f"and three modes of the other body), ptxas compiled {entries}")
+    entries = reports["nw_batch.cu"].count("Compiling entry function")
+    if entries != 6:
+        fail(f"expected 6 instantiations of kernel B4 (vec, scalar and "
+             f"homopolymer x two slab routes), ptxas compiled {entries}")
     b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
     if sorted(b1_regs) != [1, 2, 3, 4]:
         fail(f"B1's four instantiations not found in the ptxas report: "
@@ -797,16 +931,16 @@ def main() -> None:
     def small_table(device):
         dereps = {"sam1": dt.derep_fastq(SAM1F),
                   "sam2": dt.derep_fastq(SAM2F)}
-        st = dt.make_sequence_table(
-            dt.dada(dereps, err=err41, device=device, verbose=False))
+        dadas = dt.dada(dereps, err=err41, device=device, verbose=False)
+        st = dt.make_sequence_table(dadas)
         return st, {m: dt.remove_bimera_denovo(st, method=m, device=device)
-                    for m in ("consensus", "pooled", "per-sample")}
+                    for m in ("consensus", "pooled", "per-sample")}, dadas
 
     t0 = time.time()
-    st_gpu, nochim_gpu = small_table("cuda")
+    st_gpu, nochim_gpu, dadas_f_gpu = small_table("cuda")
     t_gpu = time.time() - t0
     t0 = time.time()
-    st_cpu, nochim_cpu = small_table("cpu")
+    st_cpu, nochim_cpu, dadas_f_cpu = small_table("cpu")
     t_cpu = time.time() - t0
     try:
         pd.testing.assert_frame_equal(st_gpu, st_cpu)
@@ -967,6 +1101,7 @@ def main() -> None:
     def stats_kernel():
         return nww.nw_pairs_stats(*args, **g2, **skw)
 
+    cls_plain_ms = cuda_ms(lambda: nww.nw_wavefront_ref(*args, **ckw), 1)
     if not torch.equal(cls_route(), stats_kernel()):
         fail("the stats kernel differs from class rows + torch scans on "
              "the table's launch")
@@ -995,9 +1130,11 @@ def main() -> None:
         fail("kernel B2 disagrees with its plain version on the table's "
              "inputs")
     rows["B2"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, cls_kernel_ms=t_cls[0],
-                      cls_route_ms=t_route[0],
-                      cls_max_abs_err=err_b["B2cls"])
+                      bound_by=bound_by)
+    # the class-row mode: no route launches it (launches 0), timed here
+    rows["B2cls"] = dict(launches=0, ms=t_cls[0], plain_ms=cls_plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         with_torch_scans_ms=t_route[0])
     del args, be
 
     # 11. where the table run's device time goes; the route must launch
@@ -1018,15 +1155,336 @@ def main() -> None:
             fail("the table run launched a class-row or scan kernel, or "
                  "not the stats kernel")
 
-    names = {"B1": "nw_wavefront compare (B1)",
-             "B2": "nw_wavefront pairs stats (B2)",
-             "B3": "nw_wavefront kinds (B3)"}
+    # 12. kernel B4 against its plain version on the card, bitwise
+    rng = np.random.default_rng(2026)
+    sc5 = dict(match=5, mismatch=-4, gap_p=-8)
+    merge64 = dict(match=1, mismatch=-64, gap_p=-64, mode="scalar", band=-1)
+    merge8 = dict(match=1, mismatch=-8, gap_p=-8, mode="scalar", band=-1)
+    merge_like = [(a[:240], b[50:]) for a, b in b4_pairs(rng, 200, 250, 4)]
+    b4_cases = [
+        ("vec band 2", b4_pairs(rng, 300, 250, 6), dict(sc5, band=2)),
+        ("vec band 4, end gaps -8", b4_pairs(rng, 300, 248, 8),
+         dict(sc5, band=4, end_gap_p=-8)),
+        ("vec band 16, mixed lengths", b4_pairs(rng, 500, 300, 12, lo=60),
+         dict(sc5, band=16)),
+        ("vec band 32", b4_pairs(rng, 300, 252, 16), dict(sc5, band=32)),
+        ("vec unbanded", b4_pairs(rng, 200, 250, 20), dict(sc5, band=-1)),
+        ("vec unbanded, end gaps -8, mixed lengths",
+         b4_pairs(rng, 100, 140, 20, lo=30),
+         dict(sc5, band=-1, end_gap_p=-8)),
+        ("scalar band 16", b4_pairs(rng, 300, 250, 12),
+         dict(sc5, band=16, mode="scalar")),
+        ("scalar band 4, end gaps -8", b4_pairs(rng, 300, 251, 8),
+         dict(sc5, band=4, end_gap_p=-8, mode="scalar")),
+        ("scalar band 32, homopolymer -1",
+         b4_pairs(rng, 300, 250, 12, homo=True),
+         dict(sc5, band=32, mode="scalar", homo_gap_p=-1)),
+        ("scalar band 2, homopolymer -3",
+         b4_pairs(rng, 300, 249, 6, homo=True),
+         dict(sc5, band=2, mode="scalar", homo_gap_p=-3)),
+        ("scalar unbanded, homopolymer -3, mixed lengths",
+         b4_pairs(rng, 200, 260, 12, lo=100, homo=True),
+         dict(sc5, band=-1, mode="scalar", homo_gap_p=-3)),
+        ("scalar unbanded, homopolymer -1, end gaps -8",
+         b4_pairs(rng, 150, 250, 12, homo=True),
+         dict(sc5, band=-1, mode="scalar", homo_gap_p=-1, end_gap_p=-8)),
+        ("merge scoring (1, -64, -64)", merge_like, merge64),
+        ("merge scoring (1, -8, -8)", merge_like, merge8),
+    ]
+    # samPB's full-length reads: the most abundant against the next 127 at
+    # band 32 with homopolymer gaps (the PacBio configuration), and four
+    # of them unbanded (the device-memory slab), whole and one per chunk
+    pb_codes, pb_lens = pack_sequences(drp_pb.sequences[:128])
+    pb_pairs = [(pb_codes[0, : pb_lens[0]], pb_codes[k, : pb_lens[k]])
+                for k in range(1, 128)]
+    pbkw = dict(sc5, mode="scalar", homo_gap_p=-1)
+    b4_cases += [
+        ("samPB band 32, homopolymer -1", pb_pairs, dict(pbkw, band=32)),
+        ("samPB unbanded (device-memory slab)", pb_pairs[:4],
+         dict(pbkw, band=-1)),
+        ("samPB unbanded, one pair per launch", pb_pairs[:4],
+         dict(pbkw, band=-1, max_bytes=1)),
+    ]
+    err_b["B4"] = 0
+    for label, pairs, kw in b4_cases:
+        args = b4_tensors(pairs, dev)
+        nd, W = nwb.batch_geometry(args[1].cpu().numpy(),
+                                   args[3].cpu().numpy(), kw["band"])
+        homo = kw.get("homo_gap_p") is not None
+        route = nwb.slab_route(args[0].shape[1], args[2].shape[1], nd, W,
+                               homo)
+        before = nwb.nw_batch.launches
+        got = nwb.nw_batch(*args, **kw)
+        torch.cuda.synchronize()
+        nl = nwb.nw_batch.launches - before
+        want = nwb.nw_batch_ref(*args, **{k: v for k, v in kw.items()
+                                          if k != "max_bytes"})
+        err = max_abs_diff(got, want)
+        ok_tb = bool(got[5].all())
+        err_b["B4"] = max(err_b["B4"], err)
+        log(f"[batch] {label}: {len(pairs)} pairs, L1={args[0].shape[1]} "
+            f"L2={args[2].shape[1]} nd={nd} W={W}, pointers in "
+            f"{'shared' if route == 1 else 'device'} memory, {nl} "
+            f"launch(es): max |kernel - plain| = {err} over kinds, p0, p1, "
+            f"ham, tvec, ok; tracebacks complete: {ok_tb}")
+        if err != 0 or not ok_tb or route == 0:
+            fail(f"kernel B4 disagrees with its plain version ({label})")
+        if "slab" in label and route != 2:
+            fail("the unbanded samPB pairs did not take the device-memory "
+                 "slab")
+        if "one pair per launch" in label and nl != len(pairs):
+            fail(f"the chunked B4 call made {nl} launches for "
+                 f"{len(pairs)} pairs")
+
+    # 13. the paired slice and the configurations B1 does not serve: card
+    # against CPU, identical
+    def paired_slice(device, dadas_f):
+        dereps_f = {"sam1": dt.derep_fastq(SAM1F),
+                    "sam2": dt.derep_fastq(SAM2F)}
+        dereps_r = {"sam1": dt.derep_fastq(SAM1R),
+                    "sam2": dt.derep_fastq(SAM2R)}
+        dadas_r = dt.dada(dereps_r, err=err41, device=device, verbose=False)
+        merged = dt.merge_pairs(dadas_f, dereps_f, dadas_r, dereps_r,
+                                returnRejects=True, device=device)
+        st = dt.make_sequence_table(
+            {s: m[m["accept"].astype(bool)] for s, m in merged.items()})
+        col = dt.collapse_no_mismatch(st, device=device)
+        nochim = dt.remove_bimera_denovo(col, method="consensus",
+                                         device=device)
+        shift = dt.is_shift_denovo(
+            dict(zip(nochim.columns, nochim.values.sum(axis=0))),
+            device=device)
+        return merged, st, col, nochim, shift
+
+    reset_launches()
+    t0 = time.time()
+    pgpu = paired_slice("cuda", dadas_f_gpu)
+    t_gpu = time.time() - t0
+    n_paired = counts()
+    t0 = time.time()
+    pcpu = paired_slice("cpu", dadas_f_cpu)
+    t_cpu = time.time() - t0
+    try:
+        for s in pgpu[0]:
+            pd.testing.assert_frame_equal(pgpu[0][s], pcpu[0][s], obj=s)
+        for g, c, name in zip(pgpu[1:4], pcpu[1:4],
+                              ("table", "collapsed", "nochim")):
+            pd.testing.assert_frame_equal(g, c, obj=name)
+        pd.testing.assert_series_equal(pgpu[4], pcpu[4])
+    except AssertionError as e:
+        fail(f"the paired slice differs card vs CPU: {e}")
+    log(f"[paired] sam1+sam2 F/R: merged pairings "
+        f"{[len(m) for m in pgpu[0].values()]} (accepted "
+        f"{[int(m['accept'].sum()) for m in pgpu[0].values()]}), table "
+        f"{pgpu[1].shape}, collapsed {pgpu[2].shape}, without bimeras "
+        f"{pgpu[3].shape}, shifts flagged {int(pgpu[4].sum())}; reverse "
+        f"dada + slice: card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; identical; "
+        f"card launches {n_paired}")
+    if n_paired["B4"] <= 0:
+        fail("the paired slice never launched kernel B4")
+
+    hp = dict(HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32)
+    reset_launches()
+    t0 = time.time()
+    res_h = dt.dada(drp, err=err41, device="cuda", verbose=False, **hp)
+    t_gpu = time.time() - t0
+    n_h = counts()
+    t0 = time.time()
+    res_hc = dt.dada(dt.derep_fastq(SAM1F), err=err41, device="cpu",
+                     verbose=False, **hp)
+    t_cpu = time.time() - t0
+    try:
+        same_result(res_h, res_hc, "sam1F homopolymer card vs CPU")
+    except AssertionError as e:
+        fail(f"dada(sam1F, HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32) on the "
+             f"card differs from the CPU: {e}")
+    log(f"[misfit] sam1F HOMOPOLYMER_GAP_PENALTY=-1 BAND_SIZE=32: "
+        f"{len(res_h.denoised)} ASVs; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; "
+        f"identical; card launches {n_h}")
+    if n_h["B4"] <= 0 or n_h["B1"] != 0:
+        fail("the homopolymer configuration must launch B4 and not B1")
+    reset_launches()
+    t0 = time.time()
+    res_u = dt.dada(drp, err=err41, device="cuda", verbose=False,
+                    BAND_SIZE=-1)
+    t_gpu = time.time() - t0
+    n_u = counts()
+    k = 100
+    top = [dt.Derep(uniques=dict(list(d.uniques.items())[:k]),
+                    quals=d.quals[:k], map=np.arange(k), name="top")
+           for d in (drp, dt.derep_fastq(SAM1F))]
+    res_us = dt.dada(top[0], err=err41, device="cuda", verbose=False,
+                     BAND_SIZE=-1)
+    t0 = time.time()
+    res_uc = dt.dada(top[1], err=err41, device="cpu", verbose=False,
+                     BAND_SIZE=-1)
+    t_cpu = time.time() - t0
+    try:
+        same_result(res_us, res_uc, f"sam1F top-{k} BAND_SIZE=-1")
+    except AssertionError as e:
+        fail(f"dada(BAND_SIZE=-1) on the card differs from the CPU: {e}")
+    log(f"[misfit] sam1F BAND_SIZE=-1: {len(res_u.denoised)} ASVs from "
+        f"{len(drp.uniques)} uniques, card {t_gpu:.2f}s, launches {n_u}; "
+        f"its {k} most abundant uniques: {len(res_us.denoised)} ASVs, card "
+        f"== CPU (CPU {t_cpu:.2f}s)")
+    if n_u["B4"] <= 0 or n_u["B1"] != 0:
+        fail("dada(BAND_SIZE=-1) must launch B4 and not B1")
+
+    # 14. kernel B4 at real size. (a) B4's path: phase 5's sample in the
+    # homopolymer configuration; the calls into B4 are recorded (geometry
+    # only) for the bound and the plain version's time at the largest one
+    b4_calls = []
+    align_batch = CudaBackend._align_batch
+
+    def recorded(be_, center, idx, opts_):
+        b4_calls.append((be_, int(center), np.array(idx), opts_))
+        return align_batch(be_, center, idx, opts_)
+
+    CudaBackend._align_batch = recorded
+    try:
+        dt.PHASES.reset()
+        reset_launches()
+        t0 = time.time()
+        res14 = dt.dada(sim, err=None, selfConsist=True, device="cuda",
+                        verbose=False, **hp)
+        torch.cuda.synchronize()
+        wall14 = time.time() - t0
+        n14 = counts()
+    finally:
+        CudaBackend._align_batch = align_batch
+    if n14["B4"] <= 0:
+        fail("the homopolymer selfConsist run never launched kernel B4")
+    cells14 = sum(pair_cells(np.full(len(i), b.lens[c]), b.lens[i],
+                             o.BAND_SIZE) for b, c, i, o in b4_calls)
+    big = max(b4_calls, key=lambda x: len(x[2]))
+    bbe, bc, bidx, bo = big
+    out = bbe._align_batch(bc, bidx, bo)
+    # bytes per pair at sequence width L: s1, s2, the two masks (L each),
+    # two int32 lengths; kinds (2L), p0 and p1 (2L int32 each), tvec (L),
+    # ham (4), ok (1)
+    nb14 = sum(len(i) * (23 * b_.d_seqs.shape[1] + 13)
+               for b_, c_, i, o_ in b4_calls)
+    bound14, by14, det14 = b4_bound(nb14, cells14, True)
+    ms_big = cuda_ms(lambda: bbe._align_batch(bc, bidx, bo), 5)
+    run_plain = nwb.nw_batch
+    nwb.nw_batch = nwb.nw_batch_ref
+    try:
+        want = bbe._align_batch(bc, bidx, bo)
+        plain_big = cuda_ms(lambda: bbe._align_batch(bc, bidx, bo), 1)
+    finally:
+        nwb.nw_batch = run_plain
+    err_b["B4"] = max(err_b["B4"], max_abs_diff(out, want))
+    by_name = profile_device("homopolymer selfConsist run", lambda: dt.dada(
+        sim, err=None, selfConsist=True, device="cuda", verbose=False, **hp))
+    b4_dev = [v for n_, v in by_name.items() if "nw_batch_kernel" in n_]
+    b4_dev_ms = sum(v[0] for v in b4_dev) / 1e3 if b4_dev else None
+    log(f"[B4 size] dada(selfConsist=True, HOMOPOLYMER_GAP_PENALTY=-1, "
+        f"BAND_SIZE=32) on phase 5's sample: {len(sim.uniques)} uniques, "
+        f"{len(res14.err_in)} rounds, {len(res14.denoised)} ASVs, "
+        f"{wall14:.2f}s wall; launches {n14}; B4 device time "
+        f"{b4_dev_ms if b4_dev_ms is None else round(b4_dev_ms, 4)} ms "
+        f"(profiled rerun); B4 bound over the run's {len(b4_calls)} calls "
+        f"{bound14:.4f} ms by {by14} ({det14}); its largest call "
+        f"({len(bidx)} pairs): kernel {ms_big:.4f} ms, plain {plain_big:.2f}"
+        f" ms, max |kernel - plain| = {max_abs_diff(out, want)}; card {card}")
+    log(f"[B4 size] phases: {dt.PHASES.summary()}")
+    eo = np.asarray(res14.err_out)
+    if (not np.isfinite(eo).all() or (eo < 0).any() or (eo > 1).any()
+            or len(res14.denoised) == 0):
+        fail("the homopolymer selfConsist run's outputs are malformed")
+    if err_b["B4"] != 0:
+        fail("kernel B4 disagrees with its plain version at the dada run's "
+             "largest call")
+
+    # (b) B4 at merge shapes: 4,096 F = 240 nt against rc(R) = 200 nt
+    mrng = np.random.default_rng(14)
+    fwd, rev = [], []
+    for s in seqs[:4096]:
+        f = list(s[:240])
+        r = list(s[50:])
+        for x in (f, r):
+            for _ in range(2):
+                x[int(mrng.integers(0, len(x)))] = "ACGT"[mrng.integers(4)]
+        fwd.append("".join(f))
+        rev.append(rc("".join(r)))
+    m1, l1 = pack_sequences(fwd)
+    m2, l2 = pack_sequences([rc(r) for r in rev])
+    margs = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (m1, l1.astype(np.int64), m2, l2.astype(np.int64))]
+    got = nwb.nw_batch(*margs, **merge64)
+    want = nwb.nw_batch_ref(*margs, **merge64)
+    err_m = max_abs_diff(got, want)
+    err_b["B4"] = max(err_b["B4"], err_m)
+    ms_m = cuda_ms(lambda: nwb.nw_batch(*margs, **merge64), 10)
+    plain_m = cuda_ms(lambda: nwb.nw_batch_ref(*margs, **merge64), 1)
+    bound_m, by_m, det_m = b4_bound(nbytes_of(margs) + nbytes_of(got),
+                                    pair_cells(l1, l2, -1), False)
+    nd, W = nwb.batch_geometry(l1, l2, -1)
+    log(f"[time] kernel B4 at merge shapes (4096 pairs, 240 x 200 nt, "
+        f"unbanded, scoring (1, -64, -64), nd={nd} W={W}): {ms_m:.4f} ms, "
+        f"plain {plain_m:.2f} ms; bound {bound_m:.4f} ms by {by_m} "
+        f"({det_m}); max |kernel - plain| = {err_m}; card {card}")
+    if err_m != 0 or not bool(got[5].all()):
+        fail("kernel B4 disagrees with its plain version at merge shapes")
+
+    # (c) is_shift_denovo on the table's first 500 ASVs (124,750 pairs)
+    unqs = {s: 1000 - k for k, s in enumerate(seqs[:500])}
+    reset_launches()
+    t0 = time.time()
+    shifts = dt.is_shift_denovo(unqs, device="cuda")
+    wall_s = time.time() - t0
+    n_s = counts()
+    by_name = profile_device("is_shift_denovo", lambda: dt.is_shift_denovo(
+        unqs, device="cuda"))
+    b4_dev = [v for n_, v in by_name.items() if "nw_batch_kernel" in n_]
+    shift_dev_ms = sum(v[0] for v in b4_dev) / 1e3 if b4_dev else None
+    npairs = 500 * 499 // 2
+    bound_s, by_s, det_s = b4_bound(
+        npairs * (2 * 250 + 8 + 9 * 500 + 250 + 5),
+        pair_cells(np.full(npairs, 250), np.full(npairs, 250), -1), False)
+    codes5, lens5 = pack_sequences(seqs[:500])
+    qi, pi = np.nonzero(np.triu(np.ones((500, 500), bool), 1).T)
+    chunk = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        codes5[qi[:4096]], lens5[qi[:4096]].astype(np.int64),
+        codes5[pi[:4096]], lens5[pi[:4096]].astype(np.int64))]
+    skw = dict(match=copts.MATCH, mismatch=copts.MISMATCH,
+               gap_p=copts.GAP_PENALTY, band=-1, mode="scalar")
+    got = nwb.nw_batch(*chunk, **skw)
+    want = nwb.nw_batch_ref(*chunk, **skw)
+    err_s = max_abs_diff(got, want)
+    err_b["B4"] = max(err_b["B4"], err_s)
+    ms_chunk = cuda_ms(lambda: nwb.nw_batch(*chunk, **skw), 5)
+    plain_chunk = cuda_ms(lambda: nwb.nw_batch_ref(*chunk, **skw), 1)
+    log(f"[B4 size] is_shift_denovo on {len(unqs)} ASVs ({npairs} unbanded "
+        f"pairs): {wall_s:.2f}s wall, launches {n_s}, "
+        f"{int(shifts.sum())} flagged; B4 device time "
+        f"{shift_dev_ms if shift_dev_ms is None else round(shift_dev_ms, 4)}"
+        f" ms (profiled rerun); bound {bound_s:.4f} ms by {by_s} ({det_s}); "
+        f"one 4096-pair chunk: kernel {ms_chunk:.4f} ms, plain "
+        f"{plain_chunk:.2f} ms, max |kernel - plain| = {err_s}; card {card}")
+    if n_s["B4"] <= 0 or err_s != 0:
+        fail("is_shift_denovo did not run through kernel B4, or B4 "
+             "disagrees with its plain version on its chunk")
+    rows["B4"] = dict(launches=n14["B4"], ms=ms_m, plain_ms=plain_m,
+                      bound_ms=bound_m, bound_by=by_m,
+                      dada_run_b4_device_ms=b4_dev_ms,
+                      dada_run_bound_ms=bound14,
+                      shift_b4_device_ms=shift_dev_ms,
+                      shift_bound_ms=bound_s)
+
+    wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",
+            "dada2_tpu/ops/nw_pallas.py:452")
+    kernels = {
+        "B1": ("nw_wavefront compare (B1)",) + wave,
+        "B2": ("nw_wavefront pairs stats (B2)",) + wave,
+        "B2cls": ("nw_wavefront pairs class rows (B2)",) + wave,
+        "B3": ("nw_wavefront kinds (B3)",) + wave,
+        "B4": ("nw_batch (B4)", "dada2_tpu_torch/csrc/nw_batch.cu",
+               "dada2_tpu/ops/nw_batch.py:63")}
     log(json.dumps({"kernels": [dict(
-        name=names[k], route="cuda",
-        source="dada2_tpu_torch/csrc/nw_wavefront.cu",
-        replaces="dada2_tpu/ops/nw_pallas.py:452",
+        name=name, route="cuda", source=src, replaces=rep,
         max_abs_err=err_b[k], match=err_b[k] == 0, library_ms=None,
-        **rows[k]) for k in ("B1", "B2", "B3")]}))
+        **rows[k]) for k, (name, src, rep) in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

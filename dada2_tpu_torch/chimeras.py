@@ -20,14 +20,16 @@ identical statistics; the route is chosen from geometry before any
 launch. The host numpy scans (_lr_ham_batch) are kept as the reference
 the tests hold the torch scans to.
 
+Pair sets that fit neither kernel route (maxShift < 0, or windows wider
+than the wavefront kernel's) go through kernel B4 (ops/nw_batch.py), the
+JAX package's nw_batch route, with the same scans in torch over its
+traceback steps (`_lr_stats_device`). is_shift_denovo aligns every pair
+with B4's unbanded scalar aligner (`_batch_eval_stats`). The JAX package
+also sends small pair sets (< 256) through nw_batch, for TPU compile and
+dispatch cost; here every pair set that fits takes the B2 or B1 route.
+
 Public functions take device=None, which means the CUDA card (raising
 without one); device="cpu" runs the kernels' plain PyTorch versions.
-
-Not ported (they need the unbanded scalar aligner, ops/nw_batch.py, ROADMAP
-A5): is_shift_denovo and the nw_batch-based helpers, which raise
-NotImplementedError. The JAX package sends small pair sets (< 256) through
-nw_batch for TPU compile and dispatch cost; here every pair set takes the
-kernel routes.
 """
 from __future__ import annotations
 
@@ -40,7 +42,9 @@ import torch
 from .core.backend_cuda import (CudaBackend, _fetch, _pack_s2_dev,
                                 resolve_device)
 from .core.raws import make_rawset
+from .encode import pack_sequences
 from .ops import nw_wavefront as nww
+from .ops.nw_batch import PTR_LEFT, PTR_NONE, PTR_UP, nw_batch
 from .ops.nw_ref import GAP
 # the torch scans over B2's class rows live beside the kernel (its plain
 # version uses them); re-exported under their old names here
@@ -52,32 +56,181 @@ from .trace import PHASES
 _PAD = 255  # padding code outside each pair's alignment length
 LANES = nww.LANES
 CH_BLOCKS = 1024  # blocks (of 128 pairs) per kernel B2 launch
+# pairs per kernel B4 launch on the fallback route (its torch scans hold a
+# few [pairs, L1 + L2] int64 tensors) and on is_shift_denovo's unbanded one
+CHUNK_PAIRS = 16384
+CHUNK_PAIRS_UNBANDED = 4096
 
 
-def _needs_scalar_aligner(what: str):
-    raise NotImplementedError(
-        f"{what} needs the unbanded scalar aligner (dada2_tpu/ops/"
-        "nw_batch.py), which is not ported yet (ROADMAP A5)")
+# ---- kernel B4's route (counterparts of dada2_tpu/chimeras.py's nw_batch
+# helpers) ------------------------------------------------------------------
+
+def _alignment_code_mats(pairs_chunk, mat, lens, maxShift, match,
+                         mismatch, gap_p, device=None):
+    """Gapped-alignment code matrices for (query, parent) index pairs:
+    kernel B4 (band = maxShift) and one vectorized host reconstruction
+    (the batched equivalent of ops/nw_batch.steps_to_alignment). Returns
+    (A, B, m): [P, Lmax] uint8 with GAP=254 and _PAD beyond each pair's
+    alignment length m[p] (reference: nwalign_vectorized2 calls in
+    src/chimera.cpp:27,122)."""
+    qi = np.fromiter((p[0] for p in pairs_chunk), np.int64,
+                     len(pairs_chunk))
+    pi = np.fromiter((p[1] for p in pairs_chunk), np.int64,
+                     len(pairs_chunk))
+    out = nw_batch(mat[qi], lens[qi], mat[pi], lens[pi], match=match,
+                   mismatch=mismatch, gap_p=gap_p, end_gap_p=0,
+                   band=maxShift, device=resolve_device(device))
+    kinds, p0, p1, ok = (_fetch(x) for x in (out[0], out[1], out[2], out[5]))
+    if not ok.all():
+        raise RuntimeError("N-W Align out of range.")
+    live = kinds != PTR_NONE            # contiguous step prefix, reversed
+    m = live.sum(axis=1)
+    Lmax = int(m.max()) if len(m) else 0
+    P = len(pairs_chunk)
+    rows = np.arange(P)[:, None]
+    J = m[:, None] - 1 - np.arange(Lmax)[None, :]   # un-reverse steps
+    valid = J >= 0
+    Jc = np.clip(J, 0, kinds.shape[1] - 1)
+    kg = kinds[rows, Jc]
+    s1g = mat[qi[:, None], np.clip(p0[rows, Jc], 0, mat.shape[1] - 1)]
+    s2g = mat[pi[:, None], np.clip(p1[rows, Jc], 0, mat.shape[1] - 1)]
+    A = np.where(kg != PTR_LEFT, s1g, GAP).astype(np.uint8)
+    B = np.where(kg != PTR_UP, s2g, GAP).astype(np.uint8)
+    A[~valid] = _PAD
+    B[~valid] = _PAD
+    return A, B, m.astype(np.int64)
 
 
-def _alignment_code_mats(*args, **kwargs):
-    """Gapped-alignment code matrices through nw_batch: not ported (A5)."""
-    _needs_scalar_aligner("_alignment_code_mats")
+def _gapped_rows(kinds, p0, p1, sq, sp):
+    """(A, B, Ar, Br, m): the gapped alignment rows of traceback steps
+    ([P, L] int64 codes, GAP in gaps, _PAD past each pair's m columns) in
+    forward order (A, B) and as the steps arrive, end first (Ar, Br)."""
+    i64 = torch.int64
+    kinds = kinds.to(i64)
+    L = kinds.shape[1]
+    live = kinds != PTR_NONE
+    m = live.sum(1)
+    s1g = torch.gather(sq.to(i64), 1, p0.to(i64).clamp(0, sq.shape[1] - 1))
+    s2g = torch.gather(sp.to(i64), 1, p1.to(i64).clamp(0, sp.shape[1] - 1))
+    Ar = torch.where(live, torch.where(kinds != PTR_LEFT, s1g, GAP), _PAD)
+    Br = torch.where(live, torch.where(kinds != PTR_UP, s2g, GAP), _PAD)
+    # forward-order rows via one un-reversing gather
+    J = m[:, None] - 1 - torch.arange(L, device=kinds.device)[None, :]
+    Jc = J.clamp(0, L - 1)
+    A = torch.where(J >= 0, torch.gather(Ar, 1, Jc), _PAD)
+    B = torch.where(J >= 0, torch.gather(Br, 1, Jc), _PAD)
+    return A, B, Ar, Br, m
 
 
-def _lr_stats_device(*args, **kwargs):
-    """lr/ham stats from nw_batch traceback steps: not ported (A5)."""
-    _needs_scalar_aligner("_lr_stats_device")
+def _lr_one_side_t(A, B, m, allow_one_off: bool, shift_bound: int):
+    """Torch twin of _lr_one_side (one directional credit scan)."""
+    L = A.shape[1]
+    idx = torch.arange(L, device=A.device)[None, :]
+    inlen = idx < m[:, None]
+    zero = torch.zeros_like(m)
+    q0 = _first_false_t((A == GAP) & inlen, zero, L)
+    s = _first_false_t((B == GAP) & (idx < shift_bound), q0, L)
+    eq = (A == B) & inlen
+    e = _first_false_t(eq, s, L)
+    credit = e - q0
+    if not allow_one_off:
+        return credit, credit
+    t = e + 1
+    bonus = (t < m) & (_take(A, t.clamp(0, L - 1)) != GAP)
+    f = _first_false_t(eq, t.clamp(max=L), L)
+    return credit, credit + bonus + (f - t).clamp_min(0)
 
 
-def _eval_stats_device(*args, **kwargs):
-    """eval_pair stats from nw_batch traceback steps: not ported (A5)."""
-    _needs_scalar_aligner("_eval_stats_device")
+def _trims(A, B, Ar, Br, m):
+    """(start, end) of the columns between the ends-free end-gap runs:
+    the longer leading and the longer trailing gap run are cut."""
+    L = A.shape[1]
+    zero = torch.zeros_like(m)
+    start = torch.maximum(_first_false_t(A == GAP, zero, L),
+                          _first_false_t(B == GAP, zero, L))
+    rtrim = torch.maximum(_first_false_t(Ar == GAP, zero, L),
+                          _first_false_t(Br == GAP, zero, L))
+    return start, m - rtrim
 
 
-def _batch_eval_stats(*args, **kwargs):
-    """Unbanded eval_pair statistics (is_shift_denovo): not ported (A5)."""
-    _needs_scalar_aligner("_batch_eval_stats")
+def _lr_stats_device(kinds, p0, p1, sq, sp, allow_one_off: bool,
+                     max_shift: int):
+    """The five lr/ham statistics of _lr_ham_batch straight from kernel
+    B4's traceback steps, in torch on their device (counterpart of
+    dada2_tpu/chimeras.py::_lr_stats_device): [P, 5] int64. The steps
+    arrive end first, which is the right-side scan order."""
+    A, B, Ar, Br, m = _gapped_rows(kinds, p0, p1, sq, sp)
+    left, left_oo = _lr_one_side_t(A, B, m, allow_one_off, max_shift)
+    right, right_oo = _lr_one_side_t(Ar, Br, m, allow_one_off,
+                                     max_shift - 1)
+    start, end = _trims(A, B, Ar, Br, m)
+    idx = torch.arange(A.shape[1], device=A.device)[None, :]
+    ham = ((A != B) & (idx >= start[:, None])
+           & (idx < end[:, None])).sum(1)
+    return torch.stack([left, right, left_oo, right_oo, ham],
+                       1).to(torch.int64)
+
+
+def _eval_stats_device(kinds, p0, p1, sq, sp):
+    """eval_pair's (match, mismatch, indel) of traceback steps, end-gap
+    runs trimmed as the scalar walk trims them (reference: C_eval_pair,
+    src/evaluate.cpp:73-113; counterpart of dada2_tpu/chimeras.py::
+    _eval_stats_device): [P, 3] int64."""
+    A, B, Ar, Br, m = _gapped_rows(kinds, p0, p1, sq, sp)
+    start, end = _trims(A, B, Ar, Br, m)
+    idx = torch.arange(A.shape[1], device=A.device)[None, :]
+    sel = (idx >= start[:, None]) & (idx < end[:, None])
+    gap = (A == GAP) | (B == GAP)
+    indel = (gap & sel).sum(1)
+    match = ((A == B) & sel).sum(1)
+    mismatch = (sel & ~gap & (A != B)).sum(1)
+    return torch.stack([match, mismatch, indel], 1).to(torch.int64)
+
+
+def _b4_pair_stats(pairs, seqs, chunk: int, stats, device, **align):
+    """stats(kinds, p0, p1, sq, sp) over kernel B4's alignments of
+    (query, parent) index pairs, chunk pairs per launch, one fetch per
+    chunk; rows in pair order (int64)."""
+    dev = resolve_device(device)
+    mat, lens = pack_sequences(seqs)
+    rows = []
+    for lo in range(0, len(pairs), chunk):
+        qi = pairs[lo: lo + chunk, 0]
+        pi = pairs[lo: lo + chunk, 1]
+        sq = torch.from_numpy(mat[qi]).to(dev)
+        sp = torch.from_numpy(mat[pi]).to(dev)
+        kinds, p0, p1, _, _, ok = nw_batch(sq, lens[qi], sp, lens[pi],
+                                           end_gap_p=0, device=dev, **align)
+        if not bool(ok.all()):
+            raise RuntimeError("N-W Align out of range.")
+        rows.append(_fetch(stats(kinds, p0, p1, sq, sp)))
+    return np.concatenate(rows).astype(np.int64)
+
+
+def _nw_batch_lr_stats(pairs, seqs, maxShift, match, mismatch, gap_p,
+                       allow_one_off, device=None):
+    """lr/ham statistics through kernel B4, the vectorized aligner at
+    band = maxShift (dada2_tpu's nw_batch route of _batch_lr_stats)."""
+    st = _b4_pair_stats(
+        pairs, seqs, CHUNK_PAIRS,
+        lambda *a: _lr_stats_device(*a, allow_one_off, maxShift), device,
+        match=match, mismatch=mismatch, gap_p=gap_p, band=maxShift)
+    return tuple(st[:, k] for k in range(5))
+
+
+def _batch_eval_stats(pairs, seqs, match, mismatch, gap_p, device=None):
+    """eval_pair statistics for arbitrary (query, parent) index pairs:
+    kernel B4's unbanded ends-free scalar aligner (the R nwalign band=-1
+    configuration), evaluated in torch, [P, 3] fetched per chunk.
+    Returns (match, mismatch, indel) int64."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    if len(pairs) == 0:
+        return tuple(np.zeros(0, np.int64) for _ in range(3))
+    st = _b4_pair_stats(pairs, seqs, CHUNK_PAIRS_UNBANDED,
+                        _eval_stats_device, device, match=match,
+                        mismatch=mismatch, gap_p=gap_p, band=-1,
+                        mode="scalar")
+    return tuple(st[:, k] for k in range(3))
 
 
 # ---- host scans (copies of dada2_tpu/chimeras.py; the tests' reference) ---
@@ -400,7 +553,7 @@ def _per_query_lr_stats(be, opts, qi, pi, maxShift, allow_one_off):
     ends = np.concatenate([bounds, [P]])
     geoms = {}
     for len1 in np.unique(be.lens[qs[starts]]):
-        if be._kernel_misfit(int(len1), opts) is not None:
+        if be._route(int(len1), opts) != "B1":
             return None
         geoms[int(len1)] = be._kernel_geom(int(len1), opts)
     # m = len1 + insertions; a banded path inserts at most band +
@@ -435,8 +588,9 @@ def _batch_lr_stats(pairs, seqs, maxShift, match, mismatch, gap_p,
                     allow_one_off, device=None):
     """lr/ham statistics for arbitrary (query, parent) index pairs (a list
     of pairs or an [P, 2] integer array): aligned and scanned on the
-    device, kernel B2 first, else kernel B1 per query; only [P, 5] ints
-    are fetched. Returns (left, right, left_oo, right_oo, ham) int64."""
+    device, kernel B2 first, else kernel B1 per query, else kernel B4;
+    only [P, 5] ints are fetched. Returns (left, right, left_oo, right_oo,
+    ham) int64."""
     pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
     if len(pairs) == 0:
         return tuple(np.zeros(0, np.int64) for _ in range(5))
@@ -449,9 +603,8 @@ def _batch_lr_stats(pairs, seqs, maxShift, match, mismatch, gap_p,
         out = _per_query_lr_stats(be, opts, qi, pi, maxShift,
                                   allow_one_off)
     if out is None:
-        _needs_scalar_aligner(
-            f"aligning these pairs at maxShift={maxShift} (their window "
-            "does not fit the wavefront kernel)")
+        out = _nw_batch_lr_stats(pairs, seqs, maxShift, match, mismatch,
+                                 gap_p, allow_one_off, device=be.device)
     return out
 
 
@@ -731,7 +884,41 @@ def remove_bimera_denovo(unqs, method: str = "consensus",
 
 def is_shift_denovo(unqs, minOverlap: int = 20, flagSubseqs: bool = False,
                     verbose: bool = False, device=None) -> pd.Series:
-    """Flag sequences identical to a more abundant sequence up to a shift
-    (reference: isShiftDenovo, R/chimeras.R:380-421). Not ported yet: it
-    aligns every pair with the unbanded scalar aligner (ROADMAP A5)."""
-    _needs_scalar_aligner("is_shift_denovo")
+    """Flag sequences identical to a more abundant sequence up to a shift.
+
+    reference: isShiftDenovo (R/chimeras.R:380-421). The reference runs a
+    scalar nwalign + C_eval_pair per (sequence, parent) pair; here every
+    pair rides kernel B4's unbanded scalar aligner in chunks
+    (_batch_eval_stats)."""
+    from .seqtab import get_sequences, get_uniques
+
+    dev = resolve_device(device)
+    opts = current_options()
+    unqs_int = get_uniques(unqs)
+    seqs = list(unqs_int.keys())
+    abunds = np.array(list(unqs_int.values()))
+    n = len(seqs)
+    slen = np.array([len(s) for s in seqs], np.int64)
+
+    all_pairs = []
+    for i in range(n):
+        pars = np.nonzero(abunds > abunds[i])[0]
+        if not len(pars):
+            if verbose:
+                print("No possible parents.")
+            continue
+        all_pairs.extend((i, int(k)) for k in pars)
+    match, mism, ind = _batch_eval_stats(all_pairs, seqs, opts.MATCH,
+                                         opts.MISMATCH, opts.GAP_PENALTY,
+                                         device=dev)
+    shifts = np.zeros(n, dtype=bool)
+    if all_pairs:
+        pairs = np.asarray(all_pairs, np.int64)
+        qi, pi = pairs[:, 0], pairs[:, 1]
+        ok = (((match < slen[qi]) | flagSubseqs)
+              & ((match < slen[pi]) | flagSubseqs)
+              & (match >= minOverlap) & (mism == 0) & (ind == 0))
+        shifts[qi[ok]] = True
+    flagged = {s for s, b in zip(seqs, shifts) if b}
+    seqs_input = get_sequences(unqs)
+    return pd.Series([s in flagged for s in seqs_input], index=seqs_input)

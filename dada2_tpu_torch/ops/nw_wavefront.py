@@ -60,6 +60,7 @@ _BUILD_DIR = os.path.join(_PKG, "build")
 _SO = os.path.join(_BUILD_DIR, "libnw_wavefront.so")
 _PTXAS_LOG = os.path.join(_BUILD_DIR, "nw_wavefront.ptxas.txt")
 _lock = threading.Lock()
+_build_locks = {_SO: threading.Lock()}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -73,29 +74,38 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def build_kernel() -> str:
-    """Compile csrc/nw_wavefront.cu for sm_90a into build/ (if the library
-    is missing or older than its source) and return the compiler's
-    `-Xptxas -v` report (registers, shared memory, spills) for every
-    instantiation (window widths 32..128 x B1, B2, B2 stats and B3)."""
+def build_library(src: str, so: str, log: str) -> str:
+    """Compile one CUDA source for sm_90a into a shared library under
+    build/ (if the library is missing or older than its source) and return
+    the compiler's `-Xptxas -v` report (registers, shared memory, spills
+    of every instantiation). Each library has its own lock, so two
+    libraries build in parallel from two threads."""
     with _lock:
-        fresh = (os.path.exists(_SO) and os.path.exists(_PTXAS_LOG)
-                 and os.path.getmtime(_SO) >= os.path.getmtime(_SRC))
+        lock = _build_locks.setdefault(so, threading.Lock())
+    with lock:
+        fresh = (os.path.exists(so) and os.path.exists(log)
+                 and os.path.getmtime(so) >= os.path.getmtime(src))
         if not fresh:
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{_SO}.{os.getpid()}.tmp"
+            os.makedirs(os.path.dirname(so), exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, _SRC]
+                   "-Xptxas", "-v", "-o", tmp, src]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            with open(_PTXAS_LOG, "w") as fh:
+            with open(log, "w") as fh:
                 fh.write(proc.stdout + proc.stderr)
-            os.replace(tmp, _SO)
-        with open(_PTXAS_LOG) as fh:
+            os.replace(tmp, so)
+        with open(log) as fh:
             return fh.read()
+
+
+def build_kernel() -> str:
+    """Build csrc/nw_wavefront.cu (window widths 32..128 x B1, B2, B2 stats
+    and B3) and return its `-Xptxas -v` report."""
+    return build_library(_SRC, _SO, _PTXAS_LOG)
 
 
 def _load():
@@ -208,7 +218,7 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
     if ppb == 0:
         raise NotImplementedError(
             f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
-            "(ROADMAP A5: the scalar/wide-window aligner)")
+            "(such windows take the batch aligner, ops/nw_batch.py)")
     outs = [torch.empty((nb, rows, LANES), dtype=torch.int32, device=dev)
             for rows in (L2R, L1R, 8)]
     if emit_kinds:
@@ -266,7 +276,7 @@ def nw_pairs_stats(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
     if pairs_per_block(L1R, L2R, NDP, WP, STATS_MODE) == 0:
         raise NotImplementedError(
             f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
-            "(ROADMAP A5: the scalar/wide-window aligner)")
+            "(such windows take the batch aligner, ops/nw_batch.py)")
     nb = s2q.shape[0]
     stats = torch.empty((nb * LANES, 6), dtype=torch.int32, device=dev)
     if nb == 0:

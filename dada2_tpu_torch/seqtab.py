@@ -1,7 +1,7 @@
 """Sequence tables: the samples x ASV-sequences abundance matrix.
 
 reference: R/multiSample.R. A copy of dada2_tpu/seqtab.py (host code);
-collapse_no_mismatch waits for the scalar aligner (ROADMAP A5).
+collapse_no_mismatch aligns through kernel B4 (ops/nw_batch.py).
 """
 from __future__ import annotations
 
@@ -134,15 +134,90 @@ def _order_columns(st: pd.DataFrame, orderBy: Optional[str]) -> pd.DataFrame:
 def collapse_no_mismatch(seqtab: pd.DataFrame, minOverlap: int = 20,
                          orderBy: str = "abundance", identicalOnly: bool = False,
                          vec: bool = True, band: int = -1,
-                         verbose: bool = False) -> pd.DataFrame:
+                         verbose: bool = False, device=None) -> pd.DataFrame:
     """Greedily collapse sequences identical up to shifts/length.
 
-    reference: collapseNoMismatch, R/multiSample.R:104-160. Not ported yet:
-    it aligns with the unbanded scalar aligner (dada2_tpu/ops/nw_batch.py),
-    which the port does not have (ROADMAP A5)."""
-    raise NotImplementedError(
-        "collapse_no_mismatch needs the scalar/unbanded aligner, which is "
-        "not ported yet (ROADMAP A5)")
+    reference: collapseNoMismatch, R/multiSample.R:104-160. Every
+    prefix-screened candidate pair is aligned up front by kernel B4
+    (ops/nw_batch.py); device: None = the CUDA card, "cpu" = its plain
+    version.
+    """
+    from .paired import nwhamming
+
+    # collapse identical duplicates first
+    if seqtab.columns.duplicated().any():
+        seqtab = seqtab.T.groupby(level=0, sort=False).sum().T
+    if identicalOnly:
+        return seqtab
+
+    totals = seqtab.values.sum(axis=0)
+    order = np.argsort(-totals, kind="stable")
+    seqs = [seqtab.columns[i] for i in order]
+
+    # batch-align every prefix-screened candidate pair up front (one
+    # device sweep instead of one Python DP per pair); the greedy loop
+    # below then only consults precomputed hamming distances
+    cand_pairs = []
+    for qi in range(1, len(seqs)):
+        qprefix = seqs[qi][:minOverlap]
+        for ri in range(qi):
+            rprefix = seqs[ri][:minOverlap]
+            if qprefix in seqs[ri] or rprefix in seqs[qi]:
+                cand_pairs.append((qi, ri))
+    ham = {}
+    if cand_pairs:
+        from .core.backend_cuda import resolve_device
+        from .encode import pack_sequences
+        from .ops.nw_batch import nw_batch, steps_to_alignment
+        from .options import current_options
+        from .paired import _codes_to_al_str, eval_pair
+
+        mat, lens = pack_sequences(seqs)
+        qidx = np.array([p[0] for p in cand_pairs], np.int64)
+        ridx = np.array([p[1] for p in cand_pairs], np.int64)
+        o = current_options()
+        if not vec and band >= 0:
+            # banded scalar mode has no batched route; per-pair fallback
+            for qi, ri in cand_pairs:
+                ham[(qi, ri)] = nwhamming(seqs[qi], seqs[ri], vec=False,
+                                          band=band)
+        else:
+            out = nw_batch(mat[qidx], lens[qidx], mat[ridx], lens[ridx],
+                           match=o.MATCH, mismatch=o.MISMATCH,
+                           gap_p=o.GAP_PENALTY, end_gap_p=0, band=band,
+                           mode="vec" if vec else "scalar",
+                           device=resolve_device(device))
+            kinds, p0s, p1s = (x.cpu().numpy() for x in out[:3])
+            for k, pr in enumerate(cand_pairs):
+                a0, a1 = steps_to_alignment(kinds[k], p0s[k], p1s[k],
+                                            mat[qidx[k]][: lens[qidx[k]]],
+                                            mat[ridx[k]][: lens[ridx[k]]])
+                _, mm, ind = eval_pair(_codes_to_al_str(a0),
+                                       _codes_to_al_str(a1))
+                ham[pr] = mm + ind
+
+    seqs_out: List[str] = []
+    out_idx: List[int] = []
+    collapsed = pd.DataFrame(
+        np.zeros_like(seqtab.values), index=seqtab.index, columns=seqtab.columns)
+    for qi, query in enumerate(seqs):
+        added = False
+        for ri in out_idx:
+            if (qi, ri) in ham and ham[(qi, ri)] == 0:
+                collapsed[seqs[ri]] = collapsed[seqs[ri]] + seqtab[query]
+                added = True
+                break
+        if not added:
+            collapsed[query] = seqtab[query]
+            seqs_out.append(query)
+            out_idx.append(qi)
+    collapsed = collapsed.loc[:, collapsed.columns.isin(seqs_out)]
+    collapsed = _order_columns(collapsed, orderBy)
+    collapsed = _order_columns(collapsed, "abundance")
+    if verbose:
+        print(f"Output {collapsed.shape[1]} collapsed sequences out of "
+              f"{seqtab.shape[1]} input sequences.")
+    return collapsed
 
 
 def merge_sequence_tables(*tables, repeats: str = "error",

@@ -170,14 +170,40 @@ def test_finalize_subs_paths(sample):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(BAND_SIZE=-1), dict(VECTORIZED_ALIGNMENT=False)])
-def test_unserved_configs_raise(sample, overrides):
-    """Configurations kernel B1 does not serve raise, naming ROADMAP A5,
-    instead of rerouting."""
-    _, (rs_t, err_t, opts_t) = _states(sample, **overrides)
-    be = CudaBackend(rs_t, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        be.compare(0, np.zeros(rs_t.n, bool), opts_t, err_t, True, 1.0)
+    dict(BAND_SIZE=-1), dict(VECTORIZED_ALIGNMENT=False),
+    dict(HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32)])
+def test_unserved_configs_raise(extdata, monkeypatch, overrides):
+    """The configurations kernel B1 does not serve (once refused) run
+    through kernel B4 (here its plain version): dada(sam1F) equals
+    dada2_tpu's bit for bit, and kernel B1 is never called. BAND_SIZE=-1
+    runs on sam1F's 250 most abundant uniques (the unbanded plain version
+    is slow on the CPU)."""
+    import dada2_tpu as dj
+    import dada2_tpu_torch as dt
+    from dada2_tpu_torch.ops import nw_wavefront as nww
+
+    path = str(extdata / "sam1F.fastq.gz")
+    dereps = [pkg.derep_fastq(path) for pkg in (dj, dt)]
+    if overrides.get("BAND_SIZE") == -1:
+        k = 250
+        dereps = [type(d)(uniques=dict(list(d.uniques.items())[:k]),
+                          quals=d.quals[:k], map=np.arange(k), name="top")
+                  for d in dereps]
+    res_j = dj.dada(dereps[0], err=dj.data.tperr1(), verbose=False,
+                    **overrides)
+
+    def no_sweep(*args, **kwargs):
+        raise AssertionError("kernel B1 called on B4's route")
+
+    monkeypatch.setattr(nww, "nw_wavefront", no_sweep)
+    res_t = dt.dada(dereps[1], err=dt.data.tperr1(), device="cpu",
+                    verbose=False, **overrides)
+    assert len(res_t.denoised) > 1
+    pd.testing.assert_frame_equal(res_j.clustering, res_t.clustering)
+    pd.testing.assert_frame_equal(res_j.birth_subs, res_t.birth_subs)
+    np.testing.assert_array_equal(res_j.map, res_t.map)
+    np.testing.assert_array_equal(res_j.pval, res_t.pval)
+    np.testing.assert_array_equal(res_j.trans, res_t.trans)
 
 
 def _same_subs(subs_j, subs_t):

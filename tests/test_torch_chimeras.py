@@ -251,7 +251,104 @@ def test_class_scans_match_host_scans(max_shift, oo):
 
 
 def test_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tch.is_shift_denovo({"ACGT" * 10: 5}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tch._batch_eval_stats([(0, 1)], ["ACGT", "ACGA"], 5, -4, -8)
+    """is_shift_denovo and its unbanded eval_pair statistics (once refused)
+    run through kernel B4's scalar aligner and equal dada2_tpu's."""
+    pd.testing.assert_series_equal(
+        tch.is_shift_denovo({"ACGT" * 10: 5}, device="cpu"),
+        jch.is_shift_denovo({"ACGT" * 10: 5}))
+    pairs, seqs = _route_parity_pairs()
+    want = jch._batch_eval_stats(pairs, seqs, 5, -4, -8)
+    got = tch._batch_eval_stats(pairs, seqs, 5, -4, -8, device="cpu")
+    for w, g, name in zip(want, got, ("match", "mismatch", "indel")):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert sum(int(x.sum()) for x in got) > 0
+    for out in (tch._batch_eval_stats([], seqs, 5, -4, -8, device="cpu"),
+                jch._batch_eval_stats([], seqs, 5, -4, -8)):
+        assert [len(x) for x in out] == [0, 0, 0]
+
+
+def _shift_uniques(seed):
+    """Uniques where shifted and trimmed copies of abundant sequences
+    appear at lower abundance, plus mutants and unrelated sequences."""
+    rng = np.random.default_rng(seed)
+    base = ["".join(NT[rng.integers(0, 4, 80)]) for _ in range(4)]
+    unqs = {}
+    for k, b in enumerate(base):
+        unqs[b] = 200 - k
+        unqs[b[5:] + "".join(NT[rng.integers(0, 4, 5)])] = 50 - k
+        unqs[b[:60]] = 40 - k
+        unqs["GT" + b[:70]] = 30 - k
+        unqs[_mutate(rng, b, 2)] = 20 - k
+    unqs["".join(NT[rng.integers(0, 4, 75)])] = 3
+    return unqs
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(flagSubseqs=True),
+                                dict(minOverlap=70)],
+                         ids=["default", "subseqs", "overlap70"])
+def test_is_shift_denovo_equal(kw):
+    unqs = _shift_uniques(61)
+    got = tch.is_shift_denovo(unqs, device="cpu", **kw)
+    pd.testing.assert_series_equal(got, jch.is_shift_denovo(unqs, **kw))
+    assert got.any() and not got.all()
+
+
+def _long_pairs():
+    """Queries of ~200 nt against mutated, shifted parents: at
+    maxShift=150 their window is wider than kernel B1's and B2's."""
+    rng = np.random.default_rng(77)
+    base = ["".join(NT[rng.integers(0, 4, 200)]) for _ in range(4)]
+    seqs = []
+    for k in range(16):
+        s = list(base[k % 4])
+        for _ in range(int(rng.integers(0, 5))):
+            s[int(rng.integers(0, len(s)))] = NT[rng.integers(0, 4)]
+        cut = int(rng.integers(0, 30))
+        seqs.append("".join(s[cut:] + list(NT[rng.integers(0, 4, cut)])))
+    pairs = [(i, int(j)) for i in range(16)
+             for j in rng.integers(0, 16, 6) if int(j) != i]
+    return pairs, seqs
+
+
+@pytest.mark.parametrize("oo", [False, True])
+def test_fallback_route_matches_jax_nw_batch_route(oo):
+    """Pairs that fit neither kernel route (here maxShift=150) go through
+    kernel B4 and its torch scans; the five arrays equal the JAX package's
+    nw_batch route (a pair set under 256 pairs takes it there)."""
+    pairs, seqs = _long_pairs()
+    assert len(pairs) < 256
+    be, opts = tch._chimera_backend(seqs, 5, -4, -8, 150, "cpu")
+    qi = np.array([p[0] for p in pairs], np.int64)
+    pi = np.array([p[1] for p in pairs], np.int64)
+    assert tch._pairs_plan(be, opts, qi, pi) is None
+    assert tch._per_query_lr_stats(be, opts, qi, pi, 150, oo) is None
+    want = jch._batch_lr_stats(pairs, seqs, 150, 5, -4, -8, oo)
+    got = tch._batch_lr_stats(pairs, seqs, 150, 5, -4, -8, oo,
+                              device="cpu")
+    for w, g, name in zip(want, got, STATS):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    # the same pairs at maxShift=16 through B4's scans equal the B2 route
+    b4 = tch._nw_batch_lr_stats(np.asarray(pairs), seqs, 16, 5, -4, -8, oo,
+                                device="cpu")
+    b2 = tch._batch_lr_stats(pairs, seqs, 16, 5, -4, -8, oo, device="cpu")
+    for x, y, name in zip(b4, b2, STATS):
+        np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+def test_alignment_code_mats_equal():
+    """The host code matrices of kernel B4's alignments, and the torch
+    scans over them, against dada2_tpu's."""
+    pairs, seqs = _route_parity_pairs()
+    from dada2_tpu_torch.encode import pack_sequences
+
+    mat, lens = pack_sequences(seqs)
+    got = tch._alignment_code_mats(pairs, mat, lens, 16, 5, -4, -8,
+                                   device="cpu")
+    want = jch._alignment_code_mats(pairs, mat, lens, 16, 5, -4, -8)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    host = tch._lr_ham_batch(*got, True, 16)
+    b4 = tch._nw_batch_lr_stats(np.asarray(pairs), seqs, 16, 5, -4, -8,
+                                True, device="cpu")
+    for x, y, name in zip(host, b4, STATS):
+        np.testing.assert_array_equal(x, y, err_msg=name)

@@ -19,7 +19,8 @@ ROOT = PKG.parent
 
 def test_import_loads_no_jax():
     code = ("import sys, dada2_tpu_torch, dada2_tpu_torch.chimeras, "
-            "dada2_tpu_torch.seqtab; "
+            "dada2_tpu_torch.seqtab, dada2_tpu_torch.paired, "
+            "dada2_tpu_torch.ops.nw_batch; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'dada2_tpu' "
             "or m.startswith('dada2_tpu.')]; print(bad)")
@@ -71,6 +72,25 @@ def test_chimera_default_device_raises_without_card():
             dt.remove_bimera_denovo(st, method=method)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dt.is_bimera(a[:60] + b[60:], [a, b])
+
+
+def test_batch_aligner_default_device_raises_without_card():
+    """merge_pairs' and collapse_no_mismatch's aligner, is_shift_denovo
+    and nw_batch on numpy inputs run on the card by default."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from dada2_tpu_torch.ops.nw_batch import nw_batch
+
+    a = "ACGTTGCAAC" * 5
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nw_batch(np.zeros((2, 8), np.uint8), [8, 8],
+                 np.zeros((2, 8), np.uint8), [8, 8], match=5, mismatch=-4,
+                 gap_p=-8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dt.is_shift_denovo({a: 10, a[3:]: 2})
+    st = pd.DataFrame([[5, 3]], index=["s1"], columns=[a, a[3:]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dt.collapse_no_mismatch(st)
 
 
 def test_mesh_raises(extdata):

@@ -45,8 +45,47 @@ def test_merge_and_export_equal(tmp_path):
     assert ">sq1;size=7;\nACGT\n" in (tmp_path / "u.fa").read_text()
     seqtab_to_qiime(got, str(tmp_path / "q.txt"))
     assert (tmp_path / "q.txt").read_text().startswith("# Constructed")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        dt.seqtab.collapse_no_mismatch(got)
+    # collapse_no_mismatch (kernel B4's plain version on the CPU)
+    pd.testing.assert_frame_equal(
+        dt.collapse_no_mismatch(got, device="cpu"),
+        dj.collapse_no_mismatch(want))
+
+
+def _shift_table(seed=4):
+    """Samples x sequences where some columns are shifted, trimmed or
+    extended copies of others (collapsible), some carry one substitution
+    (not collapsible), and some are unrelated."""
+    rng = np.random.default_rng(seed)
+    nt = np.array(list("ACGT"))
+    base = ["".join(nt[rng.integers(0, 4, 90)]) for _ in range(3)]
+    cols = []
+    for b in base:
+        cols += [b, b[3:], b[:-5], "ACG" + b, b[2:-2]]
+        mut = list(b)
+        mut[40] = "A" if mut[40] != "A" else "C"
+        cols.append("".join(mut))
+    cols.append("".join(nt[rng.integers(0, 4, 70)]))
+    mat = rng.integers(0, 30, (3, len(cols)))
+    mat[:, ::4] += 50
+    return pd.DataFrame(mat, index=["a", "b", "c"], columns=cols)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(minOverlap=40), dict(vec=False), dict(band=16),
+    dict(vec=False, band=16), dict(orderBy="nsamples"),
+    dict(identicalOnly=True)],
+    ids=["default", "overlap40", "scalar", "band16", "scalar_band16",
+         "nsamples", "identical"])
+def test_collapse_no_mismatch_equal(kw):
+    """collapse_no_mismatch against dada2_tpu: kernel B4's vectorized and
+    scalar aligners, unbanded and banded (the banded scalar case takes the
+    host oracle in both packages), and the options around them."""
+    st = _shift_table()
+    got = dt.collapse_no_mismatch(st, device="cpu", **kw)
+    want = dj.collapse_no_mismatch(st, **kw)
+    pd.testing.assert_frame_equal(got, want)
+    if not kw.get("identicalOnly"):
+        assert got.shape[1] < st.shape[1]
 
 
 def test_slice_two_samples_equal(extdata):
