@@ -70,9 +70,8 @@ Phases (any failure exits non-zero and prints no result line):
                card and on the CPU, identical (the forward dada results are
                phase 7's); then dada(sam1F) with HOMOPOLYMER_GAP_PENALTY=-1,
                BAND_SIZE=32 (B4 must launch, B1 must not) and with
-               BAND_SIZE=-1 (the CPU check on its 100 most abundant
-               uniques: the unbanded plain version is slow), card == CPU;
-               kernel launches printed for each;
+               BAND_SIZE=-1, card == CPU; kernel launches printed for
+               each;
  14. B4 size — phase 5's sample through dada(selfConsist=True,
                HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32) (B4's path: its
                launches counted there; wall, B4 device time, bound over the
@@ -1203,10 +1202,12 @@ def main() -> None:
         ("samPB unbanded (device-memory slab)", pb_pairs[:4],
          dict(pbkw, band=-1)),
         ("samPB unbanded, one pair per launch", pb_pairs[:4],
-         dict(pbkw, band=-1, max_bytes=1)),
+         dict(pbkw, band=-1, one_pair_per_launch=True)),
     ]
     err_b["B4"] = 0
     for label, pairs, kw in b4_cases:
+        kw = dict(kw)
+        one_per_launch = kw.pop("one_pair_per_launch", False)
         args = b4_tensors(pairs, dev)
         nd, W = nwb.batch_geometry(args[1].cpu().numpy(),
                                    args[3].cpu().numpy(), kw["band"])
@@ -1214,11 +1215,15 @@ def main() -> None:
         route = nwb.slab_route(args[0].shape[1], args[2].shape[1], nd, W,
                                homo)
         before = nwb.nw_batch.launches
-        got = nwb.nw_batch(*args, **kw)
-        torch.cuda.synchronize()
+        budget = nwb.MAX_BYTES
+        nwb.MAX_BYTES = 1 if one_per_launch else budget
+        try:
+            got = nwb.nw_batch(*args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            nwb.MAX_BYTES = budget
         nl = nwb.nw_batch.launches - before
-        want = nwb.nw_batch_ref(*args, **{k: v for k, v in kw.items()
-                                          if k != "max_bytes"})
+        want = nwb.nw_batch_ref(*args, **kw)
         err = max_abs_diff(got, want)
         ok_tb = bool(got[5].all())
         err_b["B4"] = max(err_b["B4"], err)
@@ -1232,7 +1237,7 @@ def main() -> None:
         if "slab" in label and route != 2:
             fail("the unbanded samPB pairs did not take the device-memory "
                  "slab")
-        if "one pair per launch" in label and nl != len(pairs):
+        if one_per_launch and nl != len(pairs):
             fail(f"the chunked B4 call made {nl} launches for "
                  f"{len(pairs)} pairs")
 
@@ -1309,24 +1314,17 @@ def main() -> None:
                     BAND_SIZE=-1)
     t_gpu = time.time() - t0
     n_u = counts()
-    k = 100
-    top = [dt.Derep(uniques=dict(list(d.uniques.items())[:k]),
-                    quals=d.quals[:k], map=np.arange(k), name="top")
-           for d in (drp, dt.derep_fastq(SAM1F))]
-    res_us = dt.dada(top[0], err=err41, device="cuda", verbose=False,
-                     BAND_SIZE=-1)
     t0 = time.time()
-    res_uc = dt.dada(top[1], err=err41, device="cpu", verbose=False,
-                     BAND_SIZE=-1)
+    res_uc = dt.dada(dt.derep_fastq(SAM1F), err=err41, device="cpu",
+                     verbose=False, BAND_SIZE=-1)
     t_cpu = time.time() - t0
     try:
-        same_result(res_us, res_uc, f"sam1F top-{k} BAND_SIZE=-1")
+        same_result(res_u, res_uc, "sam1F BAND_SIZE=-1")
     except AssertionError as e:
         fail(f"dada(BAND_SIZE=-1) on the card differs from the CPU: {e}")
     log(f"[misfit] sam1F BAND_SIZE=-1: {len(res_u.denoised)} ASVs from "
-        f"{len(drp.uniques)} uniques, card {t_gpu:.2f}s, launches {n_u}; "
-        f"its {k} most abundant uniques: {len(res_us.denoised)} ASVs, card "
-        f"== CPU (CPU {t_cpu:.2f}s)")
+        f"{len(drp.uniques)} uniques; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; "
+        f"identical; card launches {n_u}")
     if n_u["B4"] <= 0 or n_u["B1"] != 0:
         fail("dada(BAND_SIZE=-1) must launch B4 and not B1")
 
@@ -1337,7 +1335,7 @@ def main() -> None:
     align_batch = CudaBackend._align_batch
 
     def recorded(be_, center, idx, opts_):
-        b4_calls.append((be_, int(center), np.array(idx), opts_))
+        b4_calls.append((be_, np.array(center), np.array(idx), opts_))
         return align_batch(be_, center, idx, opts_)
 
     CudaBackend._align_batch = recorded
@@ -1354,8 +1352,9 @@ def main() -> None:
         CudaBackend._align_batch = align_batch
     if n14["B4"] <= 0:
         fail("the homopolymer selfConsist run never launched kernel B4")
-    cells14 = sum(pair_cells(np.full(len(i), b.lens[c]), b.lens[i],
-                             o.BAND_SIZE) for b, c, i, o in b4_calls)
+    cells14 = sum(pair_cells(np.broadcast_to(b.lens[c], len(i)),
+                             b.lens[i], o.BAND_SIZE)
+                  for b, c, i, o in b4_calls)
     big = max(b4_calls, key=lambda x: len(x[2]))
     bbe, bc, bidx, bo = big
     out = bbe._align_batch(bc, bidx, bo)

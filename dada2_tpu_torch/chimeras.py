@@ -72,7 +72,8 @@ def _alignment_code_mats(pairs_chunk, mat, lens, maxShift, match,
     (the batched equivalent of ops/nw_batch.steps_to_alignment). Returns
     (A, B, m): [P, Lmax] uint8 with GAP=254 and _PAD beyond each pair's
     alignment length m[p] (reference: nwalign_vectorized2 calls in
-    src/chimera.cpp:27,122)."""
+    src/chimera.cpp:27,122). Nothing in the package calls it, as in
+    dada2_tpu; it is kept as the counterpart of dada2_tpu's helper."""
     qi = np.fromiter((p[0] for p in pairs_chunk), np.int64,
                      len(pairs_chunk))
     pi = np.fromiter((p[1] for p in pairs_chunk), np.int64,

@@ -233,8 +233,7 @@ def _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
 
 def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
              end_gap_p=0, band=-1, mode="vec", homo_gap_p=None,
-             homo1b=None, homo2b=None, device=None,
-             max_bytes: int = MAX_BYTES):
+             homo1b=None, homo2b=None, device=None):
     """Align pairs (s1b[k], s2b[k]) (counterpart of
     dada2_tpu.ops.nw_batch.nw_batch).
 
@@ -253,12 +252,12 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
     gap variant — homo1b/homo2b masks are computed here if not given.
     device: None takes the device of the tensors given, else CUDA (raising
     without a card); "cpu" runs the plain version. On CUDA the call
-    launches kernel B4 (one launch per chunk; max_bytes bounds the
+    launches kernel B4 (one launch per chunk; MAX_BYTES bounds the
     device-memory pointer slab of one launch)."""
     b = _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
                  band, mode, homo_gap_p, homo1b, homo2b, device)
     if b.dev.type == "cpu":
-        return _plain(b, max_bytes)
+        return _plain(b)
     s1, len1, s2, len2, h1, h2 = b.ins
     kinds, p0, p1, ham, tvec, ok = b.outs
     n, L1 = s1.shape
@@ -272,7 +271,7 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
                          f"{L2}) exceeds one block's shared memory in "
                          "kernel B4")
     words = slab_words(b.nd, b.W) if route == 2 else 0
-    chunk = n if route == 1 else max(1, max_bytes // (4 * words))
+    chunk = n if route == 1 else max(1, MAX_BYTES // (4 * words))
     slab = (torch.empty(min(chunk, n) * words, dtype=torch.int32,
                         device=b.dev) if route == 2 else None)
     stream = torch.cuda.current_stream(b.dev).cuda_stream
@@ -310,21 +309,20 @@ def _lo(d, len2, rband):
 
 def nw_batch_ref(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
                  end_gap_p=0, band=-1, mode="vec", homo_gap_p=None,
-                 homo1b=None, homo2b=None, device=None,
-                 max_bytes: int = MAX_BYTES):
+                 homo1b=None, homo2b=None, device=None):
     """The plain PyTorch version of kernel B4, on the inputs' device (the
     tensors', else `device`): nw_batch's arguments and outputs. What
     nw_batch runs on CPU tensors; on the card it is the kernel's yardstick.
     Chunks keep its [chunk, nd, W] pointers and per-diagonal [chunk, W]
-    tensors under max_bytes."""
+    tensors under MAX_BYTES."""
     return _plain(_prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p,
                            end_gap_p, band, mode, homo_gap_p, homo1b, homo2b,
-                           device), max_bytes)
+                           device))
 
 
-def _plain(b: _Batch, max_bytes: int):
+def _plain(b: _Batch):
     n = b.ins[0].shape[0]
-    chunk = max(1, max_bytes // max(1, b.nd * b.W + 32 * 8 * b.W))
+    chunk = max(1, MAX_BYTES // max(1, b.nd * b.W + 32 * 8 * b.W))
     for c0 in range(0, n, chunk):
         sl = slice(c0, min(c0 + chunk, n))
         got = _plain_chunk(*(x[sl] if x is not None else None

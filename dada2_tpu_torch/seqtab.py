@@ -142,8 +142,6 @@ def collapse_no_mismatch(seqtab: pd.DataFrame, minOverlap: int = 20,
     (ops/nw_batch.py); device: None = the CUDA card, "cpu" = its plain
     version.
     """
-    from .paired import nwhamming
-
     # collapse identical duplicates first
     if seqtab.columns.duplicated().any():
         seqtab = seqtab.T.groupby(level=0, sort=False).sum().T
@@ -176,25 +174,19 @@ def collapse_no_mismatch(seqtab: pd.DataFrame, minOverlap: int = 20,
         qidx = np.array([p[0] for p in cand_pairs], np.int64)
         ridx = np.array([p[1] for p in cand_pairs], np.int64)
         o = current_options()
-        if not vec and band >= 0:
-            # banded scalar mode has no batched route; per-pair fallback
-            for qi, ri in cand_pairs:
-                ham[(qi, ri)] = nwhamming(seqs[qi], seqs[ri], vec=False,
-                                          band=band)
-        else:
-            out = nw_batch(mat[qidx], lens[qidx], mat[ridx], lens[ridx],
-                           match=o.MATCH, mismatch=o.MISMATCH,
-                           gap_p=o.GAP_PENALTY, end_gap_p=0, band=band,
-                           mode="vec" if vec else "scalar",
-                           device=resolve_device(device))
-            kinds, p0s, p1s = (x.cpu().numpy() for x in out[:3])
-            for k, pr in enumerate(cand_pairs):
-                a0, a1 = steps_to_alignment(kinds[k], p0s[k], p1s[k],
-                                            mat[qidx[k]][: lens[qidx[k]]],
-                                            mat[ridx[k]][: lens[ridx[k]]])
-                _, mm, ind = eval_pair(_codes_to_al_str(a0),
-                                       _codes_to_al_str(a1))
-                ham[pr] = mm + ind
+        out = nw_batch(mat[qidx], lens[qidx], mat[ridx], lens[ridx],
+                       match=o.MATCH, mismatch=o.MISMATCH,
+                       gap_p=o.GAP_PENALTY, end_gap_p=0, band=band,
+                       mode="vec" if vec else "scalar",
+                       device=resolve_device(device))
+        kinds, p0s, p1s = (x.cpu().numpy() for x in out[:3])
+        for k, pr in enumerate(cand_pairs):
+            a0, a1 = steps_to_alignment(kinds[k], p0s[k], p1s[k],
+                                        mat[qidx[k]][: lens[qidx[k]]],
+                                        mat[ridx[k]][: lens[ridx[k]]])
+            _, mm, ind = eval_pair(_codes_to_al_str(a0),
+                                   _codes_to_al_str(a1))
+            ham[pr] = mm + ind
 
     seqs_out: List[str] = []
     out_idx: List[int] = []

@@ -177,7 +177,7 @@ def test_unserved_configs_raise(extdata, monkeypatch, overrides):
     through kernel B4 (here its plain version): dada(sam1F) equals
     dada2_tpu's bit for bit, and kernel B1 is never called. BAND_SIZE=-1
     runs on sam1F's 250 most abundant uniques (the unbanded plain version
-    is slow on the CPU)."""
+    is slow on the CPU). The name is the refusal check's it replaced."""
     import dada2_tpu as dj
     import dada2_tpu_torch as dt
     from dada2_tpu_torch.ops import nw_wavefront as nww

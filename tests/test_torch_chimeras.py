@@ -252,7 +252,8 @@ def test_class_scans_match_host_scans(max_shift, oo):
 
 def test_not_ported_raise():
     """is_shift_denovo and its unbanded eval_pair statistics (once refused)
-    run through kernel B4's scalar aligner and equal dada2_tpu's."""
+    run through kernel B4's scalar aligner and equal dada2_tpu's. The
+    name is the refusal check's it replaced."""
     pd.testing.assert_series_equal(
         tch.is_shift_denovo({"ACGT" * 10: 5}, device="cpu"),
         jch.is_shift_denovo({"ACGT" * 10: 5}))

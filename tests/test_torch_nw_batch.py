@@ -153,7 +153,7 @@ def test_homo_mask_and_alignment_helpers():
             np.testing.assert_array_equal(g, w)
 
 
-def test_chunks_and_tensor_inputs():
+def test_chunks_and_tensor_inputs(monkeypatch):
     """A byte budget that forces one pair per chunk, and tensor inputs,
     give the same outputs as one call on numpy arrays."""
     rng = np.random.default_rng(3)
@@ -162,8 +162,9 @@ def test_chunks_and_tensor_inputs():
     kw = dict(match=5, mismatch=-4, gap_p=-8, band=-1, mode="scalar",
               homo_gap_p=-1)
     whole = tnb.nw_batch(*args, device="cpu", **kw)
-    chunked = tnb.nw_batch(*args, device="cpu", max_bytes=1, **kw)
     tens = tnb.nw_batch(*(torch.from_numpy(a) for a in args), **kw)
+    monkeypatch.setattr(tnb, "MAX_BYTES", 1)
+    chunked = tnb.nw_batch(*args, device="cpu", **kw)
     for a, b, c in zip(whole, chunked, tens):
         assert torch.equal(a, b) and torch.equal(a, c)
 
@@ -192,7 +193,7 @@ def test_wrapper_checks_and_no_launch_on_cpu():
 
 
 @pytest.mark.gpu
-def test_kernel_matches_plain_on_card():
+def test_kernel_matches_plain_on_card(monkeypatch):
     """Kernel B4 against its plain version on the card, bitwise, in every
     aligner, banded and unbanded, with the pointer slab in shared memory
     and (long unbanded pairs) in device memory, chunked and not."""
@@ -208,11 +209,13 @@ def test_kernel_matches_plain_on_card():
                 for a in _pack([gen(rng) for _ in range(200)])]
         want = tnb.nw_batch_ref(*args, match=5, mismatch=-4, gap_p=-8,
                                 **kw)
-        for max_bytes in (tnb.MAX_BYTES, 1):
+        for budget in (tnb.MAX_BYTES, 1):
+            monkeypatch.setattr(tnb, "MAX_BYTES", budget)
             got = tnb.nw_batch(*args, match=5, mismatch=-4, gap_p=-8,
-                               max_bytes=max_bytes, **kw)
+                               **kw)
             for g, w in zip(got, want):
                 assert torch.equal(g, w), kw
+        monkeypatch.undo()
     long = rng.integers(0, 4, (4, 1500)).astype(np.uint8)
     args = [torch.from_numpy(a).cuda() for a in
             (long, np.full(4, 1500), long[::-1].copy(), np.full(4, 1500))]
