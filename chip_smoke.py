@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
                one nvcc each, started together: csrc/nw_wavefront.cu (B1's
                nw_compare_kernel and the B2, B3, B2 stats body x windows of
                32..128 rows, sixteen instantiations) and csrc/nw_batch.cu
-               (kernel B4: vec, scalar and homopolymer aligners x pointer
-               slab in shared or device memory, six); prints their
-               `-Xptxas -v` reports;
+               (kernel B4: the register body, 4 row tiers x vec, scalar
+               and homopolymer aligners, and the one-block-per-pair body,
+               the three aligners x pointer slab in shared or device
+               memory: eighteen); prints their `-Xptxas -v` reports;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
                32/64/96/128 rows, lengths near 250 and 450, launches of 1
@@ -57,13 +58,19 @@ Phases (any failure exits non-zero and prints no result line):
                the stats kernel's plain version time and bound;
  11. profile — the table run again under torch.profiler: no class-row
                kernel and no scan kernel may appear;
- 12. batch   — kernel B4 (ops/nw_batch.py) against its plain version on
-               the card, on seeded fuzz batches: vec and scalar aligners,
-               bands 2, 4, 16, 32 and none, homopolymer gap penalty none,
-               -1 and -3, end gaps free and -8, mixed lengths, lengths near
-               250, the merge scorings, samPB.fastq.gz's full-length reads
-               at band 32 and some unbanded (the device-memory pointer
-               slab), chunked and not: all six outputs bitwise equal;
+ 12. batch   — both bodies of kernel B4 (ops/nw_batch.py: the route's
+               body, then the one-block-per-pair body forced) against its
+               plain version on the card, on seeded fuzz batches: vec and
+               scalar aligners, bands 2, 4, 16, 32 and none, homopolymer
+               gap penalty none, -1 and -3, end gaps free and -8, mixed
+               lengths, lengths near 250, the merge scorings,
+               samPB.fastq.gz's full-length reads at band 32 and some
+               unbanded (the device-memory pointer slab), chunked and not,
+               windows of 32/33, 64/65, 128/129 and 256/257 rows, pairs of
+               length 0 and 1, launches of 1, 3, 4 and 5 pairs at 4 pairs
+               per block and of 4,097 pairs at the fit's: all six outputs
+               bitwise equal; each line names the body, its rows per
+               thread (RPT) and pairs per block (P);
  13. paired  — sam1 and sam2, forward and reverse: dada -> merge_pairs ->
                make_sequence_table -> collapse_no_mismatch ->
                remove_bimera_denovo(consensus) -> is_shift_denovo on the
@@ -71,16 +78,21 @@ Phases (any failure exits non-zero and prints no result line):
                phase 7's); then dada(sam1F) with HOMOPOLYMER_GAP_PENALTY=-1,
                BAND_SIZE=32 (B4 must launch, B1 must not) and with
                BAND_SIZE=-1, card == CPU; kernel launches printed for
-               each;
+               each, B4's by body (the register body must serve them
+               all);
  14. B4 size — phase 5's sample through dada(selfConsist=True,
                HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32) (B4's path: its
                launches counted there; wall, B4 device time, bound over the
                run's launches, plain version at its largest launch); B4 at
                merge shapes (4,096 pairs, F = 240 nt against rc(R) = 200 nt
                from phase 9's ASVs with seeded substitutions, scoring
-               (1, -64, -64), no band; CUDA events); is_shift_denovo on
-               phase 9's first 500 ASVs (124,750 unbanded pairs): wall, B4
-               device time, bound, plain version on one 4,096-pair chunk.
+               (1, -64, -64), no band); is_shift_denovo on phase 9's first
+               500 ASVs (124,750 unbanded pairs): wall, B4 device time,
+               bound; at merge shapes and on one 4,096-pair chunk both
+               bodies in turns, each equal to the plain version, with its
+               call time and its launches' time alone (CUDA events),
+               and the plain version's time; the register body must serve
+               every launch of phase 14.
 It prints one {"kernels": [...]} line and, last, {"ok": true, ...}.
 """
 from __future__ import annotations
@@ -596,6 +608,68 @@ def b4_bound(nbytes, cells, homo):
         f"int32 ops -> {t_ops:.4f} ms")
 
 
+def b4_short_pairs():
+    """Pairs of length 0 and 1 against each other (and one of 3 against 1)."""
+    import numpy as np
+
+    e, a, c = (np.zeros(0, np.uint8), np.array([1], np.uint8),
+               np.array([2], np.uint8))
+    return [(e, e), (a, e), (e, c), (a, a), (a, c),
+            (np.array([0, 1, 2], np.uint8), c)]
+
+
+def b4_window_pairs(rng, W, n):
+    """n unbanded pairs whose batch window is exactly W rows (the first two
+    of length W - 1 each), the others of mixed lengths, plus the short
+    pairs."""
+    import numpy as np
+
+    L = W - 1
+    out = [(a, b[:L] if len(b) >= L else np.concatenate(
+        [b, rng.integers(0, 4, L - len(b)).astype(np.uint8)]))
+        for a, b in b4_pairs(rng, 2, L, 4)]
+    out += b4_pairs(rng, max(0, n - 2), L, 6, lo=max(1, L // 3))
+    return out + b4_short_pairs()
+
+
+def b4_fit(nwb, args, kw):
+    """The body, rows per thread and pairs per block that kernel B4 takes
+    for a call (as nw_batch decides them), with the batch's nd and W."""
+    nd, W = nwb.batch_geometry(args[1].cpu().numpy(), args[3].cpu().numpy(),
+                               kw["band"])
+    n, L1 = args[0].shape
+    L2 = args[2].shape[1]
+    scalar = kw.get("mode") == "scalar"
+    hg = kw.get("homo_gap_p")
+    homo = (scalar and hg is not None and hg != kw["gap_p"]
+            and kw.get("end_gap_p", 0) != kw["gap_p"])
+    r = nwb.route(L1, L2, nd, W, homo)
+    if nwb.BODY == "block" and r == 3:
+        r = nwb.block_route(L1, L2, nd, W, homo)
+    fit = dict(nd=nd, W=W, body=nwb.body(r), rpt=None, P=None)
+    if r == 3:
+        fit["rpt"], fit["P"] = nwb.register_fit(L1, L2, nd, W, scalar, homo,
+                                                n)
+        fit["P"] = nwb.PAIRS_PER_BLOCK or fit["P"]
+    return fit
+
+
+def b4_launch_ms(nwb, args, kw, reps):
+    """Kernel B4's time per call without nw_batch's host work: CUDA events
+    around reps launches (nw_batch's own launch code, ops/nw_batch.py::
+    _launch) of a batch prepared once."""
+    b = nwb._prepare(*args, kw["match"], kw["mismatch"], kw["gap_p"],
+                     kw.get("end_gap_p", 0), kw.get("band", -1),
+                     kw.get("mode", "vec"), kw.get("homo_gap_p"), None, None,
+                     None)
+    return cuda_ms(lambda: nwb._launch(b), reps)
+
+
+def is_b4_kernel(name):
+    """Whether a profiler event is one of kernel B4's two bodies."""
+    return "nw_batch_kernel" in name or "nw_batch_reg_kernel" in name
+
+
 def nbytes_of(tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -626,13 +700,18 @@ def main() -> None:
         fail("the port imported jax or dada2_tpu")
     launches = nww.nw_wavefront.launches
 
+    by_body = nwb.nw_batch.launches_by_body
+
     def reset_launches():
         for k in launches:
             launches[k] = 0
+        for k in by_body:
+            by_body[k] = 0
         nwb.nw_batch.launches = 0
 
     def counts():
-        return dict(launches, B4=nwb.nw_batch.launches)
+        return dict(launches, B4=nwb.nw_batch.launches,
+                    **{f"B4 {k}": v for k, v in by_body.items()})
 
     # 1. device
     if not torch.cuda.is_available():
@@ -681,9 +760,11 @@ def main() -> None:
         fail(f"expected 16 kernel instantiations (4 windows x B1's kernel "
              f"and three modes of the other body), ptxas compiled {entries}")
     entries = reports["nw_batch.cu"].count("Compiling entry function")
-    if entries != 6:
-        fail(f"expected 6 instantiations of kernel B4 (vec, scalar and "
-             f"homopolymer x two slab routes), ptxas compiled {entries}")
+    if entries != 18:
+        fail(f"expected 18 instantiations of kernel B4 (the register body: "
+             f"4 row tiers x vec, scalar and homopolymer; the "
+             f"one-block-per-pair body: the three aligners x two slab "
+             f"routes), ptxas compiled {entries}")
     b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
     if sorted(b1_regs) != [1, 2, 3, 4]:
         fail(f"B1's four instantiations not found in the ptxas report: "
@@ -1204,42 +1285,90 @@ def main() -> None:
         ("samPB unbanded, one pair per launch", pb_pairs[:4],
          dict(pbkw, band=-1, one_pair_per_launch=True)),
     ]
+    # windows on both sides of each register tier and of the register
+    # body's 256-row limit, pairs of length 0 and 1, and launches of 1,
+    # P - 1, P and P + 1 pairs at a set pairs per block, and one large
+    # launch whose last block is partial at the fit's own P
+    for W in (32, 33, 64, 65, 128, 129, 256, 257):
+        b4_cases.append((f"window {W}, merge scoring",
+                         b4_window_pairs(rng, W, 60), merge64))
+    for W in (33, 129, 257):
+        b4_cases.append((f"window {W}, vec, end gaps -8",
+                         b4_window_pairs(rng, W, 40),
+                         dict(sc5, band=-1, end_gap_p=-8)))
+    for W in (65, 256):
+        b4_cases.append((f"window {W}, homopolymer -1",
+                         b4_window_pairs(rng, W, 40),
+                         dict(sc5, band=-1, mode="scalar", homo_gap_p=-1)))
+    short = b4_short_pairs() + b4_pairs(rng, 6, 40, 4, lo=2)
+    b4_cases += [
+        ("short pairs, vec band 4", short, dict(sc5, band=4)),
+        ("short pairs, vec unbanded, end gaps -8", short,
+         dict(sc5, band=-1, end_gap_p=-8)),
+        ("short pairs, scalar band 4, homopolymer -1", short,
+         dict(sc5, band=4, mode="scalar", homo_gap_p=-1)),
+        ("short pairs, scalar unbanded", short, merge64)]
+    homo_pairs = b4_pairs(rng, 5, 250, 12, homo=True)
+    for n in (1, 3, 4, 5):
+        b4_cases.append((f"{n} pair(s) at 4 pairs per block, homopolymer "
+                         f"band 32", homo_pairs[:n],
+                         dict(sc5, band=32, mode="scalar", homo_gap_p=-1,
+                              pairs_per_block=4)))
+        b4_cases.append((f"{n} pair(s) at 4 pairs per block, merge "
+                         f"scoring", merge_like[:n],
+                         dict(merge64, pairs_per_block=4)))
+    b4_cases.append(("4,097 pairs, scalar band 16 (the fit's P)",
+                     b4_pairs(rng, 4097, 250, 8), dict(sc5, band=16,
+                                                       mode="scalar")))
     err_b["B4"] = 0
     for label, pairs, kw in b4_cases:
         kw = dict(kw)
         one_per_launch = kw.pop("one_pair_per_launch", False)
+        ppb = kw.pop("pairs_per_block", None)
         args = b4_tensors(pairs, dev)
-        nd, W = nwb.batch_geometry(args[1].cpu().numpy(),
-                                   args[3].cpu().numpy(), kw["band"])
-        homo = kw.get("homo_gap_p") is not None
-        route = nwb.slab_route(args[0].shape[1], args[2].shape[1], nd, W,
-                               homo)
-        before = nwb.nw_batch.launches
-        budget = nwb.MAX_BYTES
-        nwb.MAX_BYTES = 1 if one_per_launch else budget
-        try:
-            got = nwb.nw_batch(*args, **kw)
-            torch.cuda.synchronize()
-        finally:
-            nwb.MAX_BYTES = budget
-        nl = nwb.nw_batch.launches - before
         want = nwb.nw_batch_ref(*args, **kw)
-        err = max_abs_diff(got, want)
-        ok_tb = bool(got[5].all())
-        err_b["B4"] = max(err_b["B4"], err)
-        log(f"[batch] {label}: {len(pairs)} pairs, L1={args[0].shape[1]} "
-            f"L2={args[2].shape[1]} nd={nd} W={W}, pointers in "
-            f"{'shared' if route == 1 else 'device'} memory, {nl} "
-            f"launch(es): max |kernel - plain| = {err} over kinds, p0, p1, "
-            f"ham, tvec, ok; tracebacks complete: {ok_tb}")
-        if err != 0 or not ok_tb or route == 0:
-            fail(f"kernel B4 disagrees with its plain version ({label})")
-        if "slab" in label and route != 2:
+        budget = nwb.MAX_BYTES
+        said = []
+        for body in (None, "block"):
+            reset_launches()
+            nwb.MAX_BYTES = 1 if one_per_launch else budget
+            nwb.BODY, nwb.PAIRS_PER_BLOCK = body, ppb
+            try:
+                fit = b4_fit(nwb, args, kw)
+                got = nwb.nw_batch(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                nwb.MAX_BYTES = budget
+                nwb.BODY = nwb.PAIRS_PER_BLOCK = None
+            nl = counts()
+            err = max_abs_diff(got, want)
+            err_b["B4"] = max(err_b["B4"], err)
+            said.append(f"{fit['body']} body (RPT {fit['rpt']}, P "
+                        f"{fit['P']}): {nl['B4']} launch(es), register "
+                        f"{nl['B4 register']}, block {nl['B4 block']}, "
+                        f"max |kernel - plain| = {err}")
+            if err != 0 or not bool(got[5].all()):
+                fail(f"kernel B4's {fit['body']} body disagrees with its "
+                     f"plain version ({label})")
+            if nl["B4 " + fit["body"]] != nl["B4"]:
+                fail(f"{label}: the launches went to another body than "
+                     f"{fit['body']}")
+            if body is None and (fit["W"] <= 256) != (fit["body"] ==
+                                                      "register"):
+                fail(f"{label}: a window of {fit['W']} rows took the "
+                     f"{fit['body']} body")
+            if one_per_launch and nl["B4"] != len(pairs):
+                fail(f"the chunked B4 call made {nl['B4']} launches for "
+                     f"{len(pairs)} pairs")
+        slab_route = nwb.block_route(args[0].shape[1], args[2].shape[1],
+                                     fit["nd"], fit["W"],
+                                     kw.get("homo_gap_p") is not None)
+        if "slab" in label and slab_route != 2:
             fail("the unbanded samPB pairs did not take the device-memory "
                  "slab")
-        if one_per_launch and nl != len(pairs):
-            fail(f"the chunked B4 call made {nl} launches for "
-                 f"{len(pairs)} pairs")
+        log(f"[batch] {label}: {len(pairs)} pairs, L1={args[0].shape[1]} "
+            f"L2={args[2].shape[1]} nd={fit['nd']} W={fit['W']}; "
+            + "; ".join(said) + " (over kinds, p0, p1, ham, tvec, ok)")
 
     # 13. the paired slice and the configurations B1 does not serve: card
     # against CPU, identical
@@ -1285,8 +1414,9 @@ def main() -> None:
         f"{pgpu[3].shape}, shifts flagged {int(pgpu[4].sum())}; reverse "
         f"dada + slice: card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; identical; "
         f"card launches {n_paired}")
-    if n_paired["B4"] <= 0:
-        fail("the paired slice never launched kernel B4")
+    if n_paired["B4"] <= 0 or n_paired["B4 block"] != 0:
+        fail("the paired slice never launched kernel B4, or launched its "
+             "one-block-per-pair body")
 
     hp = dict(HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32)
     reset_launches()
@@ -1306,8 +1436,9 @@ def main() -> None:
     log(f"[misfit] sam1F HOMOPOLYMER_GAP_PENALTY=-1 BAND_SIZE=32: "
         f"{len(res_h.denoised)} ASVs; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; "
         f"identical; card launches {n_h}")
-    if n_h["B4"] <= 0 or n_h["B1"] != 0:
-        fail("the homopolymer configuration must launch B4 and not B1")
+    if n_h["B4"] <= 0 or n_h["B1"] != 0 or n_h["B4 block"] != 0:
+        fail("the homopolymer configuration must launch B4's register "
+             "body and not B1")
     reset_launches()
     t0 = time.time()
     res_u = dt.dada(drp, err=err41, device="cuda", verbose=False,
@@ -1325,8 +1456,9 @@ def main() -> None:
     log(f"[misfit] sam1F BAND_SIZE=-1: {len(res_u.denoised)} ASVs from "
         f"{len(drp.uniques)} uniques; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; "
         f"identical; card launches {n_u}")
-    if n_u["B4"] <= 0 or n_u["B1"] != 0:
-        fail("dada(BAND_SIZE=-1) must launch B4 and not B1")
+    if n_u["B4"] <= 0 or n_u["B1"] != 0 or n_u["B4 block"] != 0:
+        fail("dada(BAND_SIZE=-1) must launch B4's register body and not "
+             "B1")
 
     # 14. kernel B4 at real size. (a) B4's path: phase 5's sample in the
     # homopolymer configuration; the calls into B4 are recorded (geometry
@@ -1350,8 +1482,9 @@ def main() -> None:
         n14 = counts()
     finally:
         CudaBackend._align_batch = align_batch
-    if n14["B4"] <= 0:
-        fail("the homopolymer selfConsist run never launched kernel B4")
+    if n14["B4"] <= 0 or n14["B4 block"] != 0:
+        fail("the homopolymer selfConsist run never launched kernel B4's "
+             "register body, or launched its one-block-per-pair body")
     cells14 = sum(pair_cells(np.broadcast_to(b.lens[c], len(i)),
                              b.lens[i], o.BAND_SIZE)
                   for b, c, i, o in b4_calls)
@@ -1375,14 +1508,16 @@ def main() -> None:
     err_b["B4"] = max(err_b["B4"], max_abs_diff(out, want))
     by_name = profile_device("homopolymer selfConsist run", lambda: dt.dada(
         sim, err=None, selfConsist=True, device="cuda", verbose=False, **hp))
-    b4_dev = [v for n_, v in by_name.items() if "nw_batch_kernel" in n_]
+    b4_dev = [v for n_, v in by_name.items() if is_b4_kernel(n_)]
     b4_dev_ms = sum(v[0] for v in b4_dev) / 1e3 if b4_dev else None
+    b4_dev_n = sum(v[1] for v in b4_dev)
     log(f"[B4 size] dada(selfConsist=True, HOMOPOLYMER_GAP_PENALTY=-1, "
         f"BAND_SIZE=32) on phase 5's sample: {len(sim.uniques)} uniques, "
         f"{len(res14.err_in)} rounds, {len(res14.denoised)} ASVs, "
         f"{wall14:.2f}s wall; launches {n14}; B4 device time "
-        f"{b4_dev_ms if b4_dev_ms is None else round(b4_dev_ms, 4)} ms "
-        f"(profiled rerun); B4 bound over the run's {len(b4_calls)} calls "
+        f"{'not measured' if b4_dev_ms is None else round(b4_dev_ms, 4)} ms "
+        f"over the {b4_dev_n} B4 kernels the profiled rerun recorded; B4 "
+        f"bound over the run's {len(b4_calls)} calls "
         f"{bound14:.4f} ms by {by14} ({det14}); its largest call "
         f"({len(bidx)} pairs): kernel {ms_big:.4f} ms, plain {plain_big:.2f}"
         f" ms, max |kernel - plain| = {max_abs_diff(out, want)}; card {card}")
@@ -1410,21 +1545,54 @@ def main() -> None:
     m2, l2 = pack_sequences([rc(r) for r in rev])
     margs = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
              for x in (m1, l1.astype(np.int64), m2, l2.astype(np.int64))]
-    got = nwb.nw_batch(*margs, **merge64)
-    want = nwb.nw_batch_ref(*margs, **merge64)
-    err_m = max_abs_diff(got, want)
-    err_b["B4"] = max(err_b["B4"], err_m)
-    ms_m = cuda_ms(lambda: nwb.nw_batch(*margs, **merge64), 10)
+
+    def both_bodies(args, kw, reps):
+        """Both bodies of kernel B4 on one call, each held bitwise against
+        the plain version: the route's body and the one-block-per-pair
+        body in turns (route, block, route, block), each with its fit, the
+        call's time (CUDA events around nw_batch) and its kernel's time
+        (CUDA events around its launches alone)."""
+        want = nwb.nw_batch_ref(*args, **kw)
+        res = {}
+        for body in (None, "block", None, "block"):
+            nwb.BODY = body
+            try:
+                fit = b4_fit(nwb, args, kw)
+                got = nwb.nw_batch(*args, **kw)
+                err = max_abs_diff(got, want)
+                ms = cuda_ms(lambda: nwb.nw_batch(*args, **kw), reps)
+                kms = b4_launch_ms(nwb, args, kw, reps)
+            finally:
+                nwb.BODY = None
+            err_b["B4"] = max(err_b["B4"], err)
+            if err != 0 or not bool(got[5].all()):
+                fail(f"kernel B4's {fit['body']} body disagrees with its "
+                     f"plain version at a timed shape")
+            r = res.setdefault(fit["body"], dict(fit, ms=[], kernel_ms=[]))
+            r["ms"].append(ms)
+            r["kernel_ms"].append(kms)
+        return want, res
+
+    def said(res):
+        return "; ".join(
+            f"{b} body (RPT {r['rpt']}, P {r['P']}): call "
+            f"{' / '.join(f'{x:.4f}' for x in r['ms'])} ms, kernel "
+            f"{' / '.join(f'{x:.4f}' for x in r['kernel_ms'])} ms"
+            for b, r in res.items())
+
+    outs, res_m = both_bodies(margs, merge64, 10)
+    call_m = res_m["register"]["ms"][0]
+    kernel_m = res_m["register"]["kernel_ms"][0]
     plain_m = cuda_ms(lambda: nwb.nw_batch_ref(*margs, **merge64), 1)
-    bound_m, by_m, det_m = b4_bound(nbytes_of(margs) + nbytes_of(got),
+    bound_m, by_m, det_m = b4_bound(nbytes_of(margs) + nbytes_of(outs),
                                     pair_cells(l1, l2, -1), False)
     nd, W = nwb.batch_geometry(l1, l2, -1)
     log(f"[time] kernel B4 at merge shapes (4096 pairs, 240 x 200 nt, "
-        f"unbanded, scoring (1, -64, -64), nd={nd} W={W}): {ms_m:.4f} ms, "
+        f"unbanded, scoring (1, -64, -64), nd={nd} W={W}): {said(res_m)}; "
         f"plain {plain_m:.2f} ms; bound {bound_m:.4f} ms by {by_m} "
-        f"({det_m}); max |kernel - plain| = {err_m}; card {card}")
-    if err_m != 0 or not bool(got[5].all()):
-        fail("kernel B4 disagrees with its plain version at merge shapes")
+        f"({det_m}); both bodies equal to the plain version; card {card}")
+    if res_m["register"]["W"] > 256:
+        fail("the merge shapes did not take the register body")
 
     # (c) is_shift_denovo on the table's first 500 ASVs (124,750 pairs)
     unqs = {s: 1000 - k for k, s in enumerate(seqs[:500])}
@@ -1435,8 +1603,9 @@ def main() -> None:
     n_s = counts()
     by_name = profile_device("is_shift_denovo", lambda: dt.is_shift_denovo(
         unqs, device="cuda"))
-    b4_dev = [v for n_, v in by_name.items() if "nw_batch_kernel" in n_]
+    b4_dev = [v for n_, v in by_name.items() if is_b4_kernel(n_)]
     shift_dev_ms = sum(v[0] for v in b4_dev) / 1e3 if b4_dev else None
+    shift_dev_n = sum(v[1] for v in b4_dev)
     npairs = 500 * 499 // 2
     bound_s, by_s, det_s = b4_bound(
         npairs * (2 * 250 + 8 + 9 * 500 + 250 + 5),
@@ -1448,27 +1617,34 @@ def main() -> None:
         codes5[pi[:4096]], lens5[pi[:4096]].astype(np.int64))]
     skw = dict(match=copts.MATCH, mismatch=copts.MISMATCH,
                gap_p=copts.GAP_PENALTY, band=-1, mode="scalar")
-    got = nwb.nw_batch(*chunk, **skw)
-    want = nwb.nw_batch_ref(*chunk, **skw)
-    err_s = max_abs_diff(got, want)
-    err_b["B4"] = max(err_b["B4"], err_s)
-    ms_chunk = cuda_ms(lambda: nwb.nw_batch(*chunk, **skw), 5)
+    _, res_s = both_bodies(chunk, skw, 5)
     plain_chunk = cuda_ms(lambda: nwb.nw_batch_ref(*chunk, **skw), 1)
     log(f"[B4 size] is_shift_denovo on {len(unqs)} ASVs ({npairs} unbanded "
         f"pairs): {wall_s:.2f}s wall, launches {n_s}, "
         f"{int(shifts.sum())} flagged; B4 device time "
-        f"{shift_dev_ms if shift_dev_ms is None else round(shift_dev_ms, 4)}"
-        f" ms (profiled rerun); bound {bound_s:.4f} ms by {by_s} ({det_s}); "
-        f"one 4096-pair chunk: kernel {ms_chunk:.4f} ms, plain "
-        f"{plain_chunk:.2f} ms, max |kernel - plain| = {err_s}; card {card}")
-    if n_s["B4"] <= 0 or err_s != 0:
-        fail("is_shift_denovo did not run through kernel B4, or B4 "
-             "disagrees with its plain version on its chunk")
-    rows["B4"] = dict(launches=n14["B4"], ms=ms_m, plain_ms=plain_m,
-                      bound_ms=bound_m, bound_by=by_m,
+        f"{'not measured' if shift_dev_ms is None else round(shift_dev_ms, 4)}"
+        f" ms over the {shift_dev_n} B4 kernels the profiled rerun recorded; "
+        f"bound {bound_s:.4f} ms by {by_s} ({det_s}); "
+        f"one 4096-pair chunk: {said(res_s)}; plain {plain_chunk:.2f} ms; "
+        f"both bodies equal to the plain version; card {card}")
+    if n_s["B4"] <= 0 or n_s["B4 block"] != 0:
+        fail("is_shift_denovo did not run through kernel B4's register "
+             "body")
+    timed = [dict(shape=shape, **{k: r[k] for k in ("body", "rpt", "P",
+                                                    "ms", "kernel_ms")})
+             for shape, res in (("merge shapes", res_m),
+                                ("is_shift_denovo chunk", res_s))
+             for r in res.values()]
+    rows["B4"] = dict(launches=n14["B4"],
+                      launches_by_body={k[3:]: v for k, v in n14.items()
+                                        if k.startswith("B4 ")},
+                      ms=kernel_m, call_ms=call_m, plain_ms=plain_m,
+                      bound_ms=bound_m, bound_by=by_m, timed=timed,
                       dada_run_b4_device_ms=b4_dev_ms,
+                      dada_run_b4_kernels_recorded=b4_dev_n,
                       dada_run_bound_ms=bound14,
                       shift_b4_device_ms=shift_dev_ms,
+                      shift_b4_kernels_recorded=shift_dev_n,
                       shift_bound_ms=bound_s)
 
     wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",

@@ -395,7 +395,7 @@ class CudaBackend(CompareBackend):
             nd, W = nwb.batch_geometry(np.full(self.rs.n, len1), self.lens,
                                        opts.BAND_SIZE)
             L = self.d_seqs.shape[1]
-            if nwb.slab_route(L, L, nd, W, True) == 0:
+            if nwb.route(L, L, nd, W, True) == 0:
                 raise NotImplementedError(
                     f"a window of {W} rows does not fit kernel B4's block "
                     "(its score buffers and sequences exceed shared memory)")

@@ -1,5 +1,6 @@
 // Batched Needleman-Wunsch over per-pair windows for Hopper (kernel B4):
-// one block per pair.
+// a register body (one warp per pair, the window in registers) for windows
+// of up to 256 rows, and a one-block-per-pair body for wider ones.
 //
 // Replaces the JAX package's XLA aligner dada2_tpu/ops/nw_batch.py:
 // _fill_kernel (the lax.scan over anti-diagonals, vmapped over pairs) and
@@ -38,11 +39,45 @@
 // in-band cell as chip_smoke.py counts them for B1 (gap adds, match score,
 // the two max-with-pointer selects, the pointer packing), plus 2 selects of
 // the gap penalty per cell in the homopolymer aligner. In practice each
-// pair is a chain of len1 + len2 dependent diagonal steps, each ending in a
-// block barrier, followed by a serial traceback of as many steps.
+// pair is a chain of len1 + len2 dependent diagonal steps followed by a
+// serial traceback of as many steps, and the instructions issued per cell
+// set the time.
 //
-// Design (simple first; ROADMAP's redesign would move the fill into
-// registers as B1's): one block per pair, 32..256 threads striding over the
+// Which body serves a launch is decided from the batch's geometry before
+// it (nw_batch_route, the one place that decides the fit).
+//
+// The register body (nw_batch_reg_kernel; windows of up to 256 rows, the
+// merge, shift-detection, collapse, chimera-fallback and dada shapes): B1's
+// design for the batch aligner's rules. One warp per pair; thread t holds
+// the RPT consecutive window rows r = t * RPT + k (RPT = 1, 2, 4 or 8, a
+// template parameter chosen from the batch's window) of diagonals d-1 and
+// d-2 in registers. The pair's origin lo(d) is warp-uniform, so left and up
+// are rows r + s1w and r + s1w - 1 of d-1 with s1w = lo(d) - lo(d-1) in
+// {0, 1}: the thread's own registers except at its first or last row,
+// whose neighbour one __shfl_sync per diagonal brings from the next lane;
+// diagonal is row r + s1w + s1p - 1 of d-2, the previous step's shuffle at
+// the lane boundary. No barrier per diagonal. The max-with-pointer is DPX
+// (__vibmax_s32 for up against left, its predicate the pointer,
+// __viaddmax_s32 for that against the diagonal): up >= left > diagonal in
+// both aligners, which differ only in their gaps. The borders and the last
+// row's and column's rules touch row 0 or the last valid row only, so the
+// fill runs in phases by which of them a diagonal can hold (three
+// diagonals per pass, the middle sixteen, so that the three register sets
+// rotate without moves); the border cell j == 0 is set by a warp-uniform
+// switch on its register. The 2-bit pointers are packed sixteen diagonals
+// to a word in shared memory, per group of sixteen diagonals only as many
+// rows as its diagonals can hold (an unbanded window's two triangles then
+// take half of nd x W). The sequences are staged once per pair as bytes
+// (homopolymer aligner: one int32 word per position, the gap beside the
+// code). Pairs per block from the CUDA occupancy calculator; the warps of
+// a block are independent (no block barrier): lane 0 of the pair's warp
+// walks the pointers, writing one byte per step into shared memory, while
+// the other warps of the SM keep filling, and then the warp writes the
+// step rows (positions from ballot prefix counts), ham and tvec with
+// coalesced stores.
+//
+// The one-block-per-pair body (nw_batch_kernel; wider windows, e.g.
+// PacBio's ~1,450-row unbanded windows): 32..256 threads striding over the
 // pair's window rows on each diagonal. The scores of diagonals d-1 and d-2
 // and the one being written live in three int32 buffers in shared memory
 // (one barrier per diagonal; the buffer written at d+1 is the one read at
@@ -51,13 +86,14 @@
 // shared memory once. Pointers are 2 bits per cell, as two bit planes per
 // warp and diagonal (__ballot_sync), in shared memory when nd x W fits one
 // block, else in a device-memory slab that the wrapper allocates (a PacBio
-// read of ~1450 bp without a band needs ~1 MB per pair); the choice is made
-// before the launch (nw_batch_route). After the last barrier thread 0 walks
-// the traceback and writes kinds/p0/p1, ham and the tvec entries of
-// diagonal steps; the other threads initialise tvec before the fill and
-// write the tail of the step rows after the walk.
+// read of ~1450 bp without a band needs ~1 MB per pair). After the last
+// barrier thread 0 walks the traceback and writes kinds/p0/p1, ham and the
+// tvec entries of diagonal steps; the other threads initialise tvec before
+// the fill and write the tail of the step rows after the walk.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define NEG (-(1 << 29))
 #define OOB_SCALAR (-9999)
@@ -260,6 +296,7 @@ __global__ void __launch_bounds__(THREADS_MAX)
     lo1 = lod;
     __syncthreads();
   }
+  // ---- end of fill ----
 
   // ---- traceback on thread 0, then the tail of the step rows ----
   int8_t* kr = a.kinds + (size_t)p * (a.L1 + a.L2);
@@ -302,19 +339,562 @@ __global__ void __launch_bounds__(THREADS_MAX)
     q0[k] = fi;
     q1[k] = fj;
   }
+  // ---- end of traceback ----
 }
 
-// Where kernel B4 keeps one pair's pointers at this batch geometry (nd
-// diagonals, windows of up to W rows, sequences padded to L1 and L2): 1 in
-// shared memory, 2 in a device-memory slab (the wrapper allocates
-// 4 * nd * ceil(W / 32) * 2 bytes per pair), 0 if even the score buffers
-// and the staged sequences exceed one block's 227 KB. This is the one place
-// that decides the fit.
-extern "C" int nw_batch_route(int L1, int L2, int nd, int W, int homo) {
+// ---- the register body: one warp per pair, the window in registers ----
+// Thread t of a pair's warp holds the window rows r = t * RPT + k (k < RPT)
+// of diagonals d-1 and d-2 in registers (P1, P2). A row outside the
+// registers or outside the pair's valid rows reads the out-of-band value,
+// as the scan's padding does.
+#define REG_W_MAX 256  // the widest window of the register body (RPT = 8)
+#define REG_P_MAX 16   // pairs (warps) per block of the register body
+// The register body's threads per block at most: 128 at RPT = 8 (the fill
+// then keeps its 8 x 4 score and pointer registers without spilling; one
+// block of 512 threads would cap a thread at 128 registers), else 512
+#define REG_THREADS(RPT) ((RPT) >= 8 ? 128 : 32 * REG_P_MAX)
+
+// One warp's shared memory in the register body: s1 staged at s1s[i] =
+// s1[i - 1], s2 at s2s[j - 1 + WR] = s2[j - 1] (guard elements where the
+// window's rows run past the sequences; in the homopolymer aligner each
+// element is the int32 word gap * 256 + code, the gap a step next to that
+// position costs, else an int8 code), the walk's step kinds (one byte per
+// step), the slab's offsets (nq + 1 int32, see group_rows) and the pointer
+// slab: per group of sixteen diagonals q, one word per window row below
+// group_rows(q), diagonal 16q + m in bits 2m.
+struct RegLayout {
+  int s2, kb, off, slab, stride, nd, nq;
+};
+
+__host__ __device__ static inline int reg_rpt(int W) {
+  return W <= 32 ? 1 : W <= 64 ? 2 : W <= 128 ? 4 : 8;
+}
+
+// The rows of the slab kept for diagonals 16q .. 16q + 15 of a batch of nd
+// diagonals and windows of up to W rows: on diagonal d a pair's valid rows
+// number at most d + 1, len1 + len2 - d + 1 <= nd - d and W, so these rows
+// hold every valid row of the group (an unbanded window's triangles then
+// take about half the words of nd x W).
+__host__ __device__ static inline int group_rows(int q, int nd, int W) {
+  return max(0, min(W, min(16 * q + 16, nd - 16 * q)));
+}
+
+__host__ __device__ static inline RegLayout reg_layout(int L1, int L2, int nd,
+                                                       int W, bool homo) {
+  RegLayout o;
+  const int cs = homo ? 4 : 1, WR = 32 * reg_rpt(W);
+  o.nd = nd;
+  o.nq = (nd + 15) / 16;
+  o.s2 = (cs * (L1 + WR) + 15) & ~15;
+  o.kb = o.s2 + ((cs * (L2 + WR) + 15) & ~15);
+  o.off = o.kb + ((L1 + L2 + 15) & ~15);
+  o.slab = o.off + ((4 * (o.nq + 1) + 15) & ~15);
+  long long words = 0;
+  for (int q = 0; q < o.nq; ++q) words += group_rows(q, nd, W);
+  const long long bytes = o.slab + 4 * words;
+  o.stride = bytes > SMEM_MAX ? SMEM_MAX + 1 : (int)bytes;
+  return o;
+}
+
+__device__ __forceinline__ int code_of(int8_t c) { return c; }
+__device__ __forceinline__ int code_of(int w) { return (int8_t)(w & 0xff); }
+
+// ---- fill: the per-diagonal step of the register body ----
+// step<EDGE, LATE>(d) computes diagonal d on the pair's warp; EDGE adds the
+// border cells (i == 0, j == 0), LATE the rules of the last row and column
+// (vec: the ends-free recalculations; scalar: the free end gaps), so that
+// the diagonals that hold neither run without their checks.
+template <int RPT, bool SCALAR, bool HOMO>
+struct RegFill {
+  using CT = typename std::conditional<HOMO, int, int8_t>::type;
+  static constexpr int WR = RPT * 32;
+  const CT* s1s;
+  const CT* s2s;
+  unsigned* slab;
+  const int* off;      // slab offsets of the groups of sixteen diagonals
+  int t, len1, len2, lband, rband, OOB;
+  int match, mismatch, gap_p, bval, egp, dr0, dc0;
+  int srcm, srcp;      // lanes t - 1 and t + 1, mod 32
+  bool wrapm, wrapp;   // t == 0, t == 31
+  bool sfree;          // scalar: free end gaps
+  int P1[RPT], P2[RPT];
+  int xs;              // the previous step's shuffle: row tR - 1 or tR + R
+  unsigned acc[RPT];
+  int om1, s1p;        // lo(d-1), lo(d-1) - lo(d-2)
+
+  __device__ __forceinline__ int lo(const int d) const {
+    return max(0, max(d - len2, (d - rband + 1) >> 1));
+  }
+
+  template <bool EDGE, bool LATE>
+  __device__ __forceinline__ void step(const int d) {
+    const int od = lo(d);
+    const int s1w = od - om1;
+    // the one row of d-1 next to this thread's rows that another lane
+    // holds: row tR + R (lane t + 1's first) when s1w = 1, row tR - 1 (lane
+    // t - 1's last) when s1w = 0; outside the registers it reads OOB
+    int sh = __shfl_sync(FULL, s1w ? P1[0] : P1[RPT - 1], s1w ? srcp : srcm);
+    if (s1w ? wrapp : wrapm) sh = OOB;
+    // diagonal is row r + e of d-2, e = s1w + s1p - 1: the row itself, or
+    // when e != 0 (then s1w == s1p) the next or previous row, whose value
+    // across the lane boundary the previous step's shuffle brought (xs)
+    const bool dsh = s1w == s1p;
+    // row r = tR + k is valid iff k < v; it holds i == len1 iff k == ri;
+    // row 0 holds i == 0 iff lo(d) == 0 and j == len2 iff lo(d) == d - len2
+    const int hid = min(min(len1, d), (d + lband) >> 1);
+    const int v = hid - od + 1 - t * RPT;
+    const int ri = len1 - od - t * RPT;
+    const bool i0 = t == 0 && od == 0;
+    const bool jl = t == 0 && od == d - len2;
+    const CT* c1p = s1s + od + t * RPT;                 // s1[i - 1] at c1p[k]
+    const CT* c2p = s2s + (d - od - t * RPT + WR - 1);  // s2[j - 1] at c2p[-k]
+    int E[RPT];
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      // left (i, j-1) is row r + s1w of d-1, up (i-1, j) row r + s1w - 1
+      const int nxt = k + 1 < RPT ? P1[k + 1 < RPT ? k + 1 : k] : sh;
+      const int prv = k > 0 ? P1[k > 0 ? k - 1 : 0] : sh;
+      const int Lr = s1w ? nxt : P1[k];
+      const int Ur = s1w ? P1[k] : prv;
+      const int dn = k + 1 < RPT ? P2[k + 1 < RPT ? k + 1 : k] : xs;
+      const int dp = k > 0 ? P2[k > 0 ? k - 1 : 0] : xs;
+      const int Dr = dsh ? (s1w ? dn : dp) : P2[k];
+      const int c1 = c1p[k];
+      const int c2 = c2p[-k];
+      const bool eq = HOMO ? ((c1 ^ c2) & 0xff) == 0 : c1 == c2;
+      // both aligners: the larger of up and left (up on a tie), then the
+      // diagonal only if strictly larger; they differ in the gaps
+      bool up;
+      int m;
+      if (SCALAR) {
+        int ug = HOMO ? c1 >> 8 : gap_p;
+        int lg = HOMO ? c2 >> 8 : gap_p;
+        if (LATE && sfree) {
+          if (k == 0 && jl) ug = 0;
+          if (k == ri) lg = 0;
+        }
+        m = __vibmax_s32(Ur + ug, Lr + lg, &up);
+      } else {
+        m = __vibmax_s32(Ur, Lr, &up) + gap_p;
+      }
+      int entry = __viaddmax_s32(Dr, eq ? match : mismatch, m);
+      int ptr = entry != m ? 1 : up ? 3 : 2;
+      if (EDGE && k == 0 && i0) {  // i == 0, j == d
+        entry = d * bval;
+        ptr = 2;
+      }
+      if (!SCALAR && LATE) {
+        if (d >= dr0 && k == ri) {
+          const int candr = Lr + egp;
+          if (candr > entry) {
+            entry = candr;
+            ptr = 2;
+          } else if (candr == entry && ptr == 1) {
+            ptr = 2;
+          }
+        }
+        if (d >= dc0 && k == 0 && jl) {
+          const int candc = Ur + egp;
+          if (candc > entry) {
+            entry = candc;
+            ptr = 3;
+          } else if (candc == entry && ptr != 3) {
+            ptr = 3;
+          }
+        }
+      }
+      // an invalid row's pointer is never read (the walk checks the band)
+      acc[k] = __funnelshift_r(acc[k], (unsigned)ptr, 2);
+      E[k] = k < v ? entry : OOB;
+    }
+    // the border cell j == 0 (i == d) is row d - lo(d) if that row is
+    // valid: one register of one lane, found by a warp-uniform switch
+    const int r0 = d - od;
+    if (EDGE && r0 <= hid - od && t == r0 / RPT) {
+      switch (r0 % RPT) {
+        case 0:
+          border<0>(E, d);
+          break;
+        case 1:
+          border<1>(E, d);
+          break;
+        case 2:
+          border<2>(E, d);
+          break;
+        case 3:
+          border<3>(E, d);
+          break;
+        case 4:
+          border<4>(E, d);
+          break;
+        case 5:
+          border<5>(E, d);
+          break;
+        case 6:
+          border<6>(E, d);
+          break;
+        default:
+          border<7>(E, d);
+          break;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      P2[k] = P1[k];
+      P1[k] = E[k];
+    }
+    xs = sh;
+    s1p = s1w;
+    om1 = od;
+  }
+
+  // register K of this thread holds the border cell (i, 0) = (d, 0):
+  // score d * bval, pointer up (the top bits of its slab word)
+  template <int K>
+  __device__ __forceinline__ void border(int* E, const int d) {
+    if (K < RPT) {
+      E[K < RPT ? K : 0] = d * bval;
+      acc[K < RPT ? K : 0] |= 3u << 30;
+    }
+  }
+
+  // diagonals d .. e, three per pass (the scores of d-2, d-1 and d rotate
+  // through three sets of registers, so the unrolled pass needs no moves)
+  template <bool EDGE, bool LATE>
+  __device__ __forceinline__ void run(int& d, const int e) {
+    for (; d + 2 <= e; d += 3) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        step<EDGE, LATE>(d + q);
+        if (((d + q) & 15) == 15) store(d + q, 0);
+      }
+    }
+    for (; d <= e; ++d) {
+      step<EDGE, LATE>(d);
+      if ((d & 15) == 15) store(d, 0);
+    }
+  }
+
+  __device__ __forceinline__ void store(const int d, const int shift) {
+    const int base = off[d >> 4], rows = off[(d >> 4) + 1] - base;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k)
+      if (t * RPT + k < rows) slab[base + t * RPT + k] = acc[k] >> shift;
+  }
+};
+// ---- end of fill: the per-diagonal step ----
+
+template <int RPT, bool SCALAR, bool HOMO>
+__global__ void __launch_bounds__(REG_THREADS(RPT))
+    nw_batch_reg_kernel(const BatchArgs a, const RegLayout lay, const int n) {
+  using F = RegFill<RPT, SCALAR, HOMO>;
+  using CT = typename F::CT;
+  constexpr int WR = F::WR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int p = blockIdx.x * (blockDim.x >> 5) + w;
+  if (p >= n) return;  // the whole warp: the block has no barrier
+  unsigned char* mine = smem + (size_t)w * lay.stride;
+  CT* s1s = (CT*)mine;
+  CT* s2s = (CT*)(mine + lay.s2);
+  unsigned char* kb = mine + lay.kb;
+  int* off = (int*)(mine + lay.off);
+  unsigned* slab = (unsigned*)(mine + lay.slab);
+  const int len1 = a.len1[p], len2 = a.len2[p];
+  int lband, rband;
+  if (a.band < 0) {
+    lband = len1;
+    rband = len2;
+  } else {
+    lband = a.band + max(0, len1 - len2);
+    rband = a.band + max(0, len2 - len1);
+  }
+  const int8_t* g1 = a.s1 + (size_t)p * a.L1;
+  const int8_t* g2 = a.s2 + (size_t)p * a.L2;
+  int8_t* tv = a.tvec + (size_t)p * a.L2;
+
+  // ---- staging: s1 and s2 with their guard elements, tvec ----
+  for (int x = t; x < a.L1 + WR; x += 32) {
+    const int q = x - 1;
+    const bool in = q >= 0 && q < len1;
+    int c = in ? g1[q] : -1;
+    if (HOMO)
+      c = (c & 0xff) +
+          256 * (in && a.h1[(size_t)p * a.L1 + q] ? a.homo_gap_p : a.gap_p);
+    s1s[x] = (CT)c;
+  }
+  for (int x = t; x < a.L2 + WR; x += 32) {
+    const int q = x - WR;
+    const bool in = q >= 0 && q < len2;
+    int c = in ? g2[q] : -1;
+    if (HOMO)
+      c = (c & 0xff) +
+          256 * (in && a.h2[(size_t)p * a.L2 + q] ? a.homo_gap_p : a.gap_p);
+    s2s[x] = (CT)c;
+  }
+  for (int x = t; x < a.L2; x += 32)
+    tv[x] = x < len2 ? (int8_t)(5 * (int)g2[x]) : (int8_t)16;
+  if (t == 0) {
+    int o = 0;
+    for (int q = 0; q < lay.nq; ++q) {
+      off[q] = o;
+      o += group_rows(q, lay.nd, a.W);
+    }
+    off[lay.nq] = o;
+  }
+  __syncwarp();
+
+  // ---- fill: diagonals 1 .. len1 + len2, in three phases ----
+  F f;
+  f.s1s = s1s;
+  f.s2s = s2s;
+  f.slab = slab;
+  f.off = off;
+  f.t = t;
+  f.len1 = len1;
+  f.len2 = len2;
+  f.lband = lband;
+  f.rband = rband;
+  f.OOB = (SCALAR && a.band >= 0) ? OOB_SCALAR : NEG;
+  f.match = a.match;
+  f.mismatch = a.mismatch;
+  f.gap_p = a.gap_p;
+  f.egp = a.end_gap_p;
+  f.sfree = a.end_gap_p != a.gap_p;
+  f.bval = SCALAR ? (f.sfree ? 0 : a.gap_p) : a.end_gap_p;
+  const int ndl = len1 + len2;
+  const int NEVER = 1 << 30;
+  // vec, ends-free: the last row's rule from diagonal dr0 on (j > j_first),
+  // the last column's from dc0 on (i > i_first)
+  const bool endsfree = !SCALAR && a.end_gap_p > a.gap_p;
+  const int j_first = lband < len1 ? len1 - lband : 0;
+  const int i_first = rband < len2 ? len2 - rband : 0;
+  f.dr0 = endsfree && len1 > 0 ? len1 + j_first + 1 : NEVER;
+  f.dc0 = endsfree && len2 > 0 ? len2 + i_first + 1 : NEVER;
+  // the first diagonal with a cell of the last row or column that LATE's
+  // rules change
+  const int dl = SCALAR ? (f.sfree ? min(len1, len2) + 1 : NEVER)
+                        : min(f.dr0, f.dc0);
+  f.srcm = (t + 31) & 31;
+  f.srcp = (t + 1) & 31;
+  f.wrapm = t == 0;
+  f.wrapp = t == 31;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {  // diagonal 0: cell (0, 0) = 0
+    f.P1[k] = t * RPT + k == 0 ? 0 : f.OOB;
+    f.P2[k] = f.OOB;
+    f.acc[k] = 0u;
+  }
+  f.xs = f.OOB;
+  f.om1 = 0;
+  f.s1p = 0;
+  int d = 1;
+  // the diagonals that may hold a border cell (d <= lband or d <= rband),
+  // without and then with the last row's and column's rules
+  const int e = min(max(lband, rband), ndl);
+  f.template run<true, false>(d, min(e, dl - 1));
+  f.template run<true, true>(d, e);
+  // the middle: neither check, one slab word (16 diagonals) per pass
+  const int m_end = min(dl - 1, ndl);
+  for (; d <= m_end && (d & 15) != 0; ++d) {
+    f.template step<false, false>(d);
+    if ((d & 15) == 15) f.store(d, 0);
+  }
+  for (; d + 15 <= m_end; d += 16) {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) f.template step<false, false>(d + q);
+    f.store(d + 15, 0);
+  }
+  for (; d <= m_end; ++d) f.template step<false, false>(d);
+  // the last diagonals, where the last row's and column's rules apply
+  f.template run<false, true>(d, ndl);
+  if ((ndl & 15) != 15) f.store(ndl, 2 * (15 - (ndl & 15)));
+  __syncwarp();
+  // ---- end of fill ----
+
+  // ---- traceback: lane 0 walks the pointers, the warp writes the rows ----
+  const int nsteps = a.L1 + a.L2;
+  int steps = 0;
+  if (t == 0) {
+    int i = len1, j = len2, cq = -1, base = 0, rows = 0;
+    while (steps < nsteps && (i | j)) {
+      const int dd = i + j;
+      if ((dd >> 4) != cq) {  // a new group of sixteen diagonals
+        cq = dd >> 4;
+        base = off[cq];
+        rows = off[cq + 1] - base;
+      }
+      const int rr = i - f.lo(dd);
+      // a cell outside the band (i > hi(d); the other limits hold on the
+      // path) or outside the slab has no pointer
+      const unsigned wd = (unsigned)rr < (unsigned)rows &&
+                                  i <= ((dd + lband) >> 1)
+                              ? slab[base + rr]
+                              : 0u;
+      const int kind = (wd >> (2 * (dd & 15))) & 3;
+      if (kind == 0) break;  // no pointer here: stuck outside the window
+      kb[steps++] = (unsigned char)kind;
+      i -= kind != 2;
+      j -= kind != 3;
+    }
+  }
+  __syncwarp();
+  steps = __shfl_sync(FULL, steps, 0);
+  // the step rows, 32 steps per pass: (i, j) after step k is (len1, len2)
+  // less the steps <= k that consume s1 (kinds 1, 3) and s2 (kinds 1, 2)
+  int8_t* kr = a.kinds + (size_t)p * nsteps;
+  int* q0 = a.p0 + (size_t)p * nsteps;
+  int* q1 = a.p1 + (size_t)p * nsteps;
+  const unsigned le = FULL >> (31 - t);  // lanes 0 .. t
+  int ci = 0, cj = 0, h = 0;
+  for (int k0 = 0; k0 < nsteps; k0 += 32) {
+    const int k = k0 + t;
+    const int kind = k < steps ? kb[k] : 0;
+    const unsigned bi = __ballot_sync(FULL, kind == 1 || kind == 3);
+    const unsigned bj = __ballot_sync(FULL, kind == 1 || kind == 2);
+    const int i = len1 - ci - __popc(bi & le);
+    const int j = len2 - cj - __popc(bj & le);
+    if (k < nsteps) {
+      kr[k] = (int8_t)kind;
+      q0[k] = i;
+      q1[k] = j;
+    }
+    if (kind == 1) {  // a diagonal step: (i, j) is the aligned column
+      const int nt0 = code_of(s1s[i + 1]), nt1 = code_of(s2s[j + WR]);
+      h += nt0 != nt1;
+      tv[j] = (int8_t)(4 * nt0 + nt1);
+    }
+    ci += __popc(bi);
+    cj += __popc(bj);
+  }
+  h = __reduce_add_sync(FULL, h);
+  if (t == 0) {
+    a.ham[p] = h;
+    a.ok[p] = len1 == ci && len2 == cj;
+  }
+  // ---- end of traceback ----
+}
+
+// Where kernel B4 keeps one pair's pointers in the one-block-per-pair body
+// at this batch geometry (nd diagonals, windows of up to W rows, sequences
+// padded to L1 and L2): 1 in shared memory, 2 in a device-memory slab (the
+// wrapper allocates 4 * nd * ceil(W / 32) * 2 bytes per pair), 0 if even
+// the score buffers and the staged sequences exceed one block's 227 KB.
+extern "C" int nw_batch_block_route(int L1, int L2, int nd, int W, int homo) {
   if (L1 < 1 || L2 < 1 || nd < 1 || W < 1) return 0;
   if (batch_layout(L1, L2, nd, W, homo, true).bytes <= SMEM_MAX) return 1;
   if (batch_layout(L1, L2, nd, W, homo, false).bytes <= SMEM_MAX) return 2;
   return 0;
+}
+
+// Which body of kernel B4 serves a batch geometry: 3 the register body
+// (windows of up to REG_W_MAX rows whose warp's shared memory fits one
+// block), else the one-block-per-pair body's route (nw_batch_block_route:
+// 1, 2, or 0 where neither fits). This is the one place that decides the
+// fit.
+extern "C" int nw_batch_route(int L1, int L2, int nd, int W, int homo) {
+  if (L1 < 1 || L2 < 1 || nd < 1 || W < 1) return 0;
+  if (W <= REG_W_MAX && reg_layout(L1, L2, nd, W, homo).stride <= SMEM_MAX)
+    return 3;
+  return nw_batch_block_route(L1, L2, nd, W, homo);
+}
+
+// Rows per thread of the register body at windows of up to W rows.
+extern "C" int nw_batch_reg_rpt(int W) { return reg_rpt(W); }
+
+template <int RPT>
+static const void* reg_fn_rpt(int scalar, int homo) {
+  if (!scalar) return (const void*)nw_batch_reg_kernel<RPT, false, false>;
+  if (homo) return (const void*)nw_batch_reg_kernel<RPT, true, true>;
+  return (const void*)nw_batch_reg_kernel<RPT, true, false>;
+}
+
+static const void* reg_fn(int W, int scalar, int homo) {
+  switch (reg_rpt(W)) {
+    case 1:
+      return reg_fn_rpt<1>(scalar, homo);
+    case 2:
+      return reg_fn_rpt<2>(scalar, homo);
+    case 4:
+      return reg_fn_rpt<4>(scalar, homo);
+    default:
+      return reg_fn_rpt<8>(scalar, homo);
+  }
+}
+
+// Blocks of the register body with P pairs resident on one SM (the CUDA
+// occupancy calculator, from the instantiation's registers and the
+// block's shared memory), 0 if such a block cannot run.
+static int reg_blocks_per_sm(int L1, int L2, int nd, int W, int scalar,
+                             int homo, int P) {
+  if (W < 1 || W > REG_W_MAX || P < 1 || P > REG_P_MAX || (homo && !scalar))
+    return 0;
+  const long long bytes =
+      (long long)P * reg_layout(L1, L2, nd, W, homo).stride;
+  const void* fn = reg_fn(W, scalar, homo);
+  cudaFuncAttributes fa;
+  int bps = 0;
+  if (bytes > SMEM_MAX || cudaFuncGetAttributes(&fa, fn) != cudaSuccess ||
+      32 * P > fa.maxThreadsPerBlock ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_MAX) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fn, 32 * P,
+                                                    (int)bytes) != cudaSuccess)
+    return 0;
+  return bps;
+}
+
+// The register body's pairs per block for a launch of n pairs: the P (a
+// power of two up to REG_P_MAX) that keeps the most pairs resident per SM,
+// on a tie the smaller (the warps of a block are independent, but a block
+// holds its resources until its last pair is done); a P is considered
+// only if the grid still gives every SM two blocks (P = 1 always is). 0 if
+// not even one pair fits.
+extern "C" int nw_batch_pairs_per_block(int L1, int L2, int nd, int W,
+                                        int scalar, int homo, int n) {
+  int dev = 0, nsm = 0;
+  if (nw_batch_route(L1, L2, nd, W, homo) != 3 ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  int best = 0, best_res = 0;
+  for (int P = 1; P <= REG_P_MAX; P *= 2) {
+    if (P > 1 && ((long long)n + P - 1) / P < 2LL * nsm) break;
+    const int bps = reg_blocks_per_sm(L1, L2, nd, W, scalar, homo, P);
+    if (bps == 0) break;
+    if (P * bps > best_res) {
+      best = P;
+      best_res = P * bps;
+    }
+  }
+  return best;
+}
+
+template <int RPT, bool SCALAR, bool HOMO>
+static int launch_reg(const BatchArgs& a, int n, int nd, int P,
+                      cudaStream_t stream) {
+  const RegLayout lay = reg_layout(a.L1, a.L2, nd, a.W, HOMO);
+  const long long bytes = (long long)P * lay.stride;
+  if (P < 1 || 32 * P > REG_THREADS(RPT) || bytes > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        nw_batch_reg_kernel<RPT, SCALAR, HOMO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  nw_batch_reg_kernel<RPT, SCALAR, HOMO>
+      <<<(n + P - 1) / P, 32 * P, (int)bytes, stream>>>(a, lay, n);
+  return (int)cudaGetLastError();
+}
+
+template <int RPT>
+static int launch_reg_mode(const BatchArgs& a, int n, int nd, int P,
+                           int scalar, int homo, cudaStream_t s) {
+  if (!scalar) return launch_reg<RPT, false, false>(a, n, nd, P, s);
+  if (homo) return launch_reg<RPT, true, true>(a, n, nd, P, s);
+  return launch_reg<RPT, true, false>(a, n, nd, P, s);
 }
 
 template <bool SCALAR, bool HOMO, bool GSLAB>
@@ -344,12 +924,15 @@ static int launch_mode(const BatchArgs& a, int n, int nd, int scalar,
   return launch<true, false, GSLAB>(a, n, nd, s);
 }
 
-// Launches kernel B4 on `stream` for n pairs (one block each) with the
-// pointer slab in shared memory (route 1; `slab` unused) or in `slab`
-// (route 2, slab_words words per pair). Returns cudaGetLastError() after
-// the launch (0 = launched), or cudaErrorInvalidValue for a route that does
-// not fit (see nw_batch_route), a missing slab or homopolymer masks outside
-// the scalar aligner.
+// Launches kernel B4 on `stream` for n pairs: route 3 the register body
+// (`ppb` pairs per block, see nw_batch_pairs_per_block; `slab` unused), 1
+// and 2 the one-block-per-pair body with the pointer slab in shared memory
+// (route 1; `slab` unused) or in `slab` (route 2, slab_words words per
+// pair). Route 3 is taken where nw_batch_route says 3, routes 1 and 2
+// where nw_batch_block_route fits them. Returns cudaGetLastError() after
+// the launch (0 = launched), or cudaErrorInvalidValue for a route that
+// does not fit, a missing slab, a `ppb` that does not fit one block or
+// homopolymer masks outside the scalar aligner.
 extern "C" int nw_batch_run(const int8_t* s1, const int* len1,
                             const int8_t* s2, const int* len2,
                             const uint8_t* h1, const uint8_t* h2,
@@ -358,18 +941,33 @@ extern "C" int nw_batch_run(const int8_t* s1, const int* len1,
                             int L1, int L2, int nd, int W, int slab_words,
                             int scalar, int homo, int band, int match,
                             int mismatch, int gap_p, int end_gap_p,
-                            int homo_gap_p, int route, void* stream) {
+                            int homo_gap_p, int route, int ppb,
+                            void* stream) {
   if (n <= 0) return 0;
-  if (route < 1 || route > 2 || (route == 2 && !slab) ||
-      (homo && (!scalar || !h1 || !h2)) ||
-      nw_batch_route(L1, L2, nd, W, homo) == 0 ||
-      (route == 1 && nw_batch_route(L1, L2, nd, W, homo) != 1))
-    return (int)cudaErrorInvalidValue;
+  if (homo && (!scalar || !h1 || !h2)) return (int)cudaErrorInvalidValue;
   const BatchArgs a = {s1,   len1, s2,    len2, h1,  h2,       kinds,
                        p0,   p1,   ham,   tvec, ok,  slab,     slab_words,
                        L1,   L2,   W,     band, match, mismatch, gap_p,
                        end_gap_p, homo_gap_p};
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 3) {
+    if (nw_batch_route(L1, L2, nd, W, homo) != 3)
+      return (int)cudaErrorInvalidValue;
+    switch (reg_rpt(W)) {
+      case 1:
+        return launch_reg_mode<1>(a, n, nd, ppb, scalar, homo, s);
+      case 2:
+        return launch_reg_mode<2>(a, n, nd, ppb, scalar, homo, s);
+      case 4:
+        return launch_reg_mode<4>(a, n, nd, ppb, scalar, homo, s);
+      default:
+        return launch_reg_mode<8>(a, n, nd, ppb, scalar, homo, s);
+    }
+  }
+  const int fit = nw_batch_block_route(L1, L2, nd, W, homo);
+  if (route < 1 || route > 2 || fit == 0 || (route == 2 && !slab) ||
+      (route == 1 && fit != 1))
+    return (int)cudaErrorInvalidValue;
   return route == 2 ? launch_mode<true>(a, n, nd, scalar, homo, s)
                     : launch_mode<false>(a, n, nd, scalar, homo, s);
 }

@@ -22,12 +22,16 @@ lband = band + max(0, len1 - len2), rband = band + max(0, len2 - len1)
 
 `nw_batch` takes numpy arrays or tensors. On CUDA tensors it launches the
 hand-written Hopper kernel in csrc/nw_batch.cu (built with nvcc at first
-use, loaded through ctypes) and counts each launch in nw_batch.launches;
-on CPU tensors it runs the plain PyTorch version, `nw_batch_ref` (which
-also runs on the card, as the kernel's yardstick). There is no fallback
-between the two. Batches are cut into chunks so that the
-scratch one launch needs (the kernel's pointer slab in device memory, or
-the plain version's pointer and score tensors) stays under a byte budget.
+use, loaded through ctypes) and counts each launch in nw_batch.launches
+and, by the body that served it, in nw_batch.launches_by_body: "register"
+(one warp per pair, the window in registers; windows of up to 256 rows)
+or "block" (one block per pair; wider windows). The body is chosen from
+the batch's geometry before the launch (`route`). On CPU tensors it runs
+the plain PyTorch version, `nw_batch_ref` (which also runs on the card,
+as the kernel's yardstick for both bodies). There is no fallback between
+the two. Batches are cut into chunks so that the scratch one launch needs
+(the one-block-per-pair body's pointer slab in device memory, or the
+plain version's pointer and score tensors) stays under a byte budget.
 
 batch_geometry, homo_mask_batch and steps_to_alignment are copies of the
 JAX package's host helpers.
@@ -35,6 +39,7 @@ JAX package's host helpers.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 from typing import NamedTuple, Optional
@@ -48,6 +53,12 @@ NEG = -(2**29)
 PTR_NONE, PTR_DIAG, PTR_LEFT, PTR_UP = 0, 1, 2, 3
 OOB_BANDED_SCALAR = -9999   # the reference's band-boundary fill value
 MAX_BYTES = 1 << 30         # scratch budget of one launch (see nw_batch)
+# Checks' overrides, None in use: BODY "block" sends every launch to the
+# one-block-per-pair body wherever it fits (to hold both bodies against the
+# plain version on the same batches); PAIRS_PER_BLOCK sets the register
+# body's pairs per block (1..16; to run partial and full last blocks)
+BODY: Optional[str] = None
+PAIRS_PER_BLOCK: Optional[int] = None
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "nw_batch.cu")
@@ -114,8 +125,10 @@ def steps_to_alignment(kinds: np.ndarray, p0: np.ndarray, p1: np.ndarray,
 # ---- build and load --------------------------------------------------------
 
 def build_kernel() -> str:
-    """Build csrc/nw_batch.cu (scalar/vec x homopolymer x pointer slab in
-    shared or device memory) and return its `-Xptxas -v` report."""
+    """Build csrc/nw_batch.cu (the register body: rows per thread 1, 2, 4,
+    8 x vec, scalar and homopolymer aligners; the one-block-per-pair body:
+    the three aligners x pointer slab in shared or device memory) and
+    return its `-Xptxas -v` report."""
     return nww.build_library(_SRC, _SO, _PTXAS_LOG)
 
 
@@ -128,25 +141,62 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(_SO)
             V, I = ctypes.c_void_p, ctypes.c_int
-            lib.nw_batch_route.restype = I
-            lib.nw_batch_route.argtypes = [I] * 5
+            for name, nargs in (("nw_batch_route", 5),
+                                ("nw_batch_block_route", 5),
+                                ("nw_batch_reg_rpt", 1),
+                                ("nw_batch_pairs_per_block", 7)):
+                getattr(lib, name).restype = I
+                getattr(lib, name).argtypes = [I] * nargs
             lib.nw_batch_run.restype = I
-            lib.nw_batch_run.argtypes = [V] * 13 + [I] * 15 + [V]
+            lib.nw_batch_run.argtypes = [V] * 13 + [I] * 16 + [V]
             _lib = lib
     return _lib
 
 
-def slab_route(L1: int, L2: int, nd: int, W: int, homo: bool) -> int:
-    """Where kernel B4 keeps a pair's pointers at this geometry: 1 in
-    shared memory, 2 in a device-memory slab, 0 if even the score buffers
-    and staged sequences do not fit one block (the fit lives in
-    csrc/nw_batch.cu; this asks the built library)."""
+def route(L1: int, L2: int, nd: int, W: int, homo: bool) -> int:
+    """Which body of kernel B4 serves this geometry: 3 the register body
+    (windows of up to 256 rows), else the one-block-per-pair body with a
+    pair's pointers in shared memory (1) or in a device-memory slab (2); 0
+    if neither fits one block. The fit lives in csrc/nw_batch.cu
+    (nw_batch_route); this asks the built library."""
     return int(_load().nw_batch_route(L1, L2, nd, W, int(bool(homo))))
 
 
+def block_route(L1: int, L2: int, nd: int, W: int, homo: bool) -> int:
+    """The one-block-per-pair body's route at this geometry (1, 2 or 0, as
+    in `route`), whatever body `route` chooses."""
+    return int(_load().nw_batch_block_route(L1, L2, nd, W, int(bool(homo))))
+
+
+def body(r: int) -> str:
+    """The name of the body that serves route r."""
+    return "register" if r == 3 else "block"
+
+
+def register_fit(L1: int, L2: int, nd: int, W: int, scalar: bool,
+                 homo: bool, n: int):
+    """(rows per thread, pairs per block) of the register body for a
+    launch of n pairs at this geometry on the current CUDA device; pairs
+    per block 0 if the geometry is not the register body's. The choice
+    lives in csrc/nw_batch.cu (nw_batch_pairs_per_block, from the CUDA
+    occupancy calculator)."""
+    return _register_fit(torch.cuda.current_device(), L1, L2, nd, W,
+                         int(bool(scalar)), int(bool(homo)), n)
+
+
+@functools.lru_cache(maxsize=1024)
+def _register_fit(device: int, L1: int, L2: int, nd: int, W: int,
+                  scalar: int, homo: int, n: int):
+    lib = _load()
+    return (int(lib.nw_batch_reg_rpt(W)),
+            int(lib.nw_batch_pairs_per_block(L1, L2, nd, W, scalar, homo,
+                                             n)))
+
+
 def slab_words(nd: int, W: int) -> int:
-    """32-bit words of one pair's pointer slab: two bit planes per group
-    of 32 window rows, per diagonal."""
+    """32-bit words of one pair's device-memory pointer slab in the
+    one-block-per-pair body: two bit planes per group of 32 window rows,
+    per diagonal."""
     return nd * ((W + 31) // 32) * 2
 
 
@@ -252,12 +302,20 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
     gap variant — homo1b/homo2b masks are computed here if not given.
     device: None takes the device of the tensors given, else CUDA (raising
     without a card); "cpu" runs the plain version. On CUDA the call
-    launches kernel B4 (one launch per chunk; MAX_BYTES bounds the
+    launches kernel B4: the register body in one launch, or the
+    one-block-per-pair body in one launch per chunk (MAX_BYTES bounds its
     device-memory pointer slab of one launch)."""
     b = _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
                  band, mode, homo_gap_p, homo1b, homo2b, device)
     if b.dev.type == "cpu":
         return _plain(b)
+    return _launch(b)
+
+
+def _launch(b: _Batch):
+    """Kernel B4 on a batch prepared on the card: the body its geometry's
+    route chooses (or BODY's), one launch per chunk, counted. Returns the
+    batch's output tensors."""
     s1, len1, s2, len2, h1, h2 = b.ins
     kinds, p0, p1, ham, tvec, ok = b.outs
     n, L1 = s1.shape
@@ -265,15 +323,22 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
     if n == 0:
         return b.outs
     use_homo = h1 is not None
-    route = slab_route(L1, L2, b.nd, b.W, use_homo)
-    if route == 0:
+    scalar = b.mode == "scalar"
+    r = route(L1, L2, b.nd, b.W, use_homo)
+    if BODY == "block" and r == 3:
+        r = block_route(L1, L2, b.nd, b.W, use_homo)
+    if r == 0:
         raise ValueError(f"window of {b.W} rows (sequences of {L1} and "
                          f"{L2}) exceeds one block's shared memory in "
                          "kernel B4")
-    words = slab_words(b.nd, b.W) if route == 2 else 0
-    chunk = n if route == 1 else max(1, MAX_BYTES // (4 * words))
+    ppb = 0
+    if r == 3:
+        ppb = PAIRS_PER_BLOCK or register_fit(L1, L2, b.nd, b.W, scalar,
+                                              use_homo, n)[1]
+    words = slab_words(b.nd, b.W) if r == 2 else 0
+    chunk = n if r != 2 else max(1, MAX_BYTES // (4 * words))
     slab = (torch.empty(min(chunk, n) * words, dtype=torch.int32,
-                        device=b.dev) if route == 2 else None)
+                        device=b.dev) if r == 2 else None)
     stream = torch.cuda.current_stream(b.dev).cuda_stream
     lib = _load()
     sc = b.scal
@@ -286,18 +351,20 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
             p0[c0].data_ptr(), p1[c0].data_ptr(), ham[c0:].data_ptr(),
             tvec[c0].data_ptr(), ok[c0:].data_ptr(),
             slab.data_ptr() if slab is not None else None, c1 - c0, L1, L2,
-            b.nd, b.W, words, int(b.mode == "scalar"), int(use_homo),
-            sc["band"], sc["match"], sc["mismatch"], sc["gap_p"],
-            sc["end_gap_p"], sc["homo_gap_p"], route, stream)
+            b.nd, b.W, words, int(scalar), int(use_homo), sc["band"],
+            sc["match"], sc["mismatch"], sc["gap_p"], sc["end_gap_p"],
+            sc["homo_gap_p"], r, ppb, stream)
         if rc != 0:
             raise RuntimeError(f"nw_batch kernel B4 launch failed: CUDA "
                                f"error {rc}")
         with _count_lock:
             nw_batch.launches += 1
+            nw_batch.launches_by_body[body(r)] += 1
     return b.outs
 
 
 nw_batch.launches = 0
+nw_batch.launches_by_body = {"register": 0, "block": 0}
 _count_lock = threading.Lock()
 
 

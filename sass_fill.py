@@ -20,8 +20,9 @@ every kernel instantiation:
     of them are shuffles (SHFL), shared loads and stores (LDS, STS), warp
     barriers (WARPSYNC, BAR) and DPX or min/max instructions (VIMNMX,
     VIADDMNMX, IMNMX); for a fill loop with shuffles, its instructions
-    per diagonal (the fill shuffles once per row register and diagonal,
-    WP / 32 registers).
+    per diagonal (the wavefront kernel's fill shuffles once per row
+    register and diagonal, WP / 32 registers; the batch aligner's register
+    body, nw_batch_reg_kernel, once per diagonal).
 Needs nvcc and nvdisasm (CUDA toolkit), not a card. The cubin and the
 disassembly are kept in DIR (default build/sass).
 """
@@ -155,6 +156,8 @@ def report(src: str, regions, out_dir: str) -> int:
         ins = funcs[fn]
         rpt = re.search(r"ILi(\d)E", fn)
         rpt = int(rpt.group(1)) if rpt else 1
+        if "nw_batch_reg_kernel" in fn:  # one shuffle per diagonal
+            rpt = 1
         print(f"{names[fn]}: {len(ins)} instructions; " + ", ".join(
             f"{sum(within(x[2], rng) for x in ins)} on the {name}'s lines"
             for name, rng in regions.items())

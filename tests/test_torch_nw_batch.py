@@ -1,6 +1,8 @@
 """Parity: the port's batch aligner (dada2_tpu_torch.ops.nw_batch, kernel
 B4's plain PyTorch version on the CPU) against dada2_tpu.ops.nw_batch on
-tests/test_nw_batch.py's mixes: all six outputs (kinds, p0, p1, ham, tvec,
+tests/test_nw_batch.py's mixes, and on the window widths where the
+kernel changes body or register tier, pairs of length 0 and 1, and small
+merge- and shift-like batches: all six outputs (kinds, p0, p1, ham, tvec,
 ok), their dtypes and shapes. Tolerance: exact (integer outputs). The
 CUDA kernel itself is held against nw_batch_ref on the card by
 chip_smoke.py and by the gpu-marked test below."""
@@ -132,6 +134,81 @@ def test_mixed_length_and_identical():
     assert (got[3] == 0).all()
 
 
+def _short_pairs():
+    """Pairs of length 0 and 1 against each other."""
+    e, a, c = (np.zeros(0, np.uint8), np.array([1], np.uint8),
+               np.array([2], np.uint8))
+    return [(e, e), (a, e), (e, c), (a, a), (a, c), (np.array([0, 1, 2],
+                                                             np.uint8), c)]
+
+
+def _window_pairs(rng, W):
+    """Unbanded pairs whose window is exactly W rows (two of length W - 1)
+    beside narrower ones, as one batch."""
+    L = W - 1
+    pairs = [(rng.integers(0, 4, L).astype(np.uint8),
+              rng.integers(0, 4, L).astype(np.uint8))]
+    a = rng.integers(0, 4, L).astype(np.uint8)
+    b = a.copy()
+    b[rng.integers(0, L, 4)] = rng.integers(0, 4, 4)
+    return pairs + [(a, b), (a[: L // 2], b[5:])] + _short_pairs()
+
+
+def _merge_like(rng, n=12):
+    """merge_pairs' shape, cut down: a forward read against the reverse
+    read's complement, overlapping by 40 to 60 positions."""
+    out = []
+    for _ in range(n):
+        s = rng.integers(0, 4, 120).astype(np.uint8)
+        f, r = s[:80].copy(), s[int(rng.integers(20, 40)):].copy()
+        f[rng.integers(0, 80, 2)] = rng.integers(0, 4, 2)
+        out.append((f, r))
+    return out
+
+
+def _shift_like(rng, n=6):
+    """is_shift_denovo's shape, cut down: all pairs of a few sequences of
+    equal length, some of them shifts of one another."""
+    base = rng.integers(0, 4, 70).astype(np.uint8)
+    seqs = [base[:60], base[3:63], base[10:]]
+    seqs += [rng.integers(0, 4, 60).astype(np.uint8) for _ in range(n - 3)]
+    return [(seqs[i], seqs[j]) for i in range(n) for j in range(i + 1, n)]
+
+
+MERGE_KW = dict(match=1, mismatch=-64, gap_p=-64, band=-1, mode="scalar")
+SHIFT_KW = dict(match=5, mismatch=-4, gap_p=-8, band=-1, mode="scalar")
+SC5 = dict(match=5, mismatch=-4, gap_p=-8)
+BODY_CASES = {
+    # windows on both sides of the register body's tiers and of its
+    # 256-row limit (the kernel's route changes there; the plain version
+    # and the JAX aligner must agree on every side)
+    "W32": (lambda rng: _window_pairs(rng, 32), MERGE_KW),
+    "W33": (lambda rng: _window_pairs(rng, 33), MERGE_KW),
+    "W256": (lambda rng: _window_pairs(rng, 256), MERGE_KW),
+    "W257": (lambda rng: _window_pairs(rng, 257), MERGE_KW),
+    "W33 homopolymer": (lambda rng: _window_pairs(rng, 33),
+                        dict(SC5, band=-1, mode="scalar", homo_gap_p=-1)),
+    "short vec unbanded": (lambda rng: _short_pairs(),
+                           dict(SC5, band=-1)),
+    "short vec band 4 end gaps -8": (lambda rng: _short_pairs(),
+                                     dict(SC5, band=4, end_gap_p=-8)),
+    "short scalar band 4 homopolymer": (
+        lambda rng: _short_pairs(),
+        dict(SC5, band=4, mode="scalar", homo_gap_p=-1)),
+    "merge-like": (_merge_like, MERGE_KW),
+    "shift-like": (_shift_like, SHIFT_KW),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BODY_CASES))
+def test_window_tiers_short_pairs_and_slice_shapes(case):
+    """The geometries that choose kernel B4's body and its register tier,
+    pairs of length 0 and 1, and small merge- and shift-like unbanded
+    scalar batches: the plain version against the JAX aligner, exact."""
+    gen, kw = BODY_CASES[case]
+    _assert_equal_to_jax(gen(np.random.default_rng(len(case))), **kw)
+
+
 def test_homo_mask_and_alignment_helpers():
     rng = np.random.default_rng(5)
     for _ in range(50):
@@ -195,8 +272,11 @@ def test_wrapper_checks_and_no_launch_on_cpu():
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card(monkeypatch):
     """Kernel B4 against its plain version on the card, bitwise, in every
-    aligner, banded and unbanded, with the pointer slab in shared memory
-    and (long unbanded pairs) in device memory, chunked and not."""
+    aligner, banded and unbanded, through both bodies (the register body
+    and, forced, the one-block-per-pair body with the pointer slab in
+    shared memory and, for long unbanded pairs, in device memory), chunked
+    and not; windows of 256 and 257 rows take the register body and the
+    one-block-per-pair body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run through chip_smoke.py)")
     rng = np.random.default_rng(17)
@@ -209,18 +289,39 @@ def test_kernel_matches_plain_on_card(monkeypatch):
                 for a in _pack([gen(rng) for _ in range(200)])]
         want = tnb.nw_batch_ref(*args, match=5, mismatch=-4, gap_p=-8,
                                 **kw)
-        for budget in (tnb.MAX_BYTES, 1):
+        for body, budget in ((None, tnb.MAX_BYTES), ("block", tnb.MAX_BYTES),
+                             ("block", 1)):
             monkeypatch.setattr(tnb, "MAX_BYTES", budget)
+            monkeypatch.setattr(tnb, "BODY", body)
+            before = dict(tnb.nw_batch.launches_by_body)
             got = tnb.nw_batch(*args, match=5, mismatch=-4, gap_p=-8,
                                **kw)
+            ran = [k for k, v in tnb.nw_batch.launches_by_body.items()
+                   if v != before[k]]
+            assert ran == [body or "register"], (kw, body, ran)
             for g, w in zip(got, want):
-                assert torch.equal(g, w), kw
+                assert torch.equal(g, w), (kw, body)
         monkeypatch.undo()
+    for W, route in ((256, 3), (257, 1)):
+        args = [torch.from_numpy(a).cuda()
+                for a in _pack(_window_pairs(rng, W))]
+        nd, Wb = tnb.batch_geometry(args[1].cpu().numpy(),
+                                    args[3].cpu().numpy(), -1)
+        assert Wb == W
+        assert tnb.route(args[0].shape[1], args[2].shape[1], nd, W,
+                         False) == route
+        before = dict(tnb.nw_batch.launches_by_body)
+        got = tnb.nw_batch(*args, **MERGE_KW)
+        assert tnb.nw_batch.launches_by_body[tnb.body(route)] == \
+            before[tnb.body(route)] + 1
+        want = tnb.nw_batch_ref(*args, **MERGE_KW)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), W
     long = rng.integers(0, 4, (4, 1500)).astype(np.uint8)
     args = [torch.from_numpy(a).cuda() for a in
             (long, np.full(4, 1500), long[::-1].copy(), np.full(4, 1500))]
     nd, W = tnb.batch_geometry(np.full(4, 1500), np.full(4, 1500), -1)
-    assert tnb.slab_route(1500, 1500, nd, W, False) == 2
+    assert tnb.route(1500, 1500, nd, W, False) == 2
     got = tnb.nw_batch(*args, match=1, mismatch=-64, gap_p=-64,
                        mode="scalar")
     want = tnb.nw_batch_ref(*args, match=1, mismatch=-64, gap_p=-64,
