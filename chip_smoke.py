@@ -93,7 +93,34 @@ Phases (any failure exits non-zero and prints no result line):
                call time and its launches' time alone (CUDA events),
                and the plain version's time; the register body must serve
                every launch of phase 14.
-It prints one {"kernels": [...]} line and, last, {"ok": true, ...}.
+ 15. ends    — (a) the DADA2 tutorial on sam1/sam2 F+R on the card:
+               filter_and_trim (truncLen (240, 160), maxN 0, maxEE (2, 2),
+               truncQ 2, rm_phix, two spawned worker processes) ->
+               derep_fastq -> learn_errors -> dada -> merge_pairs ->
+               make_sequence_table -> remove_bimera_denovo(consensus) ->
+               assign_taxonomy(example_train_set, tryRC, outputBootstraps)
+               -> add_species(example_species_assignment), with the
+               kernels' launches counted, then the same on the CPU: the
+               filtered files (gunzipped), the error matrices and the
+               tables identical; the taxonomy scorer card against CPU on
+               the ASVs with assign_taxonomy's own uniforms (best_logp
+               within rtol 1e-5; every best genus and bootstrap winner of
+               both a top genus within TAX_REL in float64, so equal
+               wherever the top-two margin exceeds it; decisions within
+               the margin counted), and the taxonomy tables equal on every
+               row without such a decision; each stage's wall time on
+               both; (b) the scorer at a realistic size: a synthetic
+               3,000-genus, six-rank training set (12,000 references
+               mutated from ten_16s.100.fa.gz) and 2,000 V4 reads (half
+               reverse-complemented) through assign_taxonomy(tryRC,
+               outputBootstraps) on the card (wall, stage times, scorer
+               calls, genus accuracy, lgk bytes, peak device memory), then
+               one batch of 256 reads: the call's time and its device
+               work's alone (CUDA events), the CPU's time, the bound, and
+               card against CPU as in (a).
+It prints one {"device_stages": [...]} line (the taxonomy scorer, torch
+ops, not a hand-written kernel), one {"kernels": [...]} line and, last,
+{"ok": true, ...}.
 """
 from __future__ import annotations
 
@@ -101,6 +128,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -110,6 +138,14 @@ SAM2F = os.path.join(ROOT, "tests", "extdata", "sam2F.fastq.gz")
 SAMPB = os.path.join(ROOT, "tests", "extdata", "samPB.fastq.gz")
 SAM1R = os.path.join(ROOT, "tests", "extdata", "sam1R.fastq.gz")
 SAM2R = os.path.join(ROOT, "tests", "extdata", "sam2R.fastq.gz")
+TRAIN = os.path.join(ROOT, "tests", "extdata", "example_train_set.fa.gz")
+SPECIES = os.path.join(ROOT, "tests", "extdata",
+                       "example_species_assignment.fa.gz")
+TEN16S = os.path.join(ROOT, "tests", "extdata", "ten_16s.100.fa.gz")
+# a taxonomy decision (a query's best genus, a bootstrap replicate's
+# winner) whose float64 top-two margin is within this share of its score
+# may go either way between two float32 runs that sum in different orders
+TAX_REL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, and the int32 rate — 64
 # INT32 lanes per SM (half the 128 FP32 lanes behind the 67 TFLOP/s fp32
@@ -673,6 +709,344 @@ def is_b4_kernel(name):
 def nbytes_of(tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def tutorial_workflow(dt, device, outdir):
+    """The DADA2 tutorial (vignettes/dada2-intro.Rmd) on sam1/sam2 F+R
+    through the port on `device`: filter_and_trim -> derep_fastq ->
+    learn_errors -> dada -> merge_pairs -> make_sequence_table ->
+    remove_bimera_denovo -> assign_taxonomy -> add_species. Returns the
+    results and each stage's wall seconds."""
+    import torch
+
+    times = {}
+
+    def stage(name, fn):
+        t0 = time.time()
+        out = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times[name] = time.time() - t0
+        return out
+
+    os.makedirs(outdir, exist_ok=True)
+    names = ("sam1", "sam2")
+    filt = {d: [os.path.join(outdir, f"{n}{d}.filt.fastq.gz")
+                for n in names] for d in "FR"}
+    track = stage("filter_and_trim", lambda: dt.filter_and_trim(
+        [SAM1F, SAM2F], filt["F"], rev=[SAM1R, SAM2R], filt_rev=filt["R"],
+        truncLen=(240, 160), maxN=0, maxEE=(2, 2), truncQ=2, rm_phix=True,
+        multithread=2))
+    dereps = stage("derep_fastq", lambda: {
+        d: {n: dt.derep_fastq(f) for n, f in zip(names, filt[d])}
+        for d in "FR"})
+    errs = stage("learn_errors", lambda: {
+        d: dt.learn_errors(filt[d], device=device) for d in "FR"})
+    dadas = stage("dada", lambda: {
+        d: dt.dada(dereps[d], err=errs[d]["err_out"], device=device,
+                   verbose=False) for d in "FR"})
+    merged = stage("merge_pairs", lambda: dt.merge_pairs(
+        dadas["F"], dereps["F"], dadas["R"], dereps["R"], device=device))
+    seqtab = stage("make_sequence_table",
+                   lambda: dt.make_sequence_table(merged))
+    nochim = stage("remove_bimera_denovo", lambda: dt.remove_bimera_denovo(
+        seqtab, method="consensus", device=device))
+    taxa = stage("assign_taxonomy", lambda: dt.assign_taxonomy(
+        list(nochim.columns), TRAIN, tryRC=True, outputBootstraps=True,
+        device=device))
+    species = stage("add_species", lambda: dt.add_species(taxa["tax"],
+                                                          SPECIES))
+    return dict(track=track, filt=filt["F"] + filt["R"], errs=errs,
+                seqtab=seqtab, nochim=nochim, taxa=taxa,
+                species=species), times
+
+
+def gunzipped(path):
+    import gzip
+
+    with gzip.open(path, "rb") as f:
+        return f.read()
+
+
+def score_batches(tt, seqs, seed=100, batch=256):
+    """assign_taxonomy's _score_batch inputs for `seqs` at its defaults
+    (tryRC): per batch, the k-mer arrays and uniforms forward, then the
+    reverse complements', drawn from the same seeded generator in the
+    same order."""
+    import torch
+    from dada2_tpu_torch.encode import rc
+
+    gen = torch.Generator().manual_seed(seed)
+    ok = [s for s in seqs if len(s) >= tt.MIN_TAX_LEN]
+    out = []
+    for lo in range(0, len(ok), batch):
+        chunk = ok[lo: lo + batch]
+        fwd = tt.tax_karrays_bulk(chunk)
+        u = tt.boot_uniforms(fwd, gen)
+        back = tt.tax_karrays_bulk([rc(s) for s in chunk])
+        out.append((chunk, fwd, u, back, tt.boot_uniforms(back, gen)))
+    return out
+
+
+def scores_agree(tt, karrs, lgk, u, got, want):
+    """Two _score_batch results (best, best_logp, boot winners) on the same
+    inputs: best_logp within rtol 1e-5, and every pick of both (the best
+    genus, each bootstrap winner) a top genus in float64 within TAX_REL,
+    so the two are equal wherever the top-two margin exceeds TAX_REL.
+    Returns (an error or None, the decisions within the margin as boolean
+    arrays [q] and [q, NBOOT])."""
+    import numpy as np
+
+    qm, bm, gaps = tt.decision_margins(karrs, lgk, u, runs=[got, want])
+    ex_q, ex_b = qm <= TAX_REL, bm <= TAX_REL
+    rel = np.abs(got[1] - want[1]) / np.maximum(np.abs(want[1]), 1e-30)
+    if rel.max(initial=0.0) > 1e-5:
+        return f"best_logp differs by {rel.max():.3g} (rtol 1e-5)", ex_q, ex_b
+    for name, (gq, gb) in zip(("card", "CPU"), gaps):
+        if gq.max(initial=0.0) > TAX_REL or gb.max(initial=0.0) > TAX_REL:
+            return (f"the {name} run picked {int((gq > TAX_REL).sum())} "
+                    f"best genera and {int((gb > TAX_REL).sum())} bootstrap "
+                    f"winners below the top genus"), ex_q, ex_b
+    if ((got[0] != want[0]) & ~ex_q).any() or \
+            ((got[2] != want[2]) & ~ex_b).any():
+        return "the runs differ outside the margin", ex_q, ex_b
+    return None, ex_q, ex_b
+
+
+def synthetic_train_set(rng, path, ngenus=3000, per_genus=4):
+    """A training fasta of ngenus genera under a six-rank tree (Bacteria;
+    phylum; class; order; family; genus), per_genus references each, all
+    mutated from the full-length 16S sequences of ten_16s.100.fa.gz: six
+    genera per family, each genus up to 40 edits (indels included) from
+    its family's sequence, each reference up to 10 substitutions from its
+    genus's. Returns the references' code arrays, [ngenus][per_genus]."""
+    import numpy as np
+    from dada2_tpu_torch.taxonomy import read_fasta
+
+    _, ten = read_fasta(TEN16S)
+    table = np.full(256, 255, np.uint8)
+    for k, c in enumerate(b"ACGT"):
+        table[c] = k
+    fams = [table[np.frombuffer(s.encode(), np.uint8)] for s in ten
+            if len(s) >= 1400][: (ngenus + 5) // 6]
+    fams = [np.where(f > 3, rng.integers(0, 4, len(f)), f).astype(np.uint8)
+            for f in fams]
+    nt = np.frombuffer(b"ACGT", np.uint8)
+    refs, lines = [], []
+    for g in range(ngenus):
+        f = g // 6
+        o = f // 4
+        c = o // 3
+        base = mutate(rng, fams[f], 40, False)
+        refs.append([mutate(rng, base, 10, True) for _ in range(per_genus)])
+        tax = f"Bacteria;P{c // 4};C{c};O{o};F{f};G{g};"
+        for r in refs[-1]:
+            lines += [">" + tax, nt[r].tobytes().decode()]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return refs
+
+
+def v4_queries(rng, refs, n):
+    """n V4-length (253 nt) reads cut from random references at the V4
+    position (after the 515F primer) with up to 4 substitutions; every
+    second one reverse-complemented. Returns (reads, their genera)."""
+    import numpy as np
+
+    nt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    seqs, genera = [], []
+    for k in range(n):
+        g = int(rng.integers(0, len(refs)))
+        r = refs[g][int(rng.integers(0, len(refs[g])))]
+        v4 = mutate(rng, r[533:786], 4, True)
+        if k % 2:
+            v4 = comp[v4[::-1]]
+        seqs.append(nt[v4].tobytes().decode())
+        genera.append(g)
+    return seqs, genera
+
+
+def workflow_ends(dt, dev, card, reset_launches, counts):
+    """Phase 15: the tutorial workflow card against CPU (15a) and the
+    taxonomy scorer at a realistic size (15b). Fails on any difference;
+    returns the scorer's device-stage row."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    # 15. the workflow's two ends. (a) the DADA2 tutorial on sam1/sam2 F+R
+    # on the card (filter_and_trim on two spawned processes), held against
+    # the port on the CPU
+    from dada2_tpu_torch import taxonomy as tt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        calls0 = tt._score_batch.calls
+        wf_gpu, t_wf_gpu = tutorial_workflow(dt, "cuda",
+                                             os.path.join(tmp, "card"))
+        n_wf = counts()
+        calls_wf = tt._score_batch.calls - calls0
+        wf_cpu, t_wf_cpu = tutorial_workflow(dt, "cpu",
+                                             os.path.join(tmp, "cpu"))
+        for a, b in zip(wf_gpu["filt"], wf_cpu["filt"]):
+            if gunzipped(a) != gunzipped(b):
+                fail(f"filter_and_trim wrote {os.path.basename(a)} "
+                     f"differently on the two runs")
+    try:
+        pd.testing.assert_frame_equal(wf_gpu["track"], wf_cpu["track"])
+        for d in "FR":
+            np.testing.assert_array_equal(wf_gpu["errs"][d]["err_out"],
+                                          wf_cpu["errs"][d]["err_out"])
+        pd.testing.assert_frame_equal(wf_gpu["seqtab"], wf_cpu["seqtab"])
+        pd.testing.assert_frame_equal(wf_gpu["nochim"], wf_cpu["nochim"])
+    except AssertionError as e:
+        fail(f"the tutorial workflow differs card vs CPU: {e}")
+    if n_wf["B1"] <= 0 or n_wf["B4"] <= 0:
+        fail(f"the tutorial workflow did not run through kernels B1 and B4: "
+             f"{n_wf}")
+    # the scorer card vs CPU on the workflow's ASVs with assign_taxonomy's
+    # own uniforms; the two tables may differ only on rows that hold a
+    # decision within the margin
+    asv = list(wf_gpu["nochim"].columns)
+    refs_t, r2g_t, levels_t = tt.load_reference(TRAIN)
+    lgk_t = tt._build_lgk(refs_t, r2g_t, len(levels_t))
+    on_card, on_cpu = tt.device_lgk(lgk_t, dev), tt.device_lgk(lgk_t, "cpu")
+    exempt, n_ex_q, n_ex_b, n_b = set(), 0, 0, 0
+    for chunk, fwd, u, back, u_rc in score_batches(tt, asv):
+        for karrs, uu in ((fwd, u), (back, u_rc)):
+            err_s, ex_q, ex_b = scores_agree(
+                tt, karrs, lgk_t, uu,
+                tt._score_batch(karrs, on_card, uu, len(levels_t)),
+                tt._score_batch(karrs, on_cpu, uu, len(levels_t)))
+            if err_s:
+                fail(f"the taxonomy scorer differs card vs CPU on the "
+                     f"workflow's ASVs: {err_s}")
+            n_ex_q += int(ex_q.sum())
+            n_ex_b += int(ex_b.sum())
+            n_b += ex_b.size
+            exempt |= {chunk[i] for i in
+                       np.nonzero(ex_q | ex_b.any(axis=1))[0]}
+    del on_card
+    keep = [s for s in asv if s not in exempt]
+    try:
+        for key in ("tax", "boot"):
+            pd.testing.assert_frame_equal(wf_gpu["taxa"][key].loc[keep],
+                                          wf_cpu["taxa"][key].loc[keep])
+        pd.testing.assert_frame_equal(wf_gpu["species"].loc[keep],
+                                      wf_cpu["species"].loc[keep])
+    except AssertionError as e:
+        fail(f"assign_taxonomy/add_species differ card vs CPU outside the "
+             f"margin: {e}")
+    same_all = all(wf_gpu["taxa"][k].equals(wf_cpu["taxa"][k])
+                   for k in ("tax", "boot"))
+    tax_wf = wf_gpu["taxa"]["tax"]
+    log(f"[tutorial] sam1/sam2 F+R, truncLen (240, 160), maxEE (2, 2), "
+        f"rm_phix, multithread=2: reads in/out "
+        f"{wf_gpu['track'].values.tolist()}; table {wf_gpu['seqtab'].shape},"
+        f" without bimeras {wf_gpu['nochim'].shape}; genera assigned "
+        f"{int(tax_wf['Genus'].notna().sum())} of {len(tax_wf)}, species "
+        f"{int(wf_gpu['species']['Species'].notna().sum())}; filtered files, "
+        f"error matrices and tables identical card vs CPU; scorer card == "
+        f"CPU with {n_ex_q} queries and {n_ex_b} of {n_b} bootstrap "
+        f"replicates exempt by the margin ({len(exempt)} of {len(asv)} "
+        f"rows), taxonomy tables "
+        f"{'identical' if same_all else 'equal outside the exempt rows'}; "
+        f"card launches {n_wf}, scorer calls {calls_wf}")
+    log("[tutorial] stage wall seconds, card / CPU: " + ", ".join(
+        f"{k} {t_wf_gpu[k]:.3f} / {t_wf_cpu[k]:.3f}" for k in t_wf_gpu)
+        + f"; total {sum(t_wf_gpu.values()):.2f} / "
+        f"{sum(t_wf_cpu.values()):.2f}; card {card}")
+
+    # (b) the scorer at a realistic size: a synthetic 3,000-genus training
+    # set (12,000 references of ~1,450 nt) and 2,000 V4 reads, half of them
+    # reverse-complemented, through assign_taxonomy(tryRC=True)
+    rng15 = np.random.default_rng(15)
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = os.path.join(tmp, "train.fa")
+        t0 = time.time()
+        refs15 = synthetic_train_set(rng15, fa)
+        queries, truth = v4_queries(rng15, refs15, 2000)
+        t_make = time.time() - t0
+        reset_launches()
+        calls0 = tt._score_batch.calls
+        dt.PHASES.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res15 = dt.assign_taxonomy(queries, fa, tryRC=True,
+                                   outputBootstraps=True, device="cuda")
+        torch.cuda.synchronize()
+        wall15 = time.time() - t0
+        calls15 = tt._score_batch.calls - calls0
+        n15 = counts()
+        peak15 = torch.cuda.max_memory_allocated()
+        phases15 = dt.PHASES.as_dict()
+        refs_s, r2g_s, levels_s = tt.load_reference(fa)
+    G15 = len(levels_s)
+    lgk15 = tt._build_lgk(refs_s, r2g_s, G15)
+    del refs_s
+    right = sum(res15["tax"]["Genus"].iloc[k] == f"G{g}"
+                for k, g in enumerate(truth))
+    if res15["tax"].shape != (2000, 6) or calls15 != 16 or right < 1000:
+        fail(f"assign_taxonomy at 3,000 genera: table "
+             f"{res15['tax'].shape}, {calls15} scorer calls (16 expected), "
+             f"{right} of 2000 genera right")
+    if any(n15.values()):
+        fail(f"assign_taxonomy launched an alignment kernel: {n15}")
+    lgk15_dev = tt.device_lgk(lgk15, dev)
+    chunk, fwd, u, back, u_rc = score_batches(tt, queries[:256])[0]
+    call_ms = cuda_ms(lambda: tt._score_batch(fwd, lgk15_dev, u, G15), 3)
+    # the device work alone, on inputs already on the card (this process's
+    # earlier profiles leave torch.profiler missing kernels here; ab_tax.py
+    # gives the time by kernel)
+    A15 = max(max(len(a) for a in fwd), 8)
+    karr15 = np.zeros((len(fwd), A15), np.int64)
+    for i, a in enumerate(fwd):
+        karr15[i, : len(a)] = a
+    dev_args = (torch.from_numpy(karr15).to(dev),
+                torch.tensor([len(a) for a in fwd], dtype=torch.int32,
+                             device=dev), u.to(dev), lgk15_dev, 1 << 27)
+    dev_ms = cuda_ms(lambda: tt._score_device(*dev_args), 3)
+    got = tt._score_batch(fwd, lgk15_dev, u, G15)
+    t0 = time.time()
+    want = tt._score_batch(fwd, tt.device_lgk(lgk15, "cpu"), u, G15)
+    cpu_ms = (time.time() - t0) * 1e3
+    err_s, ex_q, ex_b = scores_agree(tt, fwd, lgk15, u, got, want)
+    if err_s:
+        fail(f"the taxonomy scorer differs card vs CPU at 3,000 genera: "
+             f"{err_s}")
+    # the least time for one batch: the two float32 products as computed
+    # (the dense count product and the bootstrap product over the batch's
+    # longest k-mer array A) at 67 TFLOP/s, or lgk, the k-mer arrays and
+    # uniforms read once and the three outputs written once at 3.35 TB/s
+    q15 = len(fwd)
+    flops = 2 * q15 * tt.N_KMERS * G15 + 2 * q15 * tt.NBOOT * A15 * G15
+    nbytes = (lgk15.nbytes + q15 * A15 * 8 + u.numel() * 4
+              + q15 * (8 + 4 + tt.NBOOT * 8))
+    bound_sc = max(flops / 67e12, nbytes / 3.35e12) * 1e3
+    by_sc = "operations" if flops / 67e12 >= nbytes / 3.35e12 else "bytes"
+    log(f"[taxonomy] synthetic set (made in {t_make:.1f}s): {G15} genera, "
+        f"{len(r2g_s)} references, 2000 V4 reads (half reverse-"
+        f"complemented): assign_taxonomy(tryRC, outputBootstraps) "
+        f"{wall15:.2f}s wall, {calls15} scorer calls, genus right for "
+        f"{right} of 2000; stages {phases15}; lgk {lgk15.nbytes} bytes, "
+        f"peak device memory {peak15} bytes; card launches {n15}")
+    log(f"[taxonomy] one batch (q={q15}, A={A15}, G={G15}): call "
+        f"{call_ms:.4f} ms, device work alone {dev_ms:.4f} ms (CUDA "
+        f"events), CPU "
+        f"{cpu_ms:.1f} ms; bound {bound_sc:.4f} ms by {by_sc} "
+        f"({flops} flop, {nbytes} bytes); card == CPU with {int(ex_q.sum())}"
+        f" queries and {int(ex_b.sum())} of {ex_b.size} replicates exempt "
+        f"by the margin; card {card}")
+    del lgk15_dev, dev_args
+    return [dict(
+        name="taxonomy scorer (_score_batch)", route="torch ops",
+        source="dada2_tpu_torch/taxonomy.py",
+        replaces="dada2_tpu/taxonomy.py:180", calls=calls15, ms=call_ms,
+        device_ms=dev_ms, plain_ms=cpu_ms, plain_device="cpu",
+        bound_ms=bound_sc, bound_by=by_sc, library_ms=None,
+        lgk_bytes=int(lgk15.nbytes), peak_bytes=int(peak15),
+        wall_s=wall15, stages_s=phases15)]
 
 
 # ---- main ------------------------------------------------------------------
@@ -1647,6 +2021,8 @@ def main() -> None:
                       shift_b4_kernels_recorded=shift_dev_n,
                       shift_bound_ms=bound_s)
 
+    stages = workflow_ends(dt, dev, card, reset_launches, counts)
+
     wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",
             "dada2_tpu/ops/nw_pallas.py:452")
     kernels = {
@@ -1656,6 +2032,7 @@ def main() -> None:
         "B3": ("nw_wavefront kinds (B3)",) + wave,
         "B4": ("nw_batch (B4)", "dada2_tpu_torch/csrc/nw_batch.cu",
                "dada2_tpu/ops/nw_batch.py:63")}
+    log(json.dumps({"device_stages": stages}))
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         max_abs_err=err_b[k], match=err_b[k] == 0, library_ms=None,

@@ -1,4 +1,5 @@
-"""Bundled datasets (mirrors the reference's data/: tperr1, errBalancedF/R).
+"""Bundled datasets (mirrors the reference's data/: tperr1, errBalancedF/R,
+and the phiX genome that filter.is_phix matches against).
 
 These are empirical 16x41 error-rate matrices shipped with the reference
 package (documented in R/errorModels.R:571-605) so that dada() can be run
@@ -33,3 +34,9 @@ def err_balanced_f() -> np.ndarray:
 def err_balanced_r() -> np.ndarray:
     return _load("errBalancedR")
 
+
+
+def phix_genome() -> str:
+    with open(os.path.join(_HERE, "phix_genome.fa")) as fh:
+        lines = [l.strip() for l in fh if not l.startswith(">")]
+    return "".join(lines)

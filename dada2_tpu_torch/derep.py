@@ -217,3 +217,24 @@ def get_derep(obj) -> Derep:
         return derep_fastq(obj)
     raise TypeError(f"Cannot coerce {type(obj)} to Derep")
 
+
+def derep_fasta(fls, **kwargs):
+    """Dereplicate fasta file(s) by conversion to temporary fastq with
+    constant quality 26 (reference: derepFasta, R/sequenceIO.R:255-269;
+    Biostrings::writeXStringSet defaults base qualities to 26)."""
+    import tempfile
+
+    from .io.fastq import write_fastq
+    from .seqtab import get_sequences
+
+    if isinstance(fls, (str, os.PathLike)):
+        fls = [str(fls)]
+    fastqs = []
+    for fl in fls:
+        seqs = get_sequences([str(fl)])
+        tmp = tempfile.NamedTemporaryFile(suffix=".fastq", delete=False)
+        tmp.close()
+        write_fastq(tmp.name, [f"sq{i}" for i in range(len(seqs))], seqs,
+                    [chr(26 + 33) * len(s) for s in seqs], compress=False)
+        fastqs.append(tmp.name)
+    return derep_fastq(fastqs, **kwargs)

@@ -6,6 +6,9 @@ them as plain numpy arrays and a dataclass; `state_from_numpy` builds the
 port's counterparts from those arrays and the options as a dict
 (``dataclasses.asdict`` of dada2_tpu's DadaOptions), so tests can feed
 both packages identical state without this package importing the other.
+The taxonomy classifier's state, the lgk table, needs no function here:
+both packages build it on the host from the same fasta, and
+taxonomy.device_lgk takes dada2_tpu's numpy table as it is.
 """
 from __future__ import annotations
 
