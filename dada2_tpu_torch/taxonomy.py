@@ -29,7 +29,9 @@ section 7, hard-part 6); given the same uniforms, the scorer follows
 dada2_tpu's step by step.
 
 Everything else (fasta parsing, k-mer arrays, the lgk build, species
-matching) is a copy of dada2_tpu/taxonomy.py.
+matching) follows dada2_tpu/taxonomy.py line for line, save that the lgk
+build counts with a sort instead of np.unique and np.add.at (the same
+table, bit for bit).
 """
 from __future__ import annotations
 
@@ -150,6 +152,19 @@ def _parse_ref_taxonomy(ids: List[str]) -> List[str]:
     return tax
 
 
+def _sorted_unique(x: np.ndarray):
+    """(sorted distinct values of x, their counts): np.unique(x,
+    return_counts=True) by one sort. Newer numpy's np.unique takes a hash
+    path for integers that ran ~6 s per call on ~6 M int64 values on an
+    H100 machine's host, against ~0.1 s for the sort (ab_tax.py)."""
+    a = np.sort(x)
+    first = np.empty(len(a), bool)
+    first[:1] = True
+    np.not_equal(a[1:], a[:-1], out=first[1:])
+    starts = np.flatnonzero(first)
+    return a[starts], np.diff(np.append(starts, len(a)))
+
+
 def _build_lgk(refs: List[str], ref_to_genus: np.ndarray, ngenus: int
                ) -> np.ndarray:
     """[ngenus, 65536] float32 log genus-kmer probabilities.
@@ -175,10 +190,10 @@ def _build_lgk(refs: List[str], ref_to_genus: np.ndarray, ngenus: int
             continue
         rid = np.repeat(np.arange(len(sub), dtype=np.int64), sizes)
         kflat = np.concatenate(kas)
-        pairs = np.unique(rid * N_KMERS + kflat)  # presence, per ref
+        pairs, _ = _sorted_unique(rid * N_KMERS + kflat)  # per ref
         g = np.asarray(ref_to_genus)[lo + (pairs // N_KMERS)]
         km = pairs % N_KMERS
-        gk, n = np.unique(g * N_KMERS + km, return_counts=True)
+        gk, n = _sorted_unique(g * N_KMERS + km)
         flat[gk] += n.astype(np.int32)
         prior += np.bincount(km, minlength=N_KMERS)
     # float32 arithmetic ordered exactly as the reference's float build
@@ -290,17 +305,12 @@ def device_lgk(lgk, device=None) -> torch.Tensor:
     """lgk [ngenus, 65536] (numpy or tensor, e.g. dada2_tpu's own table) as
     the scorer holds it on the device: transposed, [65536, ngenus]
     contiguous, so the bootstrap's gather reads each k-mer's genus scores
-    as one contiguous row. device: None = the CUDA card, "cpu"; a tensor
-    given without a device stays where it is."""
+    as one contiguous row. device: None = the CUDA card, "cpu"."""
     from .core.backend_cuda import resolve_device
 
-    if isinstance(lgk, torch.Tensor) and device is None:
-        dev = lgk.device
-    else:
-        dev = resolve_device(device)
     t = lgk if isinstance(lgk, torch.Tensor) else torch.from_numpy(
         np.array(lgk, np.float32))
-    return t.to(dev, torch.float32).t().contiguous()
+    return t.to(resolve_device(device), torch.float32).t().contiguous()
 
 
 def boot_uniforms(karrays: List[np.ndarray], generator: torch.Generator
@@ -316,7 +326,8 @@ def boot_uniforms(karrays: List[np.ndarray], generator: torch.Generator
 @contextmanager
 def _no_tf32():
     """TF32 off for the products inside (their f32 values feed argmaxes,
-    CLAUDE.md); the caller's setting comes back afterwards."""
+    where the numerical contract allows no TF32); the caller's setting
+    comes back afterwards."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
