@@ -95,7 +95,8 @@ Phases (any failure exits non-zero and prints no result line):
                every launch of phase 14.
  15. ends    — (a) the DADA2 tutorial on sam1/sam2 F+R on the card:
                filter_and_trim (truncLen (240, 160), maxN 0, maxEE (2, 2),
-               truncQ 2, rm_phix, two spawned worker processes) ->
+               truncQ 2, rm_phix, two spawned worker processes; the
+               CPU run below filters in its own process) ->
                derep_fastq -> learn_errors -> dada -> merge_pairs ->
                make_sequence_table -> remove_bimera_denovo(consensus) ->
                assign_taxonomy(example_train_set, tryRC, outputBootstraps)
@@ -711,12 +712,12 @@ def nbytes_of(tensors):
                if t is not None)
 
 
-def tutorial_workflow(dt, device, outdir):
+def tutorial_workflow(dt, device, outdir, multithread):
     """The DADA2 tutorial (vignettes/dada2-intro.Rmd) on sam1/sam2 F+R
-    through the port on `device`: filter_and_trim -> derep_fastq ->
-    learn_errors -> dada -> merge_pairs -> make_sequence_table ->
-    remove_bimera_denovo -> assign_taxonomy -> add_species. Returns the
-    results and each stage's wall seconds."""
+    through the port on `device`: filter_and_trim (on `multithread`
+    processes) -> derep_fastq -> learn_errors -> dada -> merge_pairs ->
+    make_sequence_table -> remove_bimera_denovo -> assign_taxonomy ->
+    add_species. Returns the results and each stage's wall seconds."""
     import torch
 
     times = {}
@@ -736,7 +737,7 @@ def tutorial_workflow(dt, device, outdir):
     track = stage("filter_and_trim", lambda: dt.filter_and_trim(
         [SAM1F, SAM2F], filt["F"], rev=[SAM1R, SAM2R], filt_rev=filt["R"],
         truncLen=(240, 160), maxN=0, maxEE=(2, 2), truncQ=2, rm_phix=True,
-        multithread=2))
+        multithread=multithread))
     dereps = stage("derep_fastq", lambda: {
         d: {n: dt.derep_fastq(f) for n, f in zip(names, filt[d])}
         for d in "FR"})
@@ -877,18 +878,19 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
 
     # 15. the workflow's two ends. (a) the DADA2 tutorial on sam1/sam2 F+R
     # on the card (filter_and_trim on two spawned processes), held against
-    # the port on the CPU
+    # the port on the CPU (filtering in this process: the files must not
+    # depend on it)
     from dada2_tpu_torch import taxonomy as tt
 
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
         calls0 = tt._score_batch.calls
         wf_gpu, t_wf_gpu = tutorial_workflow(dt, "cuda",
-                                             os.path.join(tmp, "card"))
+                                             os.path.join(tmp, "card"), 2)
         n_wf = counts()
         calls_wf = tt._score_batch.calls - calls0
         wf_cpu, t_wf_cpu = tutorial_workflow(dt, "cpu",
-                                             os.path.join(tmp, "cpu"))
+                                             os.path.join(tmp, "cpu"), False)
         for a, b in zip(wf_gpu["filt"], wf_cpu["filt"]):
             if gunzipped(a) != gunzipped(b):
                 fail(f"filter_and_trim wrote {os.path.basename(a)} "
@@ -942,7 +944,7 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
                    for k in ("tax", "boot"))
     tax_wf = wf_gpu["taxa"]["tax"]
     log(f"[tutorial] sam1/sam2 F+R, truncLen (240, 160), maxEE (2, 2), "
-        f"rm_phix, multithread=2: reads in/out "
+        f"rm_phix, multithread=2 (the CPU run: False): reads in/out "
         f"{wf_gpu['track'].values.tolist()}; table {wf_gpu['seqtab'].shape},"
         f" without bimeras {wf_gpu['nochim'].shape}; genera assigned "
         f"{int(tax_wf['Genus'].notna().sum())} of {len(tax_wf)}, species "
