@@ -712,12 +712,15 @@ def nbytes_of(tensors):
                if t is not None)
 
 
-def tutorial_workflow(dt, device, outdir, multithread):
+def tutorial_workflow(dt, device, outdir, multithread, asvs=None):
     """The DADA2 tutorial (vignettes/dada2-intro.Rmd) on sam1/sam2 F+R
     through the port on `device`: filter_and_trim (on `multithread`
-    processes) -> derep_fastq -> learn_errors -> dada -> merge_pairs ->
+    processes) -> learn_errors -> derep_fastq -> dada -> merge_pairs ->
     make_sequence_table -> remove_bimera_denovo -> assign_taxonomy ->
-    add_species. Returns the results and each stage's wall seconds."""
+    add_species. Given `asvs` (a reference run for another run's ASVs),
+    derep_fastq through remove_bimera_denovo, which phase 13 holds card ==
+    CPU on the same samples, are skipped and `asvs` are classified. Returns
+    the results and each stage's wall seconds."""
     import torch
 
     times = {}
@@ -738,11 +741,28 @@ def tutorial_workflow(dt, device, outdir, multithread):
         [SAM1F, SAM2F], filt["F"], rev=[SAM1R, SAM2R], filt_rev=filt["R"],
         truncLen=(240, 160), maxN=0, maxEE=(2, 2), truncQ=2, rm_phix=True,
         multithread=multithread))
-    dereps = stage("derep_fastq", lambda: {
-        d: {n: dt.derep_fastq(f) for n, f in zip(names, filt[d])}
-        for d in "FR"})
     errs = stage("learn_errors", lambda: {
         d: dt.learn_errors(filt[d], device=device) for d in "FR"})
+    if asvs is not None:
+        seqtab = nochim = None
+    else:
+        asvs, seqtab, nochim = tutorial_asvs(dt, device, filt, errs, stage)
+    taxa = stage("assign_taxonomy", lambda: dt.assign_taxonomy(
+        asvs, TRAIN, tryRC=True, outputBootstraps=True, device=device))
+    species = stage("add_species", lambda: dt.add_species(taxa["tax"],
+                                                          SPECIES))
+    return dict(track=track, filt=filt["F"] + filt["R"], errs=errs,
+                seqtab=seqtab, nochim=nochim, taxa=taxa,
+                species=species), times
+
+
+def tutorial_asvs(dt, device, filt, errs, stage):
+    """The tutorial's middle on the filtered files: derep_fastq -> dada ->
+    merge_pairs -> make_sequence_table -> remove_bimera_denovo. Returns
+    (the ASVs, the table, the table without bimeras)."""
+    dereps = stage("derep_fastq", lambda: {
+        d: {n: dt.derep_fastq(f) for n, f in zip(("sam1", "sam2"), filt[d])}
+        for d in "FR"})
     dadas = stage("dada", lambda: {
         d: dt.dada(dereps[d], err=errs[d]["err_out"], device=device,
                    verbose=False) for d in "FR"})
@@ -752,14 +772,7 @@ def tutorial_workflow(dt, device, outdir, multithread):
                    lambda: dt.make_sequence_table(merged))
     nochim = stage("remove_bimera_denovo", lambda: dt.remove_bimera_denovo(
         seqtab, method="consensus", device=device))
-    taxa = stage("assign_taxonomy", lambda: dt.assign_taxonomy(
-        list(nochim.columns), TRAIN, tryRC=True, outputBootstraps=True,
-        device=device))
-    species = stage("add_species", lambda: dt.add_species(taxa["tax"],
-                                                          SPECIES))
-    return dict(track=track, filt=filt["F"] + filt["R"], errs=errs,
-                seqtab=seqtab, nochim=nochim, taxa=taxa,
-                species=species), times
+    return list(nochim.columns), seqtab, nochim
 
 
 def gunzipped(path):
@@ -789,6 +802,65 @@ def score_batches(tt, seqs, seed=100, batch=256):
     return out
 
 
+def decision_margins(karrays, lgk, u, runs=()):
+    """How clear the taxonomy scorer's decisions are, in float64 on the
+    host: the checks' oracle, independent of the scorer's code.
+
+    lgk [ngenus, 65536] and u [q, NBOOT, A // 8 + 1] as given to
+    _score_batch; runs: its results (best, best_logp, boot winners) on
+    those inputs. Returns (qm, bm, gaps): the relative top-two margins
+    (top - second) / |top| of each query's best genus [q] and each
+    bootstrap replicate's [q, NBOOT] (inf for one genus), and for each run
+    the relative gaps of its picks below the top, ([q], [q, NBOOT]). Two
+    float32 runs that sum in different orders (the card and the CPU, or
+    the port and dada2_tpu) can pick different genera only where a margin
+    is within their rounding (a replicate whose genera tie exactly goes to
+    whichever sum rounds up); a right run's gaps are all within it."""
+    import numpy as np
+
+    lgk = np.asarray(lgk, np.float32)
+    u = np.asarray(u, np.float32)
+    q, nboot = u.shape[:2]
+    A = max(max((len(a) for a in karrays), default=1), 8)
+
+    def rel(sc):
+        if sc.shape[-1] < 2:
+            return np.full(sc.shape[:-1], np.inf)
+        top2 = np.partition(sc, -2, axis=-1)[..., -2:]
+        return (top2[..., 1] - top2[..., 0]) / np.abs(top2[..., 1])
+
+    def gap(sc, pick):
+        top = sc.max(axis=-1)
+        got = np.take_along_axis(sc, pick[..., None], axis=-1)[..., 0]
+        return (top - got) / np.maximum(np.abs(top), 1e-300)
+
+    qm = np.empty(q)
+    bm = np.empty((q, nboot))
+    gaps = [(np.empty(q), np.empty((q, nboot))) for _ in runs]
+    for i, a in enumerate(karrays):
+        a = np.asarray(a, np.int64)
+        n = len(a)
+        lg = lgk[:, a].astype(np.float64)                  # [G, n]
+        sc = lg.sum(axis=1)
+        qm[i] = rel(sc[None, :])[0] if n else np.inf
+        # the scorer's positions: trunc(f32(u * alen)), clipped
+        pos = np.clip((u[i] * np.float32(n)).astype(np.int32), 0, A - 1)
+        m = max(n // 8, 1)
+        S = np.zeros((nboot, A), np.float64)
+        np.add.at(S, (np.repeat(np.arange(nboot), m),
+                      pos[:, :m].reshape(-1)), 1.0)
+        lgp = np.zeros((A, lg.shape[0]))
+        lgp[:n] = lg.T
+        lgp[n:] = lgk[:, 0].astype(np.float64)[None, :]    # pad k-mer 0
+        bs = S @ lgp
+        bm[i] = rel(bs)
+        for (gq, gb), run in zip(gaps, runs):
+            gq[i] = gap(sc[None, :],
+                        np.asarray(run[0], np.int64)[i: i + 1])[0]
+            gb[i] = gap(bs, np.asarray(run[2], np.int64)[i])
+    return qm, bm, gaps
+
+
 def scores_agree(tt, karrs, lgk, u, got, want):
     """Two _score_batch results (best, best_logp, boot winners) on the same
     inputs: best_logp within rtol 1e-5, and every pick of both (the best
@@ -798,7 +870,7 @@ def scores_agree(tt, karrs, lgk, u, got, want):
     arrays [q] and [q, NBOOT])."""
     import numpy as np
 
-    qm, bm, gaps = tt.decision_margins(karrs, lgk, u, runs=[got, want])
+    qm, bm, gaps = decision_margins(karrs, lgk, u, runs=[got, want])
     ex_q, ex_b = qm <= TAX_REL, bm <= TAX_REL
     rel = np.abs(got[1] - want[1]) / np.maximum(np.abs(want[1]), 1e-30)
     if rel.max(initial=0.0) > 1e-5:
@@ -812,6 +884,90 @@ def scores_agree(tt, karrs, lgk, u, got, want):
             ((got[2] != want[2]) & ~ex_b).any():
         return "the runs differ outside the margin", ex_q, ex_b
     return None, ex_q, ex_b
+
+
+def scored_both(tt, seqs, lgk, on_card, on_cpu, what):
+    """The scorer's decisions for assign_taxonomy(seqs, tryRC=True) at its
+    default seed and batch: each batch forward and reverse-complemented,
+    on the card and on the CPU with the same uniforms, held by
+    scores_agree (fails on a difference). Returns per batch (reads, the
+    two orientations' (decisions within the margin [q] and [q, NBOOT],
+    the card's run, the CPU's run))."""
+    out = []
+    for chunk, fwd, u, back, u_rc in score_batches(tt, seqs):
+        sides = []
+        for karrs, uu in ((fwd, u), (back, u_rc)):
+            a = tt._score_batch(karrs, on_card, uu, on_card.shape[1])
+            b = tt._score_batch(karrs, on_cpu, uu, on_cpu.shape[1])
+            err, ex_q, ex_b = scores_agree(tt, karrs, lgk, uu, a, b)
+            if err:
+                fail(f"the taxonomy scorer differs card vs CPU on {what}: "
+                     f"{err}")
+            sides.append((ex_q, ex_b, a, b))
+        out.append((chunk, sides))
+    return out
+
+
+def tax_rows_agree(batches, taxa_a, taxa_b, species_a=None,
+                   species_b=None, min_boot=50):
+    """assign_taxonomy(tryRC=True, outputBootstraps=True) from two runs
+    (the card's, the CPU's) with the same uniforms, and add_species on
+    each (if given), held row by row against the scorer's decisions
+    (`batches` from scored_both; their reads are the tables' first rows,
+    in order).
+
+    A row is exempt whole where its orientation (the larger best score) or
+    its best genus is a decision within TAX_REL. Otherwise both runs must
+    take the same orientation; each rank's boot counts may differ by at
+    most the row's number of replicates within the margin; the tax must
+    be equal at every rank where both counts fall on the same side of
+    min_boot; and the species row must be equal where the tax row is.
+    Returns (an error or None, rows exempt, replicates within the margin
+    on the rows held)."""
+    import numpy as np
+    import pandas as pd
+
+    def differ(xs, ys):    # any pair unequal; two empty cells are equal
+        return any(not (x == y or (pd.isna(x) and pd.isna(y)))
+                   for x, y in zip(xs, ys))
+
+    index = list(taxa_a["tax"].index)
+    tax_a, tax_b = taxa_a["tax"].values, taxa_b["tax"].values
+    boot_a, boot_b = taxa_a["boot"].values, taxa_b["boot"].values
+    sp_a = sp_b = None
+    if species_a is not None:
+        sp_a, sp_b = species_a.values, species_b.values
+    exempt = n_rep = k = 0
+    for reads, ((fq, fb, fa, fc), (rq, rb, ra, rcpu)) in batches:
+        for i, read in enumerate(reads):
+            if index[k] != read:
+                return f"row {k} is not the scored read", exempt, n_rep
+            lf, lr = float(fa[1][i]), float(ra[1][i])
+            if abs(lr - lf) <= TAX_REL * abs(lf):
+                exempt += 1
+            elif (lr > lf) != (rcpu[1][i] > fc[1][i]):
+                return (f"row {k}: the runs took different orientations",
+                        exempt, n_rep)
+            elif (rq if lr > lf else fq)[i]:
+                exempt += 1
+            else:
+                n = int((rb if lr > lf else fb)[i].sum())
+                n_rep += n
+                d = int(np.abs(boot_a[k] - boot_b[k]).max())
+                same = (boot_a[k] >= min_boot) == (boot_b[k] >= min_boot)
+                if d > n:
+                    return (f"row {k}: boot counts {boot_a[k].tolist()} vs "
+                            f"{boot_b[k].tolist()} with {n} replicates "
+                            f"within the margin", exempt, n_rep)
+                if differ(tax_a[k][same], tax_b[k][same]):
+                    return (f"row {k}: tax {tax_a[k].tolist()} vs "
+                            f"{tax_b[k].tolist()}", exempt, n_rep)
+                if (sp_a is not None and not differ(tax_a[k], tax_b[k])
+                        and differ(sp_a[k], sp_b[k])):
+                    return (f"row {k}: species {sp_a[k].tolist()} vs "
+                            f"{sp_b[k].tolist()}", exempt, n_rep)
+            k += 1
+    return None, exempt, n_rep
 
 
 def synthetic_train_set(rng, path, ngenus=3000, per_genus=4):
@@ -879,7 +1035,7 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
     # 15. the workflow's two ends. (a) the DADA2 tutorial on sam1/sam2 F+R
     # on the card (filter_and_trim on two spawned processes), held against
     # the port on the CPU (filtering in this process: the files must not
-    # depend on it)
+    # depend on it; the card's ASVs classified)
     from dada2_tpu_torch import taxonomy as tt
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -889,8 +1045,9 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
                                              os.path.join(tmp, "card"), 2)
         n_wf = counts()
         calls_wf = tt._score_batch.calls - calls0
-        wf_cpu, t_wf_cpu = tutorial_workflow(dt, "cpu",
-                                             os.path.join(tmp, "cpu"), False)
+        asv = list(wf_gpu["nochim"].columns)
+        wf_cpu, t_wf_cpu = tutorial_workflow(
+            dt, "cpu", os.path.join(tmp, "cpu"), False, asvs=asv)
         for a, b in zip(wf_gpu["filt"], wf_cpu["filt"]):
             if gunzipped(a) != gunzipped(b):
                 fail(f"filter_and_trim wrote {os.path.basename(a)} "
@@ -900,46 +1057,25 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
         for d in "FR":
             np.testing.assert_array_equal(wf_gpu["errs"][d]["err_out"],
                                           wf_cpu["errs"][d]["err_out"])
-        pd.testing.assert_frame_equal(wf_gpu["seqtab"], wf_cpu["seqtab"])
-        pd.testing.assert_frame_equal(wf_gpu["nochim"], wf_cpu["nochim"])
     except AssertionError as e:
         fail(f"the tutorial workflow differs card vs CPU: {e}")
     if n_wf["B1"] <= 0 or n_wf["B4"] <= 0:
         fail(f"the tutorial workflow did not run through kernels B1 and B4: "
              f"{n_wf}")
     # the scorer card vs CPU on the workflow's ASVs with assign_taxonomy's
-    # own uniforms; the two tables may differ only on rows that hold a
-    # decision within the margin
-    asv = list(wf_gpu["nochim"].columns)
+    # own uniforms, then the two runs' tables row by row
     refs_t, r2g_t, levels_t = tt.load_reference(TRAIN)
     lgk_t = tt._build_lgk(refs_t, r2g_t, len(levels_t))
     on_card, on_cpu = tt.device_lgk(lgk_t, dev), tt.device_lgk(lgk_t, "cpu")
-    exempt, n_ex_q, n_ex_b, n_b = set(), 0, 0, 0
-    for chunk, fwd, u, back, u_rc in score_batches(tt, asv):
-        for karrs, uu in ((fwd, u), (back, u_rc)):
-            err_s, ex_q, ex_b = scores_agree(
-                tt, karrs, lgk_t, uu,
-                tt._score_batch(karrs, on_card, uu, len(levels_t)),
-                tt._score_batch(karrs, on_cpu, uu, len(levels_t)))
-            if err_s:
-                fail(f"the taxonomy scorer differs card vs CPU on the "
-                     f"workflow's ASVs: {err_s}")
-            n_ex_q += int(ex_q.sum())
-            n_ex_b += int(ex_b.sum())
-            n_b += ex_b.size
-            exempt |= {chunk[i] for i in
-                       np.nonzero(ex_q | ex_b.any(axis=1))[0]}
+    held = scored_both(tt, asv, lgk_t, on_card, on_cpu, "the workflow's ASVs")
     del on_card
-    keep = [s for s in asv if s not in exempt]
-    try:
-        for key in ("tax", "boot"):
-            pd.testing.assert_frame_equal(wf_gpu["taxa"][key].loc[keep],
-                                          wf_cpu["taxa"][key].loc[keep])
-        pd.testing.assert_frame_equal(wf_gpu["species"].loc[keep],
-                                      wf_cpu["species"].loc[keep])
-    except AssertionError as e:
-        fail(f"assign_taxonomy/add_species differ card vs CPU outside the "
-             f"margin: {e}")
+    err_t, ex_rows, n_rep = tax_rows_agree(
+        held, wf_gpu["taxa"], wf_cpu["taxa"], wf_gpu["species"],
+        wf_cpu["species"])
+    if err_t:
+        fail(f"assign_taxonomy/add_species differ card vs CPU: {err_t}")
+    n_ex_b = sum(int(s[1].sum()) for _, sides in held for s in sides)
+    n_b = sum(s[1].size for _, sides in held for s in sides)
     same_all = all(wf_gpu["taxa"][k].equals(wf_cpu["taxa"][k])
                    for k in ("tax", "boot"))
     tax_wf = wf_gpu["taxa"]["tax"]
@@ -948,15 +1084,18 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
         f"{wf_gpu['track'].values.tolist()}; table {wf_gpu['seqtab'].shape},"
         f" without bimeras {wf_gpu['nochim'].shape}; genera assigned "
         f"{int(tax_wf['Genus'].notna().sum())} of {len(tax_wf)}, species "
-        f"{int(wf_gpu['species']['Species'].notna().sum())}; filtered files, "
-        f"error matrices and tables identical card vs CPU; scorer card == "
-        f"CPU with {n_ex_q} queries and {n_ex_b} of {n_b} bootstrap "
-        f"replicates exempt by the margin ({len(exempt)} of {len(asv)} "
-        f"rows), taxonomy tables "
-        f"{'identical' if same_all else 'equal outside the exempt rows'}; "
-        f"card launches {n_wf}, scorer calls {calls_wf}")
-    log("[tutorial] stage wall seconds, card / CPU: " + ", ".join(
-        f"{k} {t_wf_gpu[k]:.3f} / {t_wf_cpu[k]:.3f}" for k in t_wf_gpu)
+        f"{int(wf_gpu['species']['Species'].notna().sum())}; filtered files "
+        f"and error matrices identical card vs CPU; scorer card == CPU "
+        f"with {n_ex_b} of {n_b} bootstrap replicates (both orientations) "
+        f"within the margin; taxonomy and species tables held row by row: "
+        f"{ex_rows} of {len(asv)} rows exempt whole, {n_rep} replicates "
+        f"within the margin on the rows held, tables "
+        f"{'identical' if same_all else 'equal as held'}; card launches "
+        f"{n_wf}, scorer calls {calls_wf}")
+    log("[tutorial] stage wall seconds, card / CPU (the CPU run classifies "
+        "the card's ASVs): " + ", ".join(
+            f"{k} {t:.3f} / " + (f"{t_wf_cpu[k]:.3f}" if k in t_wf_cpu
+                                 else "-") for k, t in t_wf_gpu.items())
         + f"; total {sum(t_wf_gpu.values()):.2f} / "
         f"{sum(t_wf_cpu.values()):.2f}; card {card}")
 
@@ -983,6 +1122,12 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
         n15 = counts()
         peak15 = torch.cuda.max_memory_allocated()
         phases15 = dt.PHASES.as_dict()
+        # the driver on the CPU for the first batch: the same seed draws
+        # the same uniforms for it
+        t0 = time.time()
+        cpu15 = dt.assign_taxonomy(queries[:256], fa, tryRC=True,
+                                   outputBootstraps=True, device="cpu")
+        t_cpu15 = time.time() - t0
         refs_s, r2g_s, levels_s = tt.load_reference(fa)
     G15 = len(levels_s)
     lgk15 = tt._build_lgk(refs_s, r2g_s, G15)
@@ -996,6 +1141,7 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
     if any(n15.values()):
         fail(f"assign_taxonomy launched an alignment kernel: {n15}")
     lgk15_dev = tt.device_lgk(lgk15, dev)
+    lgk15_cpu = tt.device_lgk(lgk15, "cpu")
     chunk, fwd, u, back, u_rc = score_batches(tt, queries[:256])[0]
     call_ms = cuda_ms(lambda: tt._score_batch(fwd, lgk15_dev, u, G15), 3)
     # the device work alone, on inputs already on the card (this process's
@@ -1009,20 +1155,29 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
                 torch.tensor([len(a) for a in fwd], dtype=torch.int32,
                              device=dev), u.to(dev), lgk15_dev, 1 << 27)
     dev_ms = cuda_ms(lambda: tt._score_device(*dev_args), 3)
-    got = tt._score_batch(fwd, lgk15_dev, u, G15)
     t0 = time.time()
-    want = tt._score_batch(fwd, tt.device_lgk(lgk15, "cpu"), u, G15)
+    tt._score_batch(fwd, lgk15_cpu, u, G15)
     cpu_ms = (time.time() - t0) * 1e3
-    err_s, ex_q, ex_b = scores_agree(tt, fwd, lgk15, u, got, want)
-    if err_s:
-        fail(f"the taxonomy scorer differs card vs CPU at 3,000 genera: "
-             f"{err_s}")
-    # the least time for one batch: the two float32 products as computed
-    # (the dense count product and the bootstrap product over the batch's
-    # longest k-mer array A) at 67 TFLOP/s, or lgk, the k-mer arrays and
-    # uniforms read once and the three outputs written once at 3.35 TB/s
+    # the first batch's decisions card vs CPU, then the two runs' tables
+    held15 = scored_both(tt, queries[:256], lgk15, lgk15_dev, lgk15_cpu,
+                         "3,000 genera")
+    del lgk15_cpu
+    card15 = {k: res15[k].iloc[:256] for k in ("tax", "boot")}
+    err_t, ex_rows15, n_rep15 = tax_rows_agree(held15, card15, cpu15)
+    if err_t:
+        fail(f"assign_taxonomy at 3,000 genera differs card vs CPU: "
+             f"{err_t}")
+    ex_q, ex_b = held15[0][1][0][:2]
+    # the least time for one batch: the additions its data needs (each
+    # read's k-mers' genus scores summed, sum(alen)·G, and each
+    # replicate's m drawn k-mers', NBOOT·sum(m)·G; the dense products
+    # the torch ops run do ~55x more) at 67 TFLOP/s, or lgk, the k-mer
+    # arrays and uniforms read once and the three outputs written once at
+    # 3.35 TB/s
     q15 = len(fwd)
-    flops = 2 * q15 * tt.N_KMERS * G15 + 2 * q15 * tt.NBOOT * A15 * G15
+    alens = np.array([len(a) for a in fwd], np.int64)
+    flops = G15 * int(alens.sum() + tt.NBOOT * np.maximum(alens // 8,
+                                                          1).sum())
     nbytes = (lgk15.nbytes + q15 * A15 * 8 + u.numel() * 4
               + q15 * (8 + 4 + tt.NBOOT * 8))
     bound_sc = max(flops / 67e12, nbytes / 3.35e12) * 1e3
@@ -1038,8 +1193,11 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
         f"events), CPU "
         f"{cpu_ms:.1f} ms; bound {bound_sc:.4f} ms by {by_sc} "
         f"({flops} flop, {nbytes} bytes); card == CPU with {int(ex_q.sum())}"
-        f" queries and {int(ex_b.sum())} of {ex_b.size} replicates exempt "
-        f"by the margin; card {card}")
+        f" queries and {int(ex_b.sum())} of {ex_b.size} replicates (forward)"
+        f" within the margin; assign_taxonomy's first 256 rows card vs CPU "
+        f"({t_cpu15:.2f}s) held row by row: {ex_rows15} rows exempt whole, "
+        f"{n_rep15} replicates within the margin on the rows held; card "
+        f"{card}")
     del lgk15_dev, dev_args
     return [dict(
         name="taxonomy scorer (_score_batch)", route="torch ops",

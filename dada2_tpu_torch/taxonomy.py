@@ -245,62 +245,6 @@ def load_reference(refFasta: str):
     return refs, ref_to_genus, genus_levels
 
 
-def decision_margins(karrays: List[np.ndarray], lgk, u, runs=()):
-    """How clear _score_batch's decisions are, in float64 on the host.
-
-    lgk [ngenus, 65536] and u as given to _score_batch; runs: its results
-    (best, best_logp, boot winners) on those inputs. Returns (qm, bm,
-    gaps): the relative top-two margins (top - second) / |top| of each
-    query's best genus [q] and each bootstrap replicate's [q, NBOOT] (inf
-    for one genus), and for each run the relative gaps of its picks below
-    the top, ([q], [q, NBOOT]). Two float32 runs that sum in different
-    orders (the card and the CPU, or this package and dada2_tpu) can pick
-    different genera only where a margin is within their rounding (a
-    replicate whose genera tie exactly goes to whichever sum rounds up);
-    a right run's gaps are all within it."""
-    lgk = np.asarray(lgk, np.float32)
-    u = np.asarray(u, np.float32)
-    q = len(karrays)
-    A = max(max((len(a) for a in karrays), default=1), 8)
-
-    def rel(sc):
-        if sc.shape[-1] < 2:
-            return np.full(sc.shape[:-1], np.inf)
-        top2 = np.partition(sc, -2, axis=-1)[..., -2:]
-        return (top2[..., 1] - top2[..., 0]) / np.abs(top2[..., 1])
-
-    def gap(sc, pick):
-        top = sc.max(axis=-1)
-        got = np.take_along_axis(sc, pick[..., None], axis=-1)[..., 0]
-        return (top - got) / np.maximum(np.abs(top), 1e-300)
-
-    qm = np.empty(q)
-    bm = np.empty((q, NBOOT))
-    gaps = [(np.empty(q), np.empty((q, NBOOT))) for _ in runs]
-    for i, a in enumerate(karrays):
-        a = np.asarray(a, np.int64)
-        n = len(a)
-        lg = lgk[:, a].astype(np.float64)                  # [G, n]
-        sc = lg.sum(axis=1)
-        qm[i] = rel(sc[None, :])[0] if n else np.inf
-        # the scorer's positions: trunc(f32(u * alen)), clipped
-        pos = np.clip((u[i] * np.float32(n)).astype(np.int32), 0, A - 1)
-        m = max(n // 8, 1)
-        S = np.zeros((NBOOT, A), np.float64)
-        np.add.at(S, (np.repeat(np.arange(NBOOT), m),
-                      pos[:, :m].reshape(-1)), 1.0)
-        lgp = np.zeros((A, lg.shape[0]))
-        lgp[:n] = lg.T
-        lgp[n:] = lgk[:, 0].astype(np.float64)[None, :]    # pad k-mer 0
-        bs = S @ lgp
-        bm[i] = rel(bs)
-        for (gq, gb), run in zip(gaps, runs):
-            gq[i] = gap(sc[None, :],
-                        np.asarray(run[0], np.int64)[i: i + 1])[0]
-            gb[i] = gap(bs, np.asarray(run[2], np.int64)[i])
-    return qm, bm, gaps
-
-
 def device_lgk(lgk, device=None) -> torch.Tensor:
     """lgk [ngenus, 65536] (numpy or tensor, e.g. dada2_tpu's own table) as
     the scorer holds it on the device: transposed, [65536, ngenus]

@@ -4,10 +4,11 @@ torch ops on the CPU) against dada2_tpu.taxonomy.
 The host parts (fasta parsing, k-mer arrays, the lgk table, species
 matching) must be identical. The scorer is fed dada2_tpu's own lgk and
 jax's own uniforms: the best genus and every bootstrap winner must then
-agree wherever the decision's top-two margin (taxonomy.decision_margins,
-in float64) exceeds 1e-4 of the score; the two float32 products sum in
-different orders, so a decision within that margin (a genus tie) may go
-either way, but each run's pick must still score within 1e-4 of the top.
+agree wherever the decision's top-two margin (in float64, from
+chip_smoke.decision_margins) exceeds 1e-4 of the score; the two float32
+products sum in different orders, so a decision within that margin (a
+genus tie) may go either way, but each run's pick must still score within
+1e-4 of the top.
 Exempted decisions are counted and printed."""
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import pandas as pd
 import pytest
 import torch
 
+import chip_smoke
 import dada2_tpu as dj
 import dada2_tpu_torch as dt
 from dada2_tpu import taxonomy as tj
@@ -84,7 +86,7 @@ def test_score_batch_matches_jax(name, extdata, train, asvs):
     jb, jl, jbb = tj._score_batch(karrs, jnp.asarray(lgk), key, G)
     tb, tl, tbb = tt._score_batch(karrs, tt.device_lgk(lgk, "cpu"), u, G)
     np.testing.assert_allclose(tl, np.asarray(jl), rtol=1e-5)
-    qm, bm, gaps = tt.decision_margins(
+    qm, bm, gaps = chip_smoke.decision_margins(
         karrs, lgk, u, runs=[(tb, tl, tbb), (jb, jl, jbb)])
     ok_q, ok_b = qm > REL, bm > REL
     np.testing.assert_array_equal(tb[ok_q], np.asarray(jb)[ok_q])
@@ -155,6 +157,27 @@ def test_assign_species_and_add_species(extdata, asvs, kw):
     assert not tt.match_genera(None, "Bacillus")
 
 
+def test_tax_rows_agree_holds_each_row(extdata, train):
+    """chip_smoke's card-vs-CPU check of assign_taxonomy's tables, here
+    on two CPU runs: equal runs pass with no row exempt; a boot count or
+    a tax cell changed on a row outside the margin fails."""
+    _, qs = tj.read_fasta(str(extdata / "example_seqs.fa"))
+    kw = dict(tryRC=True, outputBootstraps=True, device="cpu")
+    a = dt.assign_taxonomy(qs, str(extdata / TRAIN), **kw)
+    b = dt.assign_taxonomy(qs, str(extdata / TRAIN), **kw)
+    on_cpu = tt.device_lgk(train["lgk"], "cpu")
+    held = chip_smoke.scored_both(tt, qs, train["lgk"], on_cpu, on_cpu,
+                                  "example_seqs")
+    err, exempt, _ = chip_smoke.tax_rows_agree(held, a, b)
+    assert err is None and exempt == 0
+    for key, col, value in (("boot", 5, 2), ("tax", 0, "Archaea")):
+        bad = {k: v.copy() for k, v in b.items()}
+        cell = bad[key].iloc[0, col]
+        bad[key].iloc[0, col] = cell + value if key == "boot" else value
+        err, _, _ = chip_smoke.tax_rows_agree(held, a, bad)
+        assert err is not None and err.startswith("row 0")
+
+
 def test_scorer_products_run_without_tf32(extdata, train, monkeypatch):
     """TF32 is off during both products (their f32 values feed argmaxes)
     and the caller's setting comes back afterwards."""
@@ -203,8 +226,8 @@ def test_score_batch_card_matches_cpu(extdata, train, asvs):
     u = tt.boot_uniforms(karrs, torch.Generator().manual_seed(1))
     cpu = tt._score_batch(karrs, tt.device_lgk(train["lgk"], "cpu"), u, G)
     gpu = tt._score_batch(karrs, tt.device_lgk(train["lgk"], "cuda"), u, G)
-    qm, bm, gaps = tt.decision_margins(karrs, train["lgk"], u,
-                                       runs=[gpu, cpu])
+    qm, bm, gaps = chip_smoke.decision_margins(karrs, train["lgk"], u,
+                                               runs=[gpu, cpu])
     np.testing.assert_allclose(gpu[1], cpu[1], rtol=1e-5)
     np.testing.assert_array_equal(gpu[0][qm > REL], cpu[0][qm > REL])
     np.testing.assert_array_equal(gpu[2][bm > REL], cpu[2][bm > REL])
