@@ -118,7 +118,32 @@ Phases (any failure exits non-zero and prints no result line):
                calls, genus accuracy, lgk bytes, peak device memory), then
                one batch of 256 reads: the call's time and its device
                work's alone (CUDA events), the CPU's time, the bound, and
-               card against CPU as in (a).
+               card against CPU as in (a);
+ 16. dist    — multi-device and multi-process runs on the one card:
+               (a) 8 simulated MiSeq samples of 15,000 reads (phase 5's
+               120,000 in all; sam1F's ASVs, their own seeds and abundance
+               profiles) through dada(selfConsist=True) meshless and with
+               mesh=make_mesh(devices=[cuda:0] * 2, samples=2): err_out,
+               trans, denoised, clustering and map bitwise equal, B1
+               launches equal; (b) phase 5's sample meshless and under
+               use_mesh(make_mesh(devices=[cuda:0] * 2)) (each compare
+               sweep's B1 blocks split over two shards): both bitwise
+               equal to phase 5's result, B1 launches doubled; B1's time
+               at phase 5's bucket and at one shard of it; (c) two
+               processes (this script with --dist-child) sharing the card
+               under torch.distributed's gloo (NCCL refuses two ranks on
+               one card), 4 of (a)'s samples each, mesh from pod_mesh:
+               selfConsist, pool=True and pool="pseudo" equal to one
+               process (every sample's denoised and map, err_out; trans
+               for selfConsist), each cross-process tally's time per call;
+               then a one-process NCCL group: accumulate_trans_global on
+               the card equal to accumulate_trans; (d)
+               build_compare_and_tally over two shards of the card (B4
+               once per shard) at dryrun_multichip's shapes and at 2
+               samples x 4,096 uniques x L 250, band 16, against its plain
+               version on two CPU shards (ham and counts bitwise, loglam
+               within rtol = atol = 1e-6), then dryrun_multichip(8) on the
+               card. Walls, launches and times printed on [dist] lines.
 It prints one {"device_stages": [...]} line (the taxonomy scorer, torch
 ops, not a hand-written kernel), one {"kernels": [...]} line and, last,
 {"ok": true, ...}.
@@ -1209,6 +1234,374 @@ def workflow_ends(dt, dev, card, reset_launches, counts):
         wall_s=wall15, stages_s=phases15)]
 
 
+# ---- phase 16: multi-device and multi-process runs -------------------------
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_sample(a, b, what, trans=True):
+    """One sample's dada results bitwise: err_out, trans, denoised,
+    clustering and map."""
+    import numpy as np
+    import pandas as pd
+
+    np.testing.assert_array_equal(a.err_out, b.err_out, err_msg=what)
+    if trans:
+        np.testing.assert_array_equal(a.trans, b.trans, err_msg=what)
+    if a.denoised != b.denoised:
+        raise AssertionError(f"{what}: denoised differ")
+    pd.testing.assert_frame_equal(a.clustering, b.clustering, obj=what)
+    np.testing.assert_array_equal(a.map, b.map, err_msg=what)
+
+
+def dist_child(rank: int, port: int, workdir: str) -> None:
+    """Phase 16c's child: one of two processes sharing cuda:0 under gloo
+    (NCCL refuses two ranks on one card), driving its 4 of the 8 samples
+    through dada(mesh=pod_mesh) in selfConsist, pool=True and
+    pool="pseudo"; each cross-process tally's time is recorded. Writes
+    its results to workdir/rank{rank}.pkl."""
+    import pickle
+
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, ROOT)
+    import dada2_tpu_torch as dt
+    from dada2_tpu_torch.ops import nw_wavefront as nww
+    from dada2_tpu_torch.parallel import dist as pdist
+
+    pdist.init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    with open(os.path.join(workdir, "samples.pkl"), "rb") as fh:
+        names, samples, err, device = pickle.load(fh)
+    mesh = pdist.pod_mesh(devices=[device])
+    mine = {n: samples[n] for n in names[4 * rank: 4 * rank + 4]}
+    collective = pdist.accumulate_trans_global
+    seconds = []
+
+    def timed_collective(local, m):
+        t0 = time.perf_counter()
+        out = collective(local, m)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    pdist.accumulate_trans_global = timed_collective
+    out = {"mesh": repr(mesh)}
+    tallies = []
+    for mode, kw in (("selfconsist", dict(err=None, selfConsist=True)),
+                     ("pool", dict(err=err, pool=True)),
+                     ("pseudo", dict(err=err, pool="pseudo"))):
+        seconds.clear()
+        before = nww.nw_wavefront.launches["B1"]
+        tdist.barrier()
+        t0 = time.time()
+        res = dt.dada(mine, mesh=mesh, verbose=False, **kw)
+        if mesh.devices[0, 0].device.type == "cuda":
+            torch.cuda.synchronize()
+        out[mode] = dict(
+            wall=time.time() - t0, collective_s=list(seconds),
+            b1=nww.nw_wavefront.launches["B1"] - before,
+            results={n: (r.denoised, r.map, r.err_out, r.clustering,
+                         r.trans) for n, r in res.items()})
+        if mode == "selfconsist":
+            tallies = [r.trans for r in res.values()]
+    # the collective alone: both ranks enter together (a barrier first)
+    steady = []
+    for _ in range(20):
+        tdist.barrier()
+        t0 = time.perf_counter()
+        collective(tallies, mesh)
+        steady.append(time.perf_counter() - t0)
+    out["steady_s"] = steady
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    tdist.destroy_process_group()
+
+
+def distributed_phase(dt, dev, card, reset_launches, counts, asvs, err,
+                      sim, res5, n_b1_5, b1_args, b1_geom,
+                      reads_per_sample=15_000, uniques_16d=4096):
+    """Phase 16: dada(mesh=) over mesh entries on the one card (16a), a
+    compare sweep's blocks sharded by use_mesh (16b), two processes
+    sharing the card (16c), and build_compare_and_tally (16d). Fails on
+    any difference; returns phase 16's launches of B1 and B4 by run."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dada2_tpu_torch import parallel
+    from dada2_tpu_torch.encode import pack_sequences
+    from dada2_tpu_torch.ops import nw_batch as nwb
+    from dada2_tpu_torch.ops import nw_wavefront as nww
+    from dada2_tpu_torch.parallel import dist as pdist
+
+    launches = {"B1": {}, "B4": {}}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n = counts()
+        launches["B1"][label] = n["B1"]
+        launches["B4"][label] = n["B4"]
+        log(f"[dist] {label}: {wall:.3f}s wall, launches B1 {n['B1']}, "
+            f"B4 {n['B4']}")
+        return out, wall, n
+
+    # 16a. the samples axis: 8 simulated MiSeq samples of 15,000 reads
+    # (phase 5's 120,000 in all) from sam1F's ASVs under their own seeds
+    # and abundance profiles, meshless, then with a (2, 1) mesh of two
+    # entries of the one card
+    seqs, quals, ab0 = asvs
+    t0 = time.time()
+    samples = {}
+    for k in range(8):
+        prof = ab0 * np.exp(np.random.default_rng(200 + k).normal(
+            0.0, 1.0, len(ab0)))
+        samples[f"s{k}"] = simulate_sample(
+            np.random.default_rng(100 + k), dt.Derep, pack_sequences, seqs,
+            prof, quals, err, reads_per_sample, f"s{k}")
+    names = list(samples)
+    log(f"[dist] 16a: 8 samples x {reads_per_sample} reads, "
+        f"{[len(samples[n].uniques) for n in names]} uniques, simulated "
+        f"in {time.time() - t0:.1f}s")
+    base, wall_a0, n_a0 = run("16a meshless", lambda: dt.dada(
+        samples, err=None, selfConsist=True, device=dev, verbose=False))
+    mesh_a = pdist.make_mesh(devices=[dev, dev], samples=2)
+    dt.PHASES.reset()
+    meshed, wall_a1, n_a1 = run("16a mesh (2, 1)", lambda: dt.dada(
+        samples, err=None, selfConsist=True, mesh=mesh_a, verbose=False))
+    trans_mesh = dt.PHASES.summary()
+    try:
+        for n in names:
+            same_sample(base[n], meshed[n], f"16a {n}")
+    except AssertionError as e:
+        fail(f"16a: dada(mesh=) differs from the meshless run: {e}")
+    rounds_a = len(base[names[0]].err_in)
+    tallies_a = [meshed[n].trans for n in names]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        summed = pdist.accumulate_trans_mesh(mesh_a, tallies_a)
+    ms_mesh = (time.perf_counter() - t0) / 20 * 1e3
+    if not np.array_equal(summed, dt.accumulate_trans(tallies_a)):
+        fail("16a: accumulate_trans_mesh differs from accumulate_trans")
+    if n_a0["B1"] <= 0 or n_a1["B1"] != n_a0["B1"]:
+        fail(f"16a: B1 launches {n_a0['B1']} meshless, {n_a1['B1']} on "
+             "the mesh (the samples axis must launch the same sweeps)")
+    log(f"[dist] 16a: {rounds_a} rounds, "
+        f"{[len(base[n].denoised) for n in names]} ASVs; err_out, trans, "
+        f"denoised, clustering and map identical; walls meshless "
+        f"{wall_a0:.3f}s, mesh {wall_a1:.3f}s; accumulate_trans_mesh "
+        f"{ms_mesh:.3f} ms per call (8 tallies); phases on the mesh: "
+        f"{trans_mesh}; card {card}")
+
+    # 16b. the pairs axis: phase 5's sample with every compare sweep's
+    # blocks sharded over two entries of the card (use_mesh), against a
+    # meshless run right before it and phase 5's result
+    res_b0, wall_b0, n_b0 = run("16b meshless", lambda: dt.dada(
+        sim, err=None, selfConsist=True, verbose=False))
+    parallel.use_mesh(pdist.make_mesh(devices=[dev, dev], samples=1))
+    try:
+        res_b1, wall_b1, n_b1 = run("16b pairs mesh (1, 2)", lambda: dt.dada(
+            sim, err=None, selfConsist=True, verbose=False))
+    finally:
+        parallel.use_mesh(None)
+    try:
+        same_sample(res5, res_b0, "16b meshless vs phase 5")
+        same_sample(res5, res_b1, "16b pairs mesh vs phase 5")
+    except AssertionError as e:
+        fail(f"16b: the pairs-sharded run differs from phase 5's: {e}")
+    if n_b0["B1"] != n_b1_5 or n_b1["B1"] != 2 * n_b1_5:
+        fail(f"16b: B1 launches {n_b0['B1']} meshless, {n_b1['B1']} "
+             f"sharded; phase 5 had {n_b1_5} (sharded must double)")
+    nb = b1_args[0].shape[0]
+    half = (nb + 1) // 2
+    shard = (b1_args[0][:half], b1_args[1][:half], b1_args[2],
+             b1_args[3][:half].contiguous())
+    got = nww.nw_compare(*shard, **b1_geom)
+    e_sh = max_abs_diff(got, nww.nw_wavefront_ref(*shard, **b1_geom))
+    if e_sh != 0:
+        fail("kernel B1 disagrees with its plain version at shard size")
+    ms_full = cuda_ms(lambda: nww.nw_compare(*b1_args, **b1_geom), 20)
+    ms_half = cuda_ms(lambda: nww.nw_compare(*shard, **b1_geom), 20)
+    P_half = nww.pairs_per_block(b1_geom["L1R"], b1_geom["L2R"],
+                                 b1_geom["NDP"], b1_geom["WP"], 1, half)
+    log(f"[dist] 16b: identical to phase 5; B1 launches {n_b0['B1']} -> "
+        f"{n_b1['B1']}; walls meshless {wall_b0:.3f}s, sharded "
+        f"{wall_b1:.3f}s; B1 at phase 5's timed bucket {nb} blocks "
+        f"{ms_full:.4f} ms, one shard ({half} blocks, P={P_half}) "
+        f"{ms_half:.4f} ms per launch; max |kernel - plain| = {e_sh}; card "
+        f"{card}")
+
+    # 16c. two processes sharing the card (gloo), 4 samples each, against
+    # one process: selfConsist (16a's meshless run), pool=True and
+    # pool="pseudo" (run here meshless)
+    pooled, wall_p, _ = run("16c one process, pool=True", lambda: dt.dada(
+        samples, err=err, pool=True, device=dev, verbose=False))
+    pseudo, wall_q, _ = run("16c one process, pool=pseudo", lambda: dt.dada(
+        samples, err=err, pool="pseudo", device=dev, verbose=False))
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        with open(os.path.join(work, "samples.pkl"), "wb") as fh:
+            pickle.dump((names, samples, err, str(dev)), fh)
+        port = free_port()
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-child",
+             str(r), str(port), work], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall_c = time.time() - t0
+        for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"16c: rank {r} exited {p.returncode}: {se[-3000:]}")
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    refs = {"selfconsist": base, "pool": pooled, "pseudo": pseudo}
+    walls = {"selfconsist": wall_a0, "pool": wall_p, "pseudo": wall_q}
+    for mode, ref in refs.items():
+        got = {}
+        for r, rk in enumerate(ranks):
+            mine = names[4 * r: 4 * r + 4]
+            if sorted(rk[mode]["results"]) != sorted(mine):
+                fail(f"16c {mode}: rank {r} returned "
+                     f"{sorted(rk[mode]['results'])}, not its own {mine}")
+            got.update(rk[mode]["results"])
+        for n in names:
+            den, mp, eo, cl, tr = got[n]
+            if (den != ref[n].denoised or not np.array_equal(mp, ref[n].map)
+                    or not np.array_equal(eo, ref[n].err_out)):
+                fail(f"16c {mode}: sample {n} differs from one process")
+            if mode == "selfconsist" and not np.array_equal(
+                    tr, ref[n].trans):
+                fail(f"16c selfconsist: sample {n}'s trans differs")
+        log(f"[dist] 16c {mode}: two processes (gloo, both on {dev}) == "
+            f"one process; walls rank 0 {ranks[0][mode]['wall']:.3f}s, "
+            f"rank 1 {ranks[1][mode]['wall']:.3f}s (one process "
+            f"{walls[mode]:.3f}s); accumulate_trans_global per call, ms: "
+            f"rank 0 "
+            f"{[round(s * 1e3, 3) for s in ranks[0][mode]['collective_s']]}"
+            f", rank 1 "
+            f"{[round(s * 1e3, 3) for s in ranks[1][mode]['collective_s']]}"
+            f"; B1 launches {ranks[0][mode]['b1']} + {ranks[1][mode]['b1']}")
+        for r in (0, 1):
+            launches["B1"][f"16c rank {r} {mode}"] = ranks[r][mode]["b1"]
+    steady = [sorted(rk["steady_s"]) for rk in ranks]
+    log(f"[dist] 16c: mesh {ranks[0]['mesh']}; both children {wall_c:.1f}s "
+        f"wall from spawn to exit; accumulate_trans_global alone after a "
+        f"barrier (20 calls), min / median ms: rank 0 "
+        f"{steady[0][0] * 1e3:.3f} / {steady[0][10] * 1e3:.3f}, rank 1 "
+        f"{steady[1][0] * 1e3:.3f} / {steady[1][10] * 1e3:.3f}; card {card}")
+
+    # one-process NCCL: accumulate_trans_global on the card against
+    # accumulate_trans (NCCL between ranks needs one card per rank)
+    import torch.distributed as tdist
+
+    torch.cuda.set_device(dev)
+    pdist.init_distributed(f"localhost:{free_port()}", 1, 0,
+                           backend="nccl")
+    try:
+        rng = np.random.default_rng(9)
+        for label, tallies in (
+                ("16a's tallies", [base[n].trans for n in names]),
+                ("counts of 3e9", [rng.integers(0, 3_000_000_000, (16, 41))
+                                   for _ in range(8)])):
+            pdist.accumulate_trans_global(tallies, None)   # warm-up
+            t0 = time.perf_counter()
+            got = pdist.accumulate_trans_global(tallies, None)
+            t_nccl = time.perf_counter() - t0
+            if not np.array_equal(got, dt.accumulate_trans(tallies)):
+                fail(f"16c: accumulate_trans_global under NCCL differs "
+                     f"from accumulate_trans on {label}")
+            log(f"[dist] 16c NCCL, one process: accumulate_trans_global on "
+                f"{label} == accumulate_trans, {t_nccl * 1e3:.3f} ms")
+    finally:
+        tdist.destroy_process_group()
+
+    # 16d. build_compare_and_tally with two shards of the card (B4 once
+    # per shard) against its plain version on the CPU (two CPU shards):
+    # ham and counts bitwise, loglam to f32 summation order
+    rng = np.random.default_rng(16)
+
+    def realistic(S=2, npairs=uniques_16d, L=250):
+        seqs = np.zeros((S, npairs, L), np.int8)
+        lens = np.zeros((S, npairs), np.int32)
+        for s in range(S):
+            c = rng.integers(0, 4, L).astype(np.uint8)
+            for p in range(npairs):
+                m = c if p == 0 else mutate(rng, c, 8, False)[:L]
+                seqs[s, p, : len(m)] = m
+                lens[s, p] = len(m)
+        quals = rng.integers(10, 41, (S, npairs, L)).astype(np.int32)
+        reads = rng.integers(1, 100, (S, npairs)).astype(np.int32)
+        return seqs, lens, quals, reads
+
+    def dryrun_shaped():
+        r0 = np.random.default_rng(0)
+        seqs = r0.integers(0, 4, (2, 8, 32)).astype(np.int8)
+        lens = np.full((2, 8), 32, np.int32)
+        quals = r0.integers(20, 40, (2, 8, 32)).astype(np.int32)
+        reads = r0.integers(1, 50, (2, 8)).astype(np.int32)
+        return seqs, lens, quals, reads
+
+    logerr = np.log(dt.data.tperr1())
+    mesh_d = pdist.make_mesh(devices=[dev, dev], samples=1)
+    mesh_c = pdist.make_mesh(devices=pdist.cpu_devices(2), samples=1)
+    for label, (seqs, lens, quals, reads) in (
+            ("dryrun shapes (2 x 8 x 32)", dryrun_shaped()),
+            (f"2 samples x {uniques_16d} uniques x L 250", realistic())):
+        S, npairs, L = seqs.shape
+        nd, W = nwb.batch_geometry(np.full(S * npairs, L),
+                                   lens.reshape(-1), 16)
+        kw = dict(match=5, mismatch=-4, gap_p=-8, band=16)
+        args = (seqs[:, 0, :], lens[:, 0], seqs, lens, quals, reads, logerr)
+        step = pdist.build_compare_and_tally(mesh_d, nd, W, 41, **kw)
+        (ham, loglam, tally), _, n_d = run(
+            f"16d build_compare_and_tally, {label}",
+            lambda: step(*args))
+        ref = pdist.build_compare_and_tally(mesh_c, nd, W, 41, **kw)(*args)
+        ham, loglam, tally = (x.cpu().numpy() for x in (ham, loglam,
+                                                        tally))
+        if (not np.array_equal(ham, ref[0].numpy())
+                or not np.array_equal(tally, ref[2].numpy())):
+            fail(f"16d {label}: ham or counts differ from the plain version")
+        if not np.allclose(loglam, ref[1].numpy(), rtol=1e-6, atol=1e-6):
+            fail(f"16d {label}: loglam differs from the plain version "
+                 f"beyond rtol=atol=1e-6")
+        if n_d["B4"] != 2:
+            fail(f"16d {label}: {n_d['B4']} B4 launches, not one per shard")
+        step_ms = cuda_ms(lambda: step(*args), 5)
+        log(f"[dist] 16d {label}: nd {nd}, W {W}; ham, counts bitwise and "
+            f"loglam within 1e-6 of the plain version (max |diff| "
+            f"{float(np.abs(loglam - ref[1].numpy()).max()):.3g}); "
+            f"B4 launches {n_d['B4']}; step {step_ms:.3f} ms "
+            f"(CUDA events, inputs from the host); card {card}")
+    reset_launches()
+    dr = pdist.dryrun_multichip(8)
+    log(f"[dist] 16d dryrun_multichip(8) on the card: ham {dr[0].shape}, "
+        f"counts sum {int(dr[2].sum())}; launches {counts()['B4']} B4")
+    return launches
+
+
 # ---- main ------------------------------------------------------------------
 
 def main() -> None:
@@ -1511,6 +1904,11 @@ def main() -> None:
     rows = {"B1": dict(launches=n_b1, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        pairs_per_block=P)}
+    # what phase 16 runs again: the sample, its result and launches, the
+    # timed bucket, and the ASVs it was simulated from
+    p5 = dict(sim=sim, res5=res, n_b1_5=n_b1, b1_args=args, b1_geom=geom,
+              err=err, asvs=(res_gpu.sequence, res_gpu.quality, np.array(
+                  [res_gpu.denoised[s] for s in res_gpu.sequence], float)))
     # B1 at one block of those inputs, and at samPB's geometry (BAND_SIZE
     # 32: the center is the most abundant unique)
     one = (args[0][:1], args[1][:1], args[2], args[3][:1].contiguous())
@@ -2182,6 +2580,10 @@ def main() -> None:
                       shift_bound_ms=bound_s)
 
     stages = workflow_ends(dt, dev, card, reset_launches, counts)
+    launches16 = distributed_phase(dt, dev, card, reset_launches, counts,
+                                   **p5)
+    for k in ("B1", "B4"):
+        rows[k]["launches_phase16"] = launches16[k]
 
     wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",
             "dada2_tpu/ops/nw_pallas.py:452")
@@ -2203,4 +2605,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-child"]:
+        dist_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -15,8 +15,10 @@ remove_bimera_denovo (chimera removal through the kernel's pairs mode) ->
 is_shift_denovo; and the workflow's two ends: filter_and_trim,
 remove_primers and derep_fasta before dada (host code), assign_taxonomy
 (its scorer in torch ops on the card), assign_species and add_species
-after it, with the diagnostics, plots and reference-database builders.
-Not yet: dada(mesh=) across several cards (parallel/).
+after it, with the diagnostics, plots and reference-database builders;
+and multi-device and multi-process runs (parallel/: dada(mesh=) over a
+mesh's devices, a compare sweep's blocks sharded by use_mesh, the
+collectives on torch.distributed).
 """
 # Allocator policy first: large numpy temporaries must reuse heap pages
 # (see utils/hostmem.py).

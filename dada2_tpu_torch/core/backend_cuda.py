@@ -134,11 +134,13 @@ def _i16col(x):
 def _fused_align_base(scal, params, sels, perm, l2max, center, seqs, lens,
                       s2q, inv, kmers, kords, thr, *, wps, L1R, L2R, NDP,
                       match, mismatch, gap_p, gapless_on=True,
-                      sse_lt1=False):
+                      sse_lt1=False, shard_devs=None):
     """Error-matrix-independent half of the compare sweep vs one center
     (counterpart of backend_tpu._fused_align_base): k-mer screens, one
-    kernel B1 launch per window bucket, and elementwise reassembly in
-    original row order. thr[d] is the smallest minsum not shrouded at
+    kernel B1 launch per window bucket (per bucket and pairs shard when
+    shard_devs lists a mesh's pairs devices: each shard's blocks launch
+    on its device, the outputs come back in shard order), and
+    elementwise reassembly in original row order. thr[d] is the smallest minsum not shrouded at
     k-mer denominator d, reproducing the host's f64 rule
     ``1.0 - minsum/denom > cutoff`` exactly (reference:
     src/cluster.cpp:90-130).
@@ -159,11 +161,15 @@ def _fused_align_base(scal, params, sels, perm, l2max, center, seqs, lens,
     s1t = s1t[:, None].expand(L1R, LANES).contiguous()
     outs = ([], [], [])
     for WP, sel in zip(wps, sels):
-        out = nww.nw_compare(scal[sel], params[sel], s1t, s2q[sel], L1R=L1R,
-                             L2R=L2R, NDP=NDP, WP=WP, match=match,
-                             mismatch=mismatch, gap_p=gap_p)
-        for k in range(3):
-            outs[k].append(out[k])
+        shards = ([(dev, sel)] if not shard_devs else
+                  zip(shard_devs, torch.tensor_split(sel, len(shard_devs))))
+        for sdev, ssel in shards:
+            out = nww.nw_compare(
+                scal[ssel].to(sdev), params[ssel].to(sdev), s1t.to(sdev),
+                s2q[ssel].to(sdev), L1R=L1R, L2R=L2R, NDP=NDP, WP=WP,
+                match=match, mismatch=mismatch, gap_p=gap_p)
+            for k in range(3):
+                outs[k].append(out[k].to(dev))
     sub_blocks = torch.cat(outs[0])[perm]
     mapq_blocks = torch.cat(outs[1])[perm]
     end_blocks = torch.cat(outs[2])[perm]
@@ -331,7 +337,25 @@ class CudaBackend(CompareBackend):
     ALIGN_CACHE_BYTES = 16 * 1024 ** 3
 
     def __init__(self, rawset: RawSet, use_quals: bool = True,
-                 device=None):
+                 device=None, mesh=None):
+        """device: the torch device this backend's tensors and compute
+        are pinned to (the samples-axis data parallelism places each
+        sample's backend on its own mesh device); CUDA by default. mesh:
+        shard kernel B1's block grid of every compare sweep over the
+        mesh's "pairs" devices (its first device is then the backend's).
+        The two are mutually exclusive; with neither, the process-wide
+        mesh of parallel.use_mesh applies, if one is set."""
+        if device is not None and mesh is not None:
+            raise ValueError("device and mesh are mutually exclusive")
+        if mesh is None and device is None:
+            from ..parallel import get_mesh
+            mesh = get_mesh()
+        self.mesh = mesh
+        self._shard_devs = None
+        if mesh is not None:
+            from ..parallel.dist import pairs_devices
+            self._shard_devs = pairs_devices(mesh)
+            device = self._shard_devs[0]
         self.rs = rawset
         self.use_quals = use_quals
         self.device = resolve_device(device)
@@ -388,8 +412,8 @@ class CudaBackend(CompareBackend):
             wmax = int(self._pb.block_wp(len1, opts.BAND_SIZE).max())
             NDP, L1R = self._pb.geometry()
             if wmax <= nww.WP_MAX and (
-                    self.device.type == "cpu" or nww.pairs_per_block(
-                        L1R, self._pb.L2R, NDP, wmax) > 0):
+                    self.device.type == "cpu" or self._b1_fits(
+                        L1R, NDP, wmax)):
                 route = "B1"
         if route == "B4" and self.device.type == "cuda":
             nd, W = nwb.batch_geometry(np.full(self.rs.n, len1), self.lens,
@@ -401,6 +425,12 @@ class CudaBackend(CompareBackend):
                     "(its score buffers and sequences exceed shared memory)")
         self._route_cache[key] = route
         return route
+
+    def _b1_fits(self, L1R: int, NDP: int, wmax: int) -> bool:
+        """Whether kernel B1's block holds this window on the backend's
+        card (the fit asks the current CUDA device: make it ours)."""
+        with torch.cuda.device(self.device):
+            return nww.pairs_per_block(L1R, self._pb.L2R, NDP, wmax) > 0
 
     def _kernel_geom(self, len1: int, opts: DadaOptions):
         """(per-block WP, NDP, L1R) for kernel B1 vs a center of length
@@ -510,12 +540,17 @@ class CudaBackend(CompareBackend):
             wps, sels = [], []
             perm = np.empty(pb.nblocks, np.int64)
             pos = 0
+            # on a mesh every pairs shard of a bucket gets a block: a
+            # bucket of fewer blocks than shards repeats its first one
+            # (as dada2_tpu pads; perm never selects the repeats)
+            nshard = len(self._shard_devs) if self._shard_devs else 1
             for w in np.unique(wp):
                 bidx = np.nonzero(wp == w)[0]
-                sels.append(self._put(bidx))
+                pad = np.full(max(0, nshard - len(bidx)), bidx[0], np.int64)
+                sels.append(self._put(np.concatenate([bidx, pad])))
                 wps.append(int(w))
                 perm[bidx] = pos + np.arange(len(bidx))
-                pos += len(bidx)
+                pos += len(bidx) + len(pad)
             prep = (self._put(scal), self._put(params), tuple(sels),
                     self._put(perm), tuple(wps))
             self._prep_cache[pkey] = prep
@@ -528,7 +563,7 @@ class CudaBackend(CompareBackend):
             self._shroud_thr(opts.KDIST_CUTOFF), wps=wps, L1R=L1R,
             L2R=pb.L2R, NDP=NDP, match=opts.MATCH, mismatch=opts.MISMATCH,
             gap_p=opts.GAP_PENALTY, gapless_on=bool(opts.GAPLESS),
-            sse_lt1=opts.SSE < 1)
+            sse_lt1=opts.SSE < 1, shard_devs=self._shard_devs)
         ent = [mapq, tvec, small5, {}]
         self._align_cache[key] = ent
         self._align_cache_bytes += sum(_nbytes(x) for x in ent[:3])

@@ -20,6 +20,7 @@ from .derep import Derep, combine_dereps, derep_fastq, get_derep
 from .encode import is_acgt
 from .errors import accumulate_trans, get_errors, loess_errfun, noqual_errfun
 from .options import DadaOptions, current_options
+from .trace import PHASES
 
 TRANS_ROWNAMES = ["A2A", "A2C", "A2G", "A2T", "C2A", "C2C", "C2G", "C2T",
                   "G2A", "G2C", "G2G", "G2T", "T2A", "T2C", "T2G", "T2T"]
@@ -50,7 +51,9 @@ class DadaResult:
 
 
 def _make_backend(rawset, opts, use_quals, err_ncol, device=None):
-    """The CUDA backend (kernel B1, the vectorized banded aligner).
+    """The CUDA backend (kernel B1, the vectorized banded aligner; B4 for
+    the configurations B1 does not serve). device None takes the
+    process-wide mesh of parallel.use_mesh if one is set, else CUDA.
     OracleBackend remains a test oracle only."""
     return CudaBackend(rawset, use_quals=use_quals, device=device)
 
@@ -69,8 +72,9 @@ def dada_uniques(
 ) -> dict:
     """Run the core engine on one set of uniques.
 
-    device: where the backend computes ("cuda" by default; raises if there
-    is no card unless "cpu" is passed). Ignored when backend is given.
+    device: where the backend computes ("cuda" by default, or the
+    process-wide mesh of parallel.use_mesh; raises if there is no card
+    unless "cpu" is passed). Ignored when backend is given.
 
     reference: src/Rmain.cpp:30-295 (dada_uniques).
     """
@@ -130,18 +134,28 @@ def dada(
     last completed round (SURVEY.md §5.4 — the reference has no native
     checkpointing; its idiom is workflow-level saveRDS).
 
-    mesh: multi-device and multi-host runs are not ported yet (ROADMAP
-    A10); passing one raises NotImplementedError.
+    mesh: optional parallel.dist.Mesh with a ``samples`` axis (make_mesh,
+    pod_mesh) — the multi-device data-parallel mode. Each sample's engine
+    computes on its round-robin-assigned mesh device of this process, and
+    every selfConsist round's 16 x Q transition tally is summed over the
+    mesh's devices (the reduction replacing accumulateTrans, reference:
+    R/errorModels.R:462-471). On a mesh spanning several processes
+    (torch.distributed, see parallel.dist.init_distributed) each process
+    passes and drives its own samples: the tally is all-reduced every
+    round, pooled runs exchange dereplicated summaries, and each process
+    returns its own samples' results. Results are bit-identical to
+    mesh=None over all samples in one process.
 
-    device: torch device every sample's backend computes on; "cuda" by
-    default, which raises if there is no card. Pass "cpu" to run kernel
-    B1's plain PyTorch version on the CPU.
+    device: torch device every sample's backend computes on; by default
+    CUDA, or the process-wide mesh of parallel.use_mesh that shards each
+    compare sweep's blocks; raises if there is no card. Pass "cpu" to run
+    the kernels' plain PyTorch versions on the CPU. Mutually exclusive
+    with mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "dada(mesh=...): multi-device runs are not ported yet "
-            "(ROADMAP A10)")
-    device = resolve_device(device)
+    if mesh is not None and device is not None:
+        raise ValueError("dada(): mesh and device are mutually exclusive")
+    if device is not None:
+        device = resolve_device(device)
     opts = current_options().replace(**opt_overrides)
     verbose = int(verbose)
 
@@ -168,11 +182,22 @@ def dada(
 
     priors = list(priors)
 
+    # --- process topology (multi-process pools need it before combining) ---
+    from .parallel.dist import mesh_processes, process_index, sample_devices
+
+    procs = mesh_processes(mesh) if mesh is not None else [0]
+    multihost = len(procs) > 1
+    if multihost:
+        my_rank = procs.index(process_index())
+    mesh_devs = sample_devices(mesh)
+    if mesh is not None and mesh_devs is None:
+        raise ValueError("the mesh holds no device of this process")
+
     # --- pooling (R/dada.R:186-196) ---
     pseudo = False
     pseudo_priors: List[str] = []
     derep_in = None
-    if len(derep) <= 1:
+    if len(derep) <= 1 and not multihost:
         pool = False
     if isinstance(pool, str):
         if pool == "pseudo":
@@ -182,7 +207,25 @@ def dada(
             raise ValueError("Invalid pool argument.")
     elif pool:
         derep_in = derep
-        derep = [combine_dereps(derep_in)]
+        if multihost:
+            # distributed dedup (SURVEY.md §7 hard-part 7): reads never
+            # leave their process — only each sample's dereplicated
+            # unique summaries are allgathered; every process then builds
+            # the IDENTICAL pooled derep and runs the pooled engine
+            # redundantly, splitting back only its local samples.
+            from .parallel.dist import gather_sample_summaries
+
+            items = [((my_rank << 32) + i, d.name or f"p{my_rank}s{i}",
+                      d.sequences, d.abundances, d.quals)
+                     for i, d in enumerate(derep_in)]
+            gathered = gather_sample_summaries(items)
+            all_drps = [
+                Derep(uniques={s: int(a) for s, a in zip(seqs, ab)},
+                      quals=quals, map=np.zeros(0, np.int64), name=name)
+                for _, name, seqs, ab, quals in gathered]
+            derep = [combine_dereps(all_drps)]
+        else:
+            derep = [combine_dereps(derep_in)]
 
     # --- err validation (R/dada.R:198-205) ---
     initializeErr = False
@@ -255,7 +298,9 @@ def dada(
                 rawset = make_rawset(seqs, drpi.abundances, prior_flags,
                                      drpi.quals if opts.USE_QUALS else None)
                 backends[i] = _make_backend(
-                    rawset, opts, True, erri.shape[1], device=device)
+                    rawset, opts, True, erri.shape[1],
+                    device=(mesh_devs[i % len(mesh_devs)] if mesh_devs
+                            else device))
         res = dada_uniques(
             seqs, drpi.abundances, prior_flags, erri,
             drpi.quals if opts.USE_QUALS else None, opts,
@@ -279,7 +324,16 @@ def dada(
             from .trace import PHASES
             print("   phases: " + PHASES.summary())
 
+    # multi-process mesh: each process passes (and drives) ITS OWN
+    # samples — derep IO is never duplicated across processes. The 16 x Q
+    # tally is reduced globally every round, so the error model (and the
+    # selfConsist stopping decision) is bit-identical on every process;
+    # each returns its own samples' results. With pool=TRUE every process
+    # holds the identical pooled derep (built above), runs the
+    # deterministic pooled engine redundantly, and the tally is NOT
+    # globally summed (it would count the pooled sample once per process).
     own = list(range(len(derep)))
+    redundant_pool = multihost and derep_in is not None
 
     # thread-pool over samples: per-sample engines are independent, and
     # interleaving them overlaps device dispatch/fetch latency with the
@@ -304,7 +358,21 @@ def dada(
             for i, drpi in todo:
                 _one_sample(i, drpi)
 
-        cur = accumulate_trans(trans)
+        if multihost and not redundant_pool:
+            # exact cross-process reduction (one int64 all_reduce)
+            from .parallel.dist import accumulate_trans_global
+
+            with PHASES("dada.trans_global"):
+                cur = accumulate_trans_global([trans[i] for i in own], mesh)
+        elif mesh is not None and not multihost:
+            # reduction over the mesh's devices
+            from .parallel.dist import accumulate_trans_mesh
+
+            with PHASES("dada.trans_mesh"):
+                cur = accumulate_trans_mesh(mesh, trans)
+        else:
+            # meshless, or every process's identical pooled tally
+            cur = accumulate_trans(trans)
 
         from .trace import PHASES as _PH
         if errorEstimationFunction is None:
@@ -332,11 +400,24 @@ def dada(
         if pseudo and nconsist >= 1:
             # prior selection by the prevalence/abundance thresholds the
             # sequence table would apply (R/dada.R:399-401); only the
-            # set of priors matters downstream
+            # set of priors matters downstream. Across processes every
+            # process's per-sample (ASV sequence, abundance) summaries
+            # are allgathered first: identical prior sets everywhere.
+            summaries = [(list(cl["sequence"]), cl["abundance"].to_numpy())
+                         for cl in clustering]
+            if multihost:
+                from .parallel.dist import gather_sample_summaries
+
+                summaries = [
+                    (seqs_g, ab_g) for _, _, seqs_g, ab_g, _ in
+                    gather_sample_summaries(
+                        [((my_rank << 32) + k, f"p{my_rank}s{k}", seqs, ab,
+                          None)
+                         for k, (seqs, ab) in enumerate(summaries)])]
             tot: dict = {}
             nsam: dict = {}
-            for cl in clustering:
-                for s, a in zip(cl["sequence"], cl["abundance"]):
+            for seqs_g, ab_g in summaries:
+                for s, a in zip(seqs_g, ab_g):
                     tot[s] = tot.get(s, 0) + int(a)
                     if a > 0:
                         nsam[s] = nsam.get(s, 0) + 1

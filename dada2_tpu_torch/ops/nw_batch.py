@@ -239,7 +239,8 @@ class _Batch(NamedTuple):
 
 
 def _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
-             band, mode, homo_gap_p, homo1b, homo2b, device) -> _Batch:
+             band, mode, homo_gap_p, homo1b, homo2b, device,
+             geometry=None) -> _Batch:
     if mode not in ("vec", "scalar"):
         raise ValueError(f"mode must be 'vec' or 'scalar', not {mode!r}")
     dev = _device(device, (s1b, s2b, len1b, len2b))
@@ -274,7 +275,10 @@ def _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
             torch.empty(n, dtype=torch.int32, device=dev),
             torch.empty((n, L2), dtype=torch.int8, device=dev),
             torch.empty(n, dtype=torch.bool, device=dev))
-    nd, W = batch_geometry(l1h, l2h, band) if n else (0, 0)
+    if geometry is not None:
+        nd, W = (int(g) for g in geometry)
+    else:
+        nd, W = batch_geometry(l1h, l2h, band) if n else (0, 0)
     scal = dict(match=int(match), mismatch=int(mismatch), gap_p=int(gap_p),
                 end_gap_p=int(end_gap_p), band=int(band),
                 homo_gap_p=int(homo_gap_p) if use_homo else 0)
@@ -283,7 +287,7 @@ def _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
 
 def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
              end_gap_p=0, band=-1, mode="vec", homo_gap_p=None,
-             homo1b=None, homo2b=None, device=None):
+             homo1b=None, homo2b=None, device=None, geometry=None):
     """Align pairs (s1b[k], s2b[k]) (counterpart of
     dada2_tpu.ops.nw_batch.nw_batch).
 
@@ -301,12 +305,14 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
     homo_gap_p (with mode="scalar", ends-free) enables the homopolymer
     gap variant — homo1b/homo2b masks are computed here if not given.
     device: None takes the device of the tensors given, else CUDA (raising
-    without a card); "cpu" runs the plain version. On CUDA the call
-    launches kernel B4: the register body in one launch, or the
+    without a card); "cpu" runs the plain version. geometry: the static
+    (nd, W) to align under, as dada2_tpu's _nw_batch_jit takes them
+    (parallel/dist.py's compare step); by default batch_geometry's. On
+    CUDA the call launches kernel B4: the register body in one launch, or the
     one-block-per-pair body in one launch per chunk (MAX_BYTES bounds its
     device-memory pointer slab of one launch)."""
     b = _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
-                 band, mode, homo_gap_p, homo1b, homo2b, device)
+                 band, mode, homo_gap_p, homo1b, homo2b, device, geometry)
     if b.dev.type == "cpu":
         return _plain(b)
     return _launch(b)
@@ -315,52 +321,54 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
 def _launch(b: _Batch):
     """Kernel B4 on a batch prepared on the card: the body its geometry's
     route chooses (or BODY's), one launch per chunk, counted. Returns the
-    batch's output tensors."""
-    s1, len1, s2, len2, h1, h2 = b.ins
-    kinds, p0, p1, ham, tvec, ok = b.outs
-    n, L1 = s1.shape
-    L2 = s2.shape[1]
-    if n == 0:
+    batch's output tensors. Runs with the batch's device current (the fit
+    asks cudaGetDevice)."""
+    with torch.cuda.device(b.dev):
+        s1, len1, s2, len2, h1, h2 = b.ins
+        kinds, p0, p1, ham, tvec, ok = b.outs
+        n, L1 = s1.shape
+        L2 = s2.shape[1]
+        if n == 0:
+            return b.outs
+        use_homo = h1 is not None
+        scalar = b.mode == "scalar"
+        r = route(L1, L2, b.nd, b.W, use_homo)
+        if BODY == "block" and r == 3:
+            r = block_route(L1, L2, b.nd, b.W, use_homo)
+        if r == 0:
+            raise ValueError(f"window of {b.W} rows (sequences of {L1} and "
+                             f"{L2}) exceeds one block's shared memory in "
+                             "kernel B4")
+        ppb = 0
+        if r == 3:
+            ppb = PAIRS_PER_BLOCK or register_fit(L1, L2, b.nd, b.W, scalar,
+                                                  use_homo, n)[1]
+        words = slab_words(b.nd, b.W) if r == 2 else 0
+        chunk = n if r != 2 else max(1, MAX_BYTES // (4 * words))
+        slab = (torch.empty(min(chunk, n) * words, dtype=torch.int32,
+                            device=b.dev) if r == 2 else None)
+        stream = torch.cuda.current_stream(b.dev).cuda_stream
+        lib = _load()
+        sc = b.scal
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            rc = lib.nw_batch_run(
+                s1[c0].data_ptr(), len1[c0:].data_ptr(), s2[c0].data_ptr(),
+                len2[c0:].data_ptr(), h1[c0].data_ptr() if use_homo else None,
+                h2[c0].data_ptr() if use_homo else None, kinds[c0].data_ptr(),
+                p0[c0].data_ptr(), p1[c0].data_ptr(), ham[c0:].data_ptr(),
+                tvec[c0].data_ptr(), ok[c0:].data_ptr(),
+                slab.data_ptr() if slab is not None else None, c1 - c0, L1, L2,
+                b.nd, b.W, words, int(scalar), int(use_homo), sc["band"],
+                sc["match"], sc["mismatch"], sc["gap_p"], sc["end_gap_p"],
+                sc["homo_gap_p"], r, ppb, stream)
+            if rc != 0:
+                raise RuntimeError(f"nw_batch kernel B4 launch failed: CUDA "
+                                   f"error {rc}")
+            with _count_lock:
+                nw_batch.launches += 1
+                nw_batch.launches_by_body[body(r)] += 1
         return b.outs
-    use_homo = h1 is not None
-    scalar = b.mode == "scalar"
-    r = route(L1, L2, b.nd, b.W, use_homo)
-    if BODY == "block" and r == 3:
-        r = block_route(L1, L2, b.nd, b.W, use_homo)
-    if r == 0:
-        raise ValueError(f"window of {b.W} rows (sequences of {L1} and "
-                         f"{L2}) exceeds one block's shared memory in "
-                         "kernel B4")
-    ppb = 0
-    if r == 3:
-        ppb = PAIRS_PER_BLOCK or register_fit(L1, L2, b.nd, b.W, scalar,
-                                              use_homo, n)[1]
-    words = slab_words(b.nd, b.W) if r == 2 else 0
-    chunk = n if r != 2 else max(1, MAX_BYTES // (4 * words))
-    slab = (torch.empty(min(chunk, n) * words, dtype=torch.int32,
-                        device=b.dev) if r == 2 else None)
-    stream = torch.cuda.current_stream(b.dev).cuda_stream
-    lib = _load()
-    sc = b.scal
-    for c0 in range(0, n, chunk):
-        c1 = min(c0 + chunk, n)
-        rc = lib.nw_batch_run(
-            s1[c0].data_ptr(), len1[c0:].data_ptr(), s2[c0].data_ptr(),
-            len2[c0:].data_ptr(), h1[c0].data_ptr() if use_homo else None,
-            h2[c0].data_ptr() if use_homo else None, kinds[c0].data_ptr(),
-            p0[c0].data_ptr(), p1[c0].data_ptr(), ham[c0:].data_ptr(),
-            tvec[c0].data_ptr(), ok[c0:].data_ptr(),
-            slab.data_ptr() if slab is not None else None, c1 - c0, L1, L2,
-            b.nd, b.W, words, int(scalar), int(use_homo), sc["band"],
-            sc["match"], sc["mismatch"], sc["gap_p"], sc["end_gap_p"],
-            sc["homo_gap_p"], r, ppb, stream)
-        if rc != 0:
-            raise RuntimeError(f"nw_batch kernel B4 launch failed: CUDA "
-                               f"error {rc}")
-        with _count_lock:
-            nw_batch.launches += 1
-            nw_batch.launches_by_body[body(r)] += 1
-    return b.outs
 
 
 nw_batch.launches = 0
@@ -376,7 +384,7 @@ def _lo(d, len2, rband):
 
 def nw_batch_ref(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
                  end_gap_p=0, band=-1, mode="vec", homo_gap_p=None,
-                 homo1b=None, homo2b=None, device=None):
+                 homo1b=None, homo2b=None, device=None, geometry=None):
     """The plain PyTorch version of kernel B4, on the inputs' device (the
     tensors', else `device`): nw_batch's arguments and outputs. What
     nw_batch runs on CPU tensors; on the card it is the kernel's yardstick.
@@ -384,7 +392,7 @@ def nw_batch_ref(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
     tensors under MAX_BYTES."""
     return _plain(_prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p,
                            end_gap_p, band, mode, homo_gap_p, homo1b, homo2b,
-                           device))
+                           device, geometry))
 
 
 def _plain(b: _Batch):

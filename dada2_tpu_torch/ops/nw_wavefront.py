@@ -213,33 +213,36 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
         return nw_wavefront_ref(scal, params, s1, s2q, **geom)
     if dev.type != "cuda":
         raise ValueError(f"nw_wavefront runs on cuda or cpu, not {dev}")
-    nb = s2q.shape[0]
-    ppb = pairs_per_block(L1R, L2R, NDP, WP, mode[1], nb)
-    if ppb == 0:
-        raise NotImplementedError(
-            f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
-            "(such windows take the batch aligner, ops/nw_batch.py)")
-    outs = [torch.empty((nb, rows, LANES), dtype=torch.int32, device=dev)
-            for rows in (L2R, L1R, 8)]
-    if emit_kinds:
-        outs.insert(0, torch.empty((nb, NDP, LANES), dtype=torch.int32,
-                                   device=dev))
-    if nb == 0:
+    # the fit query, its cache key and the launch follow the runtime's
+    # current device: make it the tensors' own
+    with torch.cuda.device(dev):
+        nb = s2q.shape[0]
+        ppb = pairs_per_block(L1R, L2R, NDP, WP, mode[1], nb)
+        if ppb == 0:
+            raise NotImplementedError(
+                f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
+                "(such windows take the batch aligner, ops/nw_batch.py)")
+        outs = [torch.empty((nb, rows, LANES), dtype=torch.int32, device=dev)
+                for rows in (L2R, L1R, 8)]
+        if emit_kinds:
+            outs.insert(0, torch.empty((nb, NDP, LANES), dtype=torch.int32,
+                                       device=dev))
+        if nb == 0:
+            return outs
+        kinds_ptr = outs[0].data_ptr() if emit_kinds else None
+        sub, mapq, end = outs[-3:]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _load().nw_wavefront_run(
+            scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
+            kinds_ptr, sub.data_ptr(), mapq.data_ptr(), end.data_ptr(), nb,
+            L1R, L2R, NDP, WP, mode[1], int(match), int(mismatch), int(gap_p),
+            ppb, stream)
+        if rc != 0:
+            raise RuntimeError(f"nw_wavefront kernel {mode[0]} launch failed: "
+                               f"CUDA error {rc}")
+        with _count_lock:   # multi-sample dada() launches from worker threads
+            nw_wavefront.launches[mode[0]] += 1
         return outs
-    kinds_ptr = outs[0].data_ptr() if emit_kinds else None
-    sub, mapq, end = outs[-3:]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _load().nw_wavefront_run(
-        scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
-        kinds_ptr, sub.data_ptr(), mapq.data_ptr(), end.data_ptr(), nb,
-        L1R, L2R, NDP, WP, mode[1], int(match), int(mismatch), int(gap_p),
-        ppb, stream)
-    if rc != 0:
-        raise RuntimeError(f"nw_wavefront kernel {mode[0]} launch failed: "
-                           f"CUDA error {rc}")
-    with _count_lock:   # multi-sample dada() launches from worker threads
-        nw_wavefront.launches[mode[0]] += 1
-    return outs
 
 
 nw_wavefront.launches = {name: 0 for name, _ in MODES.values()}
@@ -273,25 +276,26 @@ def nw_pairs_stats(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
                                   max_shift=max_shift)
     if dev.type != "cuda":
         raise ValueError(f"nw_pairs_stats runs on cuda or cpu, not {dev}")
-    if pairs_per_block(L1R, L2R, NDP, WP, STATS_MODE) == 0:
-        raise NotImplementedError(
-            f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
-            "(such windows take the batch aligner, ops/nw_batch.py)")
-    nb = s2q.shape[0]
-    stats = torch.empty((nb * LANES, 6), dtype=torch.int32, device=dev)
-    if nb == 0:
+    with torch.cuda.device(dev):
+        if pairs_per_block(L1R, L2R, NDP, WP, STATS_MODE) == 0:
+            raise NotImplementedError(
+                f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "
+                "(such windows take the batch aligner, ops/nw_batch.py)")
+        nb = s2q.shape[0]
+        stats = torch.empty((nb * LANES, 6), dtype=torch.int32, device=dev)
+        if nb == 0:
+            return stats
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _load().nw_pairs_stats_run(
+            scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
+            stats.data_ptr(), nb, L1R, L2R, NDP, WP, int(match), int(mismatch),
+            int(gap_p), int(bool(allow_one_off)), int(max_shift), stream)
+        if rc != 0:
+            raise RuntimeError(f"nw_pairs_stats kernel B2 launch failed: CUDA "
+                               f"error {rc}")
+        with _count_lock:
+            nw_wavefront.launches["B2"] += 1
         return stats
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _load().nw_pairs_stats_run(
-        scal.data_ptr(), params.data_ptr(), s1.data_ptr(), s2q.data_ptr(),
-        stats.data_ptr(), nb, L1R, L2R, NDP, WP, int(match), int(mismatch),
-        int(gap_p), int(bool(allow_one_off)), int(max_shift), stream)
-    if rc != 0:
-        raise RuntimeError(f"nw_pairs_stats kernel B2 launch failed: CUDA "
-                           f"error {rc}")
-    with _count_lock:
-        nw_wavefront.launches["B2"] += 1
-    return stats
 
 
 def nw_compare(scal, params, s1t, s2q, *, L1R: int, L2R: int, NDP: int,

@@ -20,7 +20,8 @@ ROOT = PKG.parent
 def test_import_loads_no_jax():
     code = ("import sys, dada2_tpu_torch, dada2_tpu_torch.chimeras, "
             "dada2_tpu_torch.seqtab, dada2_tpu_torch.paired, "
-            "dada2_tpu_torch.ops.nw_batch; "
+            "dada2_tpu_torch.ops.nw_batch, dada2_tpu_torch.parallel, "
+            "dada2_tpu_torch.parallel.dist; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'dada2_tpu' "
             "or m.startswith('dada2_tpu.')]; print(bad)")
@@ -94,10 +95,88 @@ def test_batch_aligner_default_device_raises_without_card():
 
 
 def test_mesh_raises(extdata):
+    """dada(mesh=) runs (tests/test_torch_parallel.py); a mesh together
+    with an explicit device is refused: neither overrides the other."""
+    from dada2_tpu_torch.parallel.dist import cpu_devices, make_mesh
+
     drp = dt.derep_fastq(str(extdata / "sam1F.fastq.gz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        dt.dada(drp, err=dt.data.tperr1(), mesh=object(), device="cpu",
+    mesh = make_mesh(devices=cpu_devices(2), samples=2)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        dt.dada(drp, err=dt.data.tperr1(), mesh=mesh, device="cpu",
                 verbose=False)
+    rs = dt.core.raws.make_rawset(drp.sequences[:5], drp.abundances[:5])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        dt.CudaBackend(rs, device="cpu", mesh=make_mesh(
+            devices=cpu_devices(2)))
+
+
+def test_mesh_default_device_raises_without_card(extdata):
+    """make_mesh, CudaBackend(mesh=...) and dada(mesh=...) over CUDA
+    entries never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from dada2_tpu_torch import parallel
+    from dada2_tpu_torch.parallel.dist import Mesh, make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(devices=["cuda:0"] * 2, samples=1)
+    # a mesh built by hand holds CUDA entries unchecked until used
+    cuda_mesh = Mesh(np.array([torch.device("cuda", 0)] * 2, dtype=object)
+                     .reshape(2, 1))
+    pairs_mesh = Mesh(np.array([torch.device("cuda", 0)] * 2, dtype=object)
+                      .reshape(1, 2))
+    drp = dt.derep_fastq(str(extdata / "sam1F.fastq.gz"))
+    rs = dt.core.raws.make_rawset(drp.sequences[:5], drp.abundances[:5])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dt.CudaBackend(rs, mesh=pairs_mesh)
+    parallel.use_mesh(pairs_mesh)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dt.CudaBackend(rs)
+    finally:
+        parallel.use_mesh(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dt.dada(drp, err=dt.data.tperr1(), mesh=cuda_mesh, verbose=False)
+
+
+@pytest.mark.gpu
+def test_second_card_launches_on_its_own_device(extdata):
+    """Kernels B1 and B4 launched on cuda:1 while cuda:0 is current: the
+    fit queries, their cache keys and the launches follow the tensors'
+    device, and the results equal the CPU's (a pairs mesh over both
+    cards too)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards (the launches' device "
+                    "guard cannot show on one)")
+    from dada2_tpu_torch.ops import nw_batch as nwb
+    from dada2_tpu_torch.parallel.dist import make_mesh
+
+    torch.cuda.set_device(0)
+    drp = dt.derep_fastq(str(extdata / "sam1F.fastq.gz"))
+    rs = dt.core.raws.make_rawset(drp.sequences, drp.abundances, None,
+                                  drp.quals)
+    skip = np.zeros(rs.n, bool)
+    opts = dt.DEFAULT_OPTIONS.normalized()
+    err = dt.data.tperr1()
+    want = dt.CudaBackend(rs, device="cpu").compare(0, skip, opts, err,
+                                                    True, 1.0)
+    for be in (dt.CudaBackend(rs, device="cuda:1"),
+               dt.CudaBackend(rs, mesh=make_mesh(devices=["cuda:0",
+                                                          "cuda:1"]))):
+        got = be.compare(0, skip, opts, err, True, 1.0)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert torch.cuda.current_device() == 0
+    codes = np.asarray(rs.seqs[:64])
+    lens = np.asarray(rs.lens[:64])
+    args = (codes[:1].repeat(64, 0), lens[:1].repeat(64), codes, lens)
+    kw = dict(match=5, mismatch=-4, gap_p=-8, band=16)
+    got = nwb.nw_batch(*args, device="cuda:1", **kw)
+    assert all(x.device == torch.device("cuda", 1) for x in got)
+    for g, w in zip(got, nwb.nw_batch(*args, device="cpu", **kw)):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_cpu_device_runs_plain_version():
