@@ -5,14 +5,16 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device  — a CUDA card must be present; prints its nvidia-smi name and
                power limit;
-  2. build   — builds the two kernel sources with nvcc from the checkout,
+  2. build   — builds the three kernel sources with nvcc from the checkout,
                one nvcc each, started together: csrc/nw_wavefront.cu (B1's
                nw_compare_kernel and the B2, B3, B2 stats body x windows of
                32..128 rows, sixteen instantiations) and csrc/nw_batch.cu
                (kernel B4: the register body, 4 row tiers x vec, scalar
                and homopolymer aligners, and the one-block-per-pair body,
                the three aligners x pointer slab in shared or device
-               memory: eighteen); prints their `-Xptxas -v` reports;
+               memory: eighteen) and csrc/store_screen.cu (kernel B5: the
+               screen, the compaction, the pack's tiles and bits: four);
+               prints their `-Xptxas -v` reports;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
                32/64/96/128 rows, lengths near 250 and 450, launches of 1
@@ -32,7 +34,8 @@ Phases (any failure exits non-zero and prints no result line):
                host), which must launch no kernel;
   5. main    — a simulated 120,000-read MiSeq sample (the DADA2 tutorial
                scale) through dada(selfConsist=True) on the card, with the
-               kernels' launch counts reset just before and read just after;
+               kernels' launch counts reset just before and read just after
+               (B1 and B5, the budded compares' store screen, must launch);
                then kernel B1's time (CUDA events) against its plain version
                and its bound, at the main path's largest shapes, and also at
                one block and at samPB.fastq.gz's geometry (BAND_SIZE=32);
@@ -144,9 +147,23 @@ Phases (any failure exits non-zero and prints no result line):
                version on two CPU shards (ham and counts bitwise, loglam
                within rtol = atol = 1e-6), then dryrun_multichip(8) on the
                card. Walls, launches and times printed on [dist] lines.
+ 17. shortlist — the budded compare (kernel B5): (b) phase 5's sample
+               again with the transport instrumented, then with the budded
+               route off (SHORTLIST_MIN_N: every compare the full route),
+               both equal to phase 5's result; for each the wall, budded
+               compares, B5 launches, bytes per budded compare (min,
+               median, max), fetches and bytes, the be.* phases and the
+               rows whose lambda the host multiplied; (a) B5 against its
+               plain version on the card, bitwise (buffer, order, order_u
+               and the follow-up), at three buds of that run: as called,
+               greedy flipped, M0 = 16, tiles of K = 1, bits at K = 8 and
+               at full coverage, cache mode (M0U 16 and 0), and a
+               threshold mixing -999, 0 and subnormal values; (c) B5's time
+               (CUDA events) at the run's median and largest M0 beside the
+               torch-ops chain (its plain version) and its bound.
 It prints one {"device_stages": [...]} line (the taxonomy scorer, torch
-ops, not a hand-written kernel), one {"kernels": [...]} line and, last,
-{"ok": true, ...}.
+ops, not a hand-written kernel), one {"kernels": [...]} line (B1 to B5)
+and, last, {"ok": true, ...}.
 """
 from __future__ import annotations
 
@@ -1604,6 +1621,270 @@ def distributed_phase(dt, dev, card, reset_launches, counts, asvs, err,
 
 # ---- main ------------------------------------------------------------------
 
+# ---- phase 17: the budded compare's store screen (kernel B5) ---------------
+
+def transport_run(run, per_compare=True):
+    """run() with the port's compare backend instrumented (class and module
+    attributes, restored after): for every compare whether the JAX
+    package's rule makes it budded (a center on B1's route, k-mers on, the
+    engine's own cutoff, some e_thresh > 0) and, with per_compare (one
+    sample at a time: the counters are process-wide), the bytes it
+    fetched; the rows whose exact lambda the host multiplied; and, where
+    the checkout has kernel B5, the arguments of every budded_pack call.
+    Works on a checkout without B5 too (ab_bud.py's parent). Returns
+    (run's result, stats, B5 calls)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from dada2_tpu_torch.core import backend_cuda as bc
+    from dada2_tpu_torch.trace import COUNTERS, PHASES
+
+    try:
+        ss = importlib.import_module("dada2_tpu_torch.ops.store_screen")
+    except ImportError:
+        ss = None
+    B = bc.CudaBackend
+    saved = {k: B.__dict__[k] for k in ("compare", "_lambdas", "_lam_gapless",
+                                        "_lam_subs") if k in B.__dict__}
+    per, rows, calls = [], {"n": 0}, []
+
+    def compare(self, center, skip, opts, err, use_kmers, kdist_cutoff,
+                e_thresh=None):
+        budded = (use_kmers and e_thresh is not None
+                  and float(kdist_cutoff) == float(opts.KDIST_CUTOFF)
+                  and bool(np.any(e_thresh > 0)) and opts.BAND_SIZE != 0
+                  and self._route(int(self.lens[center]), opts) == "B1")
+        b0 = COUNTERS.fetch_bytes
+        out = saved["compare"](self, center, skip, opts, err, use_kmers,
+                               kdist_cutoff, e_thresh)
+        per.append((budded, COUNTERS.fetch_bytes - b0))
+        return out
+
+    def counted(name, pos):
+        def fn(self, *a):
+            rows["n"] += len(a[pos])
+            return saved[name](self, *a)
+        return fn
+
+    B.compare = compare
+    B._lambdas = counted("_lambdas", 0)
+    B._lam_gapless = counted("_lam_gapless", 1)
+    if "_lam_subs" in saved:
+        B._lam_subs = counted("_lam_subs", 0)
+    if ss is not None:
+        pack = ss.budded_pack
+
+        def budded_pack(*a, **kw):
+            calls.append((a, kw))
+            return pack(*a, **kw)
+        ss.budded_pack = budded_pack
+        b5_0 = dict(ss.launches)
+    COUNTERS.reset()
+    PHASES.reset()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(B, k, v)
+        if ss is not None:
+            ss.budded_pack = pack
+    budded = [b for f, b in per if f]
+    tim, nb = PHASES.as_dict(), PHASES.bytes_dict()
+    stats = dict(
+        wall_s=wall, compares=len(per), budded_compares=len(budded),
+        device_fetches=COUNTERS.device_fetches,
+        fetch_bytes=COUNTERS.fetch_bytes,
+        followup_fetches=getattr(COUNTERS, "followup_fetches", None),
+        dense_refetches=getattr(COUNTERS, "dense_refetches", None),
+        host_lambda_rows=rows["n"],
+        phases={k: [tim.get(k, 0.0), nb.get(k, 0)] for k in sorted(
+            set(tim) | set(nb)) if k.startswith("be.")})
+    if per_compare:
+        stats["budded_bytes"] = (
+            [int(min(budded)), float(np.median(budded)), int(max(budded))]
+            if budded else None)
+    if ss is not None:
+        stats["b5_launches"] = {k: ss.launches[k] - b5_0[k]
+                                for k in ss.launches}
+    return out, stats, calls
+
+
+def b5_cases(call, ss, rng):
+    """The configurations phase 17 holds kernel B5 to its plain version in,
+    from one budded_pack call of the main path: as called, greedy
+    flipped, a 16-row buffer, tiles of one entry, bits at K = 8 and at
+    full coverage, cache mode (a seeded cached-row bitmap, M0U 16 and 0),
+    and a threshold that mixes the -999 init state, 0 and subnormal values
+    into the captured one. Yields (label, args, kwargs)."""
+    import torch
+
+    a, kw = call
+    W = a[2].shape[1]
+    nd = kw["nd"]
+    n = a[0].shape[0]
+    base = dict(kw, cache_on=False, M0U=None)
+    args = list(a[:7]) + [None]
+    cb = torch.from_numpy(rng.integers(0, 256, nd // 8).astype("uint8")).to(
+        a[0].device)
+    eth = a[6].clone()
+    e = eth[: 2 * nd].view(torch.bfloat16)
+    e[0:n:7] = -999.0 / 120_000
+    e[1:n:11] = 0.0
+    e[2:n:13] = 9.2e-41
+    kfull = min(((W + 3) // 4) * 4, 508)
+    yield "as called", list(a[:8]), dict(kw)
+    yield "greedy flipped", args, dict(base, greedy=not kw["greedy"])
+    yield "M0 16", args, dict(base, M0=16)
+    yield "tiles K=1", args, dict(base, kind="tiles", K=1)
+    yield "bits K=8", args, dict(base, kind="bits", K=8)
+    yield f"bits K={kfull}", args, dict(base, kind="bits", K=kfull)
+    for m0u in (16, 0):
+        yield f"cache M0U={m0u}", args[:7] + [cb], dict(
+            base, cache_on=True, M0U=m0u)
+    yield "mixed e_thresh", args[:6] + [eth, None], dict(base)
+
+
+def b5_vs_plain(ss, args, kw):
+    """Kernel B5 and its plain version on the same card tensors: the
+    largest |difference| over buf, order and order_u, then over the
+    follow-up (take_subs) of the rows past the buffer (or the first 64
+    compacted rows when the buffer holds them all). Returns (err, buf,
+    m_u)."""
+    import torch
+
+    got = ss.budded_pack(*args, **kw)
+    want = ss.budded_pack_ref(*args, **kw)
+    err = max_abs_diff(got, want)
+    buf = got[0]
+    m_u = int(buf[:16].view(torch.int32)[3 if kw["cache_on"] else 0])
+    MU = kw["M0U"] if kw["cache_on"] else kw["M0"]
+    nd = kw["nd"]
+    M0, M = ((MU, min(ss.bucket15(m_u - MU), nd - MU)) if m_u > MU
+             else (0, min(64, nd)))
+    tk = dict(M0=M0, M=M, K=kw["K"], kind=kw["kind"])
+    targs = args[:4] + [args[5], got[2]]
+    err = max(err, max_abs_diff([ss.take_subs(*targs, **tk)],
+                                [ss.take_subs_ref(*targs, **tk)]))
+    return err, buf, m_u
+
+
+def b5_bound(args, kw, buflen):
+    """(bound_ms, bound_by, detail) of one budded_pack: the bytes B5 must
+    move at the HBM rate — small13, eth2 and reads over every row (and the
+    cached-row bitmap), tvec and seqs rows and lengths of the MU packed
+    slots and the center's row; buf and the order(s) written — against
+    its operations (a few dozen per row: negligible at the int32 rate)."""
+    n, W = args[2].shape
+    nd = kw["nd"]
+    MU = kw["M0U"] if kw["cache_on"] else kw["M0"]
+    nbytes = (n * (13 + 4) + 2 * nd + nd // 8
+              + (nd // 8 if kw["cache_on"] else 0)
+              + MU * (2 * W + 8) + W
+              + buflen + 4 * nd * (2 if kw["cache_on"] else 1))
+    ops = 40 * nd + 8 * MU * W
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, (
+        f"{nbytes} bytes -> {t_bytes:.6f} ms; ~{ops} int32 ops -> "
+        f"{t_ops:.6f} ms")
+
+
+def shortlist_phase(dt, dev, card, sim, res5, n_b5):
+    """Phase 17: kernel B5 against its plain version on inputs captured
+    from phase 5's path (17a), phase 5's sample through the budded route
+    against the full route on the card (17b), and B5's time at the run's
+    median and largest buffer (17c). Fails on any difference; returns
+    B5's row of the kernels line."""
+    import numpy as np
+    import torch
+
+    from dada2_tpu_torch.core.backend_cuda import CudaBackend
+    from dada2_tpu_torch.ops import store_screen as ss
+
+    def selfconsist():
+        return dt.dada(sim, err=None, selfConsist=True, device=dev,
+                       verbose=False)
+
+    # 17b. phase 5's sample again, instrumented, then with the budded
+    # route off (every compare the full route: the small pack of every
+    # row, the host screen, tvec rows): both equal phase 5's result
+    res_b, st_b, calls = transport_run(selfconsist)
+    saved = CudaBackend.SHORTLIST_MIN_N
+    CudaBackend.SHORTLIST_MIN_N = 1 << 40
+    try:
+        res_f, st_f, _ = transport_run(selfconsist)
+    finally:
+        CudaBackend.SHORTLIST_MIN_N = saved
+    try:
+        same_sample(res5, res_b, "17b budded route vs phase 5")
+        same_sample(res5, res_f, "17b full route vs phase 5")
+    except AssertionError as e:
+        fail(f"17b: phase 5's sample differs between routes: {e}")
+    if not calls or st_b["b5_launches"]["pack"] != len(calls) or any(
+            st_f["b5_launches"].values()):
+        fail(f"17b: B5 launches {st_b['b5_launches']} budded, "
+             f"{st_f['b5_launches']} with the route off")
+    for label, st in (("budded route", st_b), ("full route", st_f)):
+        log(f"[shortlist] 17b phase 5's sample, {label}: "
+            f"{json.dumps(st, sort_keys=True)}; card {card}")
+    log(f"[shortlist] 17b: both routes equal phase 5's result (phase 4 "
+        f"holds sam1F card == CPU through the budded route; this sample is "
+        f"too large for the CPU's plain B1)")
+
+    # 17a. B5 against its plain version at three buds of 17b's run
+    rng = np.random.default_rng(17)
+    err17 = 0
+    picks = sorted({0, len(calls) // 2, len(calls) - 1})
+    for k in picks:
+        for label, args, kw in b5_cases(calls[k], ss, rng):
+            err, buf, m_u = b5_vs_plain(ss, args, kw)
+            err17 = max(err17, err)
+            log(f"[shortlist] 17a bud {k} {label}: M0={kw['M0']} "
+                f"M0U={kw['M0U']} {kw['kind']} K={kw['K']} "
+                f"greedy={kw['greedy']}: {len(buf)} bytes, m_u={m_u}; max "
+                f"|kernel - plain| = {err}")
+            if err != 0:
+                fail(f"kernel B5 disagrees with its plain version (bud {k}, "
+                     f"{label})")
+    torch.cuda.synchronize()
+
+    # 17c. B5's time at the run's median and largest buffer
+    m0s = [kw["M0"] for _, kw in calls]
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = cuda_ms(lambda: tiny.add_(1), 200)
+    timed = []
+    for label, M0 in (("median M0", int(np.median(m0s))),
+                      ("largest M0", max(m0s))):
+        a, kw = next(c for c in calls if c[1]["M0"] == M0)
+        ms = cuda_ms(lambda: ss.budded_pack(*a, **kw), 50)
+        plain = cuda_ms(lambda: ss.budded_pack_ref(*a, **kw), 5)
+        buflen = len(ss.budded_pack(*a, **kw)[0])
+        b_ms, b_by, det = b5_bound(a, kw, buflen)
+        timed.append(dict(shape=label, M0=M0, K=kw["K"], kind=kw["kind"],
+                          cache_on=kw["cache_on"], nd=kw["nd"], ms=ms,
+                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                          buf_bytes=buflen))
+        log(f"[shortlist] 17c B5 at {label} (nd={kw['nd']}, M0={M0}, "
+            f"{kw['kind']} K={kw['K']}, cache {kw['cache_on']}): kernel "
+            f"{ms:.4f} ms per call (three launches), torch-ops chain "
+            f"(plain version) {plain:.4f} ms; bound {b_ms:.6f} ms by {b_by} "
+            f"({det}); one launch's floor {floor_ms:.4f} ms (a 1-element "
+            f"add_), three of them {3 * floor_ms:.4f} ms; card {card}")
+    top = timed[-1]
+    return dict(launches=sum(n_b5.values()), launches_by_wrapper=n_b5,
+                ms=top["ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], launch_floor_ms=floor_ms,
+                timed=timed, max_abs_err=err17)
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1620,6 +1901,7 @@ def main() -> None:
         from dada2_tpu_torch.encode import pack_sequences, rc
         from dada2_tpu_torch.ops import nw_batch as nwb
         from dada2_tpu_torch.ops import nw_wavefront as nww
+        from dada2_tpu_torch.ops import store_screen as ss
         from dada2_tpu_torch.options import DEFAULT_OPTIONS
     except ImportError as e:
         fail(f"dada2_tpu_torch is not importable next to this script: {e}")
@@ -1634,10 +1916,13 @@ def main() -> None:
             launches[k] = 0
         for k in by_body:
             by_body[k] = 0
+        for k in ss.launches:
+            ss.launches[k] = 0
         nwb.nw_batch.launches = 0
 
     def counts():
         return dict(launches, B4=nwb.nw_batch.launches,
+                    B5=sum(ss.launches.values()),
                     **{f"B4 {k}": v for k, v in by_body.items()})
 
     # 1. device
@@ -1669,15 +1954,16 @@ def main() -> None:
 
     builders = [threading.Thread(target=build, args=job) for job in (
         ("nw_wavefront.cu", nww.build_kernel),
-        ("nw_batch.cu", nwb.build_kernel))]
+        ("nw_batch.cu", nwb.build_kernel),
+        ("store_screen.cu", ss.build_kernel))]
     for th in builders:
         th.start()
     for th in builders:
         th.join()
     if build_errors:
         fail(f"kernel build: {build_errors}")
-    log(f"[build] nw_wavefront.cu and nw_batch.cu built in "
-        f"{time.time() - t0:.1f}s; ptxas reports:")
+    log(f"[build] nw_wavefront.cu, nw_batch.cu and store_screen.cu built "
+        f"in {time.time() - t0:.1f}s; ptxas reports:")
     for name, rep in reports.items():
         for line in rep.strip().splitlines():
             log(f"[build]   {name}: {line.strip()}")
@@ -1692,6 +1978,10 @@ def main() -> None:
              f"4 row tiers x vec, scalar and homopolymer; the "
              f"one-block-per-pair body: the three aligners x two slab "
              f"routes), ptxas compiled {entries}")
+    entries = reports["store_screen.cu"].count("Compiling entry function")
+    if entries != 4:
+        fail(f"expected 4 kernels of B5 (screen, compaction, the pack's "
+             f"tiles and bits), ptxas compiled {entries}")
     b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
     if sorted(b1_regs) != [1, 2, 3, 4]:
         fail(f"B1's four instantiations not found in the ptxas report: "
@@ -1861,16 +2151,19 @@ def main() -> None:
     torch.cuda.synchronize()
     wall = time.time() - t0
     n_b1 = launches["B1"]
+    n_b5 = dict(ss.launches)
     peak = torch.cuda.max_memory_allocated()
     rounds = len(res.err_in)
     log(f"[main] dada(selfConsist=True): {len(sim.uniques)} uniques, "
         f"{rounds} rounds, {len(res.denoised)} ASVs, {wall:.2f}s wall")
     log(f"[main] phases: {dt.PHASES.summary()}")
     log(f"[main] counters: {dt.COUNTERS.summary()}")
-    log(f"[main] kernel launches: {dict(launches)}; "
+    log(f"[main] kernel launches: {dict(launches)}, B5 {n_b5}; "
         f"max_memory_allocated: {peak} bytes")
     if n_b1 <= 0:
         fail("the main path never launched kernel B1")
+    if n_b5["pack"] <= 0:
+        fail("the main path never launched kernel B5 (no budded compare)")
     eo = np.asarray(res.err_out)
     if (eo.shape[0] != 16 or not np.isfinite(eo).all() or (eo < 0).any()
             or (eo > 1).any() or len(res.denoised) == 0
@@ -2584,6 +2877,8 @@ def main() -> None:
                                    **p5)
     for k in ("B1", "B4"):
         rows[k]["launches_phase16"] = launches16[k]
+    rows["B5"] = shortlist_phase(dt, dev, card, p5["sim"], p5["res5"], n_b5)
+    err_b["B5"] = rows["B5"].pop("max_abs_err")
 
     wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",
             "dada2_tpu/ops/nw_pallas.py:452")
@@ -2593,7 +2888,10 @@ def main() -> None:
         "B2cls": ("nw_wavefront pairs class rows (B2)",) + wave,
         "B3": ("nw_wavefront kinds (B3)",) + wave,
         "B4": ("nw_batch (B4)", "dada2_tpu_torch/csrc/nw_batch.cu",
-               "dada2_tpu/ops/nw_batch.py:63")}
+               "dada2_tpu/ops/nw_batch.py:63"),
+        "B5": ("store_screen budded pack (B5)",
+               "dada2_tpu_torch/csrc/store_screen.cu",
+               "dada2_tpu/core/backend_tpu.py:520")}
     log(json.dumps({"device_stages": stages}))
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,

@@ -4,7 +4,10 @@ The PyTorch/CUDA port of dada2_tpu, module for module. Host logic (engine,
 exact lambdas, R-exact Poisson tails, loess, fastq io, the native C++
 helpers) is carried over unchanged; the compare sweep runs on an NVIDIA
 Hopper card through a hand-written wavefront Needleman-Wunsch kernel
-(ops/nw_wavefront.py, csrc/nw_wavefront.cu). Entry points run on CUDA
+(ops/nw_wavefront.py, csrc/nw_wavefront.cu), and every compare after a
+bud screens its rows against the engine's store threshold on the card
+and fetches only the shortlist, in one buffer (kernel B5,
+ops/store_screen.py, csrc/store_screen.cu). Entry points run on CUDA
 unless given device="cpu", and raise when there is no card.
 
 Ported so far: derep_fastq -> dada (incl. selfConsist, pool, pseudo, and

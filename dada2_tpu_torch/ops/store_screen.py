@@ -1,0 +1,451 @@
+"""Kernel B5: the budded compare's store screen and shortlist pack.
+
+The counterpart of the device half of dada2_tpu/core/backend_tpu.py's
+budded compare: `_budded_fused` (:520) without its small pack (the port
+builds small13 beforehand, `backend_cuda._small_trace`), i.e.
+`_shortlist_screen` (:779), the ascending compactions and the
+substitution transport `_subs_tile_trace` (:410) / `_subs_bits_trace`
+(:426) over `_sel_tv` (:386), plus the overflow follow-up `_take_subs`
+(:640). In the JAX package these are XLA programs; here they are one
+hand-written CUDA source, csrc/store_screen.cu, built with nvcc at first
+use and loaded through ctypes like kernel B1.
+
+`budded_pack` screens every row of a compare sweep against the engine's
+store threshold, compacts the survivors in ascending row order and
+writes, for the first M0 (cache mode: M0U uncached) of them, their
+5-byte small rows and substitution records into ONE buffer that the host
+fetches once. Its layout is the JAX package's, byte for byte
+(`budbuf_layout`):
+
+    [16 B header: m, naligned, nshroud, m_u | nd/8 need bitmap |
+     MU x 5 B rows | MU x subw B substitutions | nd/8 shroud bitmap]
+
+Rows are the backend's nd = pad_rows(n): rows n..nd-1 repeat row 0 and
+travel locked, as the JAX package's padded device arrays do, so the
+bitmaps' offsets and every byte match. Bitmaps are little-endian.
+
+On CUDA tensors the wrappers launch the kernels (three for
+`budded_pack`: the screen, the compaction, the pack; one for
+`take_subs`) and count one launch per call in `launches`; on CPU tensors
+they run the plain versions below (`budded_pack_ref`, `take_subs_ref`),
+the JAX functions written in torch ops. There is no fallback between the
+two.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import nw_wavefront as nww
+
+EPS = 2.0 ** -23
+FLT_MIN = float(np.finfo(np.float32).tiny)
+_LN2 = 0.6931471805599453
+KINDS = ("tiles", "bits")
+# the bits transport's nt0 stream sits in shared memory (one warp's
+# stream in 64 words): its widest K
+BITS_K_MAX = 1024
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "store_screen.cu")
+_SO = os.path.join(_PKG, "build", "libstore_screen.so")
+_PTXAS_LOG = os.path.join(_PKG, "build", "store_screen.ptxas.txt")
+_lock = threading.Lock()
+_count_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+# ---- geometry (copies of the JAX package's) --------------------------------
+
+def bucket(n: int, lo: int = 16) -> int:
+    return max(lo, 1 << (max(n, 1) - 1).bit_length())
+
+
+def bucket15(n: int, lo: int = 16) -> int:
+    """Fetch-size bucket with 1.5x steps (16, 24, 32, 48, 64, ...)."""
+    b = bucket(n, lo)
+    b34 = (3 * b) // 4
+    return b34 if b34 >= n else b
+
+
+def pad_rows(n: int) -> int:
+    """The JAX backend's row-count bucket (backend_tpu._pad_rows): n
+    rounded up in ~1/8 steps, always a multiple of 8. The port keeps its
+    tensors at n rows; B5 treats rows n..nd-1 as the JAX package's pad
+    rows (copies of row 0, locked), so its buffer is the JAX package's."""
+    if n <= 128:
+        return bucket(n, 16)
+    q = 1 << max(7, n.bit_length() - 4)
+    return ((n + q - 1) // q) * q
+
+
+def subw(W: int, K: int, kind: str) -> int:
+    """Bytes of one row's substitution records: K 2-byte tile entries, or
+    the ceil(W/8)-byte position bitmap plus the K/4-byte nt0 stream."""
+    return (W + 7) // 8 + K // 4 if kind == "bits" else 2 * K
+
+
+def budbuf_layout(nd: int, W: int, M0: int, K: int, kind: str,
+                  M0U: Optional[int] = None):
+    """Offsets inside one budded_pack buffer: (end of the need bitmap, end
+    of the 5 B rows, end of the substitution records, total length incl.
+    the shroud bitmap); the per-row blocks cover MU = M0U rows in cache
+    mode, else M0 (backend_tpu.TpuBackend._budbuf_layout)."""
+    nb = nd // 8
+    mu = M0U if M0U is not None else M0
+    o1 = 16 + nb
+    o2 = o1 + 5 * mu
+    o3 = o2 + subw(W, K, kind) * mu
+    return o1, o2, o3, o3 + nb
+
+
+# ---- the plain versions -----------------------------------------------------
+
+def _src(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Row n.. (a pad row) reads row 0, as the JAX package's padding."""
+    return torch.where(idx < n, idx, torch.zeros_like(idx))
+
+
+def _unpack(pk: torch.Tensor, count: int) -> torch.Tensor:
+    """Little-endian bitmap bytes -> bool [count]."""
+    sh = torch.arange(8, device=pk.device, dtype=torch.int32)
+    bits = (pk.to(torch.int32)[:, None] >> sh[None, :]) & 1
+    return bits.reshape(-1)[:count] != 0
+
+
+def _pack(b: torch.Tensor) -> torch.Tensor:
+    """bool [8k] -> little-endian bitmap bytes uint8 [k]."""
+    w = 1 << torch.arange(8, device=b.device, dtype=torch.int32)
+    return (b.to(torch.int32).reshape(-1, 8) * w).sum(dim=1).to(torch.uint8)
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values as zero, as XLA computes (its CPU and the
+    TPU flush them): the JAX package's screen reads a subnormal e_thresh
+    as 0, the underflow branch."""
+    return torch.where(x.abs() < FLT_MIN, torch.zeros_like(x), x)
+
+
+def sel_tv(tvec, seqs, lens, center: int, flags, idx):
+    """Final transition vector and substitution mask of rows idx (int64
+    [M] into the n-row tensors): the gapless flag bit picks the
+    pad-to-length construction over kernel B1's tvec
+    (backend_tpu._sel_tv; reference: src/pval.cpp:104-130)."""
+    W = seqs.shape[1]
+    dev = seqs.device
+    s0 = seqs[center].to(torch.int32)
+    s1 = seqs[idx].to(torch.int32)
+    l2 = lens[idx]
+    l1 = lens[center]
+    pos = torch.arange(W, device=dev)[None, :]
+    validp = pos < l2[:, None]
+    gtv = torch.where(validp, 5 * s1, 16)
+    gtv = torch.where((pos < torch.minimum(l2, l1)[:, None])
+                      & (s0[None, :] != s1), 4 * s0[None, :] + s1, gtv)
+    gl = (flags[idx] & 2) != 0
+    tv = torch.where(gl[:, None], gtv, tvec[idx].to(torch.int32))
+    is_sub = validp & (tv != 5 * s1)
+    return tv, is_sub
+
+
+def _first_subs(tv, is_sub, K: int):
+    """Positions, codes and validity of each row's first K entries of the
+    stable order (substitutions first, ascending position)."""
+    order2 = torch.argsort((~is_sub).to(torch.uint8), dim=1, stable=True)
+    posK = order2[:, :K]
+    return (posK.to(torch.int32), torch.gather(tv, 1, posK),
+            torch.gather(is_sub, 1, posK))
+
+
+def subs_tiles(tvec, seqs, lens, center: int, flags, idx, K: int):
+    """[M, K] int32 substitution tile entries pos | nt0 << 14 in
+    ascending position order, 0xFFFF past a row's count
+    (backend_tpu._subs_tile_trace; its uint16 values)."""
+    tv, is_sub = sel_tv(tvec, seqs, lens, center, flags, idx)
+    posK, codeK, subK = _first_subs(tv, is_sub, K)
+    return torch.where(subK, posK | ((codeK >> 2) << 14), 0xFFFF)
+
+
+def subs_bits(tvec, seqs, lens, center: int, flags, idx, K: int):
+    """[M, ceil(W/8) + K/4] uint8: each row's little-endian substitution
+    position bitmap, then the 2-bit nt0 stream of its first K
+    substitutions (backend_tpu._subs_bits_trace)."""
+    W = seqs.shape[1]
+    tv, is_sub = sel_tv(tvec, seqs, lens, center, flags, idx)
+    M = is_sub.shape[0]
+    W8 = ((W + 7) // 8) * 8
+    bm = torch.zeros((M, W8), dtype=torch.bool, device=seqs.device)
+    bm[:, :W] = is_sub
+    bitmap = _pack(bm).reshape(M, W8 // 8)
+    Ke = min(K, W)
+    _, codeK, subK = _first_subs(tv, is_sub, Ke)
+    nt0 = torch.where(subK, (codeK >> 2) & 3, 0)
+    if Ke < K:
+        nt0 = torch.nn.functional.pad(nt0, (0, K - Ke))
+    w = 1 << (2 * torch.arange(4, device=seqs.device, dtype=torch.int32))
+    stream = (nt0.reshape(M, K // 4, 4) * w).sum(dim=2).to(torch.uint8)
+    return torch.cat([bitmap, stream], dim=1)
+
+
+def _subs_bytes(tvec, seqs, lens, center, flags, idx, K, kind):
+    """A row's substitution records as the buffer's bytes [M, subw]."""
+    if kind == "bits":
+        return subs_bits(tvec, seqs, lens, center, flags, idx, K)
+    v = subs_tiles(tvec, seqs, lens, center, flags, idx, K)
+    return torch.stack([v & 0xFF, v >> 8], dim=2).to(torch.uint8).reshape(
+        v.shape[0], 2 * K)
+
+
+def shortlist_screen(small13, eth2, reads, center: int, *, nd: int, L: int,
+                     greedy: bool):
+    """The store screen over all nd rows (backend_tpu._shortlist_screen,
+    without the speculative projection). small13 [n, 13] int8 (ham i16,
+    ham_gapless i16, loglam f32, abssum f32, flags); eth2 uint8
+    [2 nd + nd/8]: e_thresh as bf16 (the f32 bits shifted right by 16, a
+    lower bound of the threshold) and the skip's lock component,
+    bit-packed (pad rows locked); reads int32 [n].
+
+    A row is needed iff not skipped, not shrouded and loglam + margin >=
+    log(e_thresh), the margin bounding the f32 error of loglam and of the
+    f32 log (1e-3 + eps (5 L + (L + 5) abssum) + 4 eps |logthr|); at
+    e_thresh == 0 the threshold is the underflow bound
+    -(1074 + L) ln 2 - 1, below which the host's f64 product is exactly
+    0; e_thresh < 0 keeps every candidate; a non-finite loglam is kept
+    unless e_thresh == 0. Under greedy the abundance skip (reads >
+    reads[center]) is rebuilt here, the center itself never skipped. The
+    f32 arithmetic is the JAX package's on XLA, in its order, subnormal
+    inputs and sums read as zero (a subnormal e_thresh takes the
+    underflow branch).
+
+    Returns (header int32 [4]: m, naligned, nshroud, 0; order int32 [nd],
+    the stable compaction needed rows first; shroud bitmap uint8 [nd/8];
+    need bool [nd])."""
+    n = small13.shape[0]
+    dev = small13.device
+    r = torch.arange(nd, device=dev)
+    src = _src(r, n)
+    sm = small13[src]
+    e_thresh = _flush(eth2[: 2 * nd].view(torch.bfloat16).to(torch.float32))
+    nskip = _unpack(eth2[2 * nd:], nd)
+    if greedy:
+        nskip = nskip | (reads[src] > reads[center])
+        nskip = nskip & (r != center)
+    f32 = sm[:, 4:12].contiguous().view(torch.float32)
+    loglam, abssum = _flush(f32[:, 0]), _flush(f32[:, 1])
+    shroud = (sm[:, 12] & 4) != 0
+    cand = ~nskip & ~shroud
+    pos = e_thresh > 0
+    logthr = torch.where(
+        pos, torch.log(torch.where(pos, e_thresh, _f32(1.0, dev))),
+        _f32(-np.inf, dev))
+    finthr = torch.isfinite(logthr)
+    margin = ((_f32(1e-3, dev) + _f32(EPS, dev) * (
+        _f32(5.0 * L, dev) + _f32(L + 5.0, dev) * abssum))
+        + _f32(4.0 * EPS, dev) * torch.where(finthr, logthr.abs(),
+                                             _f32(0.0, dev)))
+    und = _f32(-(1074.0 + L) * _LN2 - 1.0, dev)
+    logthr2 = torch.where(pos, logthr,
+                          torch.where(e_thresh == 0, und, _f32(-np.inf, dev)))
+    need = cand & ((_flush(loglam + margin) >= logthr2)
+                   | (~torch.isfinite(loglam) & (e_thresh != 0)))
+    header = torch.stack([need.sum(), cand.sum(), (shroud & ~nskip).sum(),
+                          torch.zeros((), dtype=torch.int64, device=dev)]
+                         ).to(torch.int32)
+    order = torch.argsort((~need).to(torch.uint8), stable=True).to(
+        torch.int32)
+    return header, order, _pack(shroud), need
+
+
+def _rows5(small13, src):
+    """The 5-byte small rows (ham, ham_gapless, flags) of rows src."""
+    sm = small13[src].view(torch.uint8)
+    return torch.cat([sm[:, :4], sm[:, 12:13]], dim=1)
+
+
+def budded_pack_ref(small13, tvec, seqs, lens, reads, center: int, eth2,
+                    cbits=None, *, nd: int, L: int, M0: int, K: int,
+                    greedy: bool, kind: str = "tiles",
+                    M0U: Optional[int] = None, cache_on: bool = False):
+    """Plain version of kernel B5 (backend_tpu._budded_fused after its
+    small pack): the screen, the need bitmap, in cache mode (cbits: the
+    host's cached-row bitmap, uint8 [nd/8]) the compaction of the needed
+    uncached rows with m_u in header[3], and the 5 B rows and
+    substitution records of the first MU compacted rows. Returns (buf
+    uint8, order int32 [nd], order_u int32 [nd]; order_u is order
+    outside cache mode)."""
+    n = small13.shape[0]
+    header, order, shroud_pk, need = shortlist_screen(
+        small13, eth2, reads, center, nd=nd, L=L, greedy=greedy)
+    need_pk = _pack(need)
+    if cache_on:
+        need_u = need & ~_unpack(cbits, nd)
+        order_u = torch.argsort((~need_u).to(torch.uint8), stable=True).to(
+            torch.int32)
+        header[3] = need_u.sum().to(torch.int32)
+    else:
+        order_u = order
+    src = _src(order_u[: M0U if cache_on else M0].to(torch.int64), n)
+    subs = _subs_bytes(tvec, seqs, lens, center, small13[:, 12], src, K,
+                       kind)
+    buf = torch.cat([header.view(torch.uint8), need_pk,
+                     _rows5(small13, src).reshape(-1), subs.reshape(-1),
+                     shroud_pk])
+    return buf, order, order_u
+
+
+def take_subs_ref(small13, tvec, seqs, lens, center: int, order, *,
+                  M0: int, M: int, K: int, kind: str = "tiles"):
+    """Plain version of the follow-up (backend_tpu._take_subs): the 5 B
+    rows, then the substitution records, of compacted rows
+    [M0, M0 + M)."""
+    n = small13.shape[0]
+    src = _src(order[M0: M0 + M].to(torch.int64), n)
+    subs = _subs_bytes(tvec, seqs, lens, center, small13[:, 12], src, K,
+                       kind)
+    return torch.cat([_rows5(small13, src).reshape(-1), subs.reshape(-1)])
+
+
+# ---- build, load and launch --------------------------------------------------
+
+def build_kernel() -> str:
+    """Build csrc/store_screen.cu and return its `-Xptxas -v` report."""
+    return nww.build_library(_SRC, _SO, _PTXAS_LOG)
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    build_kernel()
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(_SO)
+            V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.store_screen_run.restype = I
+            lib.store_screen_run.argtypes = (
+                [V] * 7 + [I] * 6 + [F] * 3 + [V] * 4 + [I] * 6 + [V])
+            lib.store_screen_take.restype = I
+            lib.store_screen_take.argtypes = [V] * 5 + [I] * 7 + [V] * 2 + [V]
+            _lib = lib
+    return _lib
+
+
+def _check(small13, tvec, seqs, lens, center, K, kind):
+    n, W = seqs.shape
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    want = {"small13": (small13, (n, 13), torch.int8),
+            "tvec": (tvec, (n, W), torch.int8),
+            "seqs": (seqs, (n, W), torch.int8),
+            "lens": (lens, (n,), torch.int64)}
+    for name, (x, shape, dtype) in want.items():
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"{name} is {x.dtype} {tuple(x.shape)}, "
+                             f"expected {dtype} {shape}")
+        if not x.is_contiguous() or x.device != seqs.device:
+            raise ValueError(f"{name} must be contiguous on {seqs.device}")
+    if not 0 <= center < n:
+        raise ValueError(f"center {center} outside [0, {n})")
+    if kind == "tiles" and not 0 < K <= W:
+        raise ValueError(f"a tile holds 1..W={W} entries, not K={K}")
+    if kind == "bits" and (K <= 0 or K % 4 or K > BITS_K_MAX):
+        raise ValueError(f"the bits stream needs 0 < K <= {BITS_K_MAX}, "
+                         f"K % 4 == 0, not K={K}")
+
+
+def _launch(dev, fn, *args):
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"store_screen kernel B5 launch failed: CUDA "
+                           f"error {rc}")
+
+
+def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
+                cbits=None, *, nd: int, L: int, M0: int, K: int,
+                greedy: bool, kind: str = "tiles",
+                M0U: Optional[int] = None, cache_on: bool = False):
+    """Kernel B5: see budded_pack_ref for what it computes. CUDA tensors
+    launch the screen, the compaction and the pack on the current stream
+    (one count in launches["pack"]); CPU tensors run budded_pack_ref."""
+    _check(small13, tvec, seqs, lens, center, K, kind)
+    n, W = seqs.shape
+    MU = M0U if cache_on else M0
+    if nd % 8 or nd < n or not 0 <= MU <= nd or (cache_on and cbits is None):
+        raise ValueError(f"nd={nd}, n={n}, MU={MU}, cache_on={cache_on}")
+    kw = dict(nd=nd, L=L, M0=M0, K=K, greedy=greedy, kind=kind, M0U=M0U,
+              cache_on=cache_on)
+    dev = seqs.device
+    if dev.type == "cpu":
+        return budded_pack_ref(small13, tvec, seqs, lens, reads, center, eth2,
+                               cbits, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"budded_pack runs on cuda or cpu, not {dev}")
+    nb = nd // 8
+    if (eth2.dtype != torch.uint8 or tuple(eth2.shape) != (2 * nd + nb,)
+            or reads.dtype != torch.int32 or tuple(reads.shape) != (n,)
+            or (cache_on and (cbits.dtype != torch.uint8
+                              or tuple(cbits.shape) != (nb,)))):
+        raise ValueError("eth2 must be uint8 [2 nd + nd/8], reads int32 "
+                         "[n], cbits uint8 [nd/8]")
+    o1, o2, o3, total = budbuf_layout(nd, W, M0, K, kind,
+                                      M0U if cache_on else None)
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    order = torch.empty(nd, dtype=torch.int32, device=dev)
+    order_u = (torch.empty(nd, dtype=torch.int32, device=dev) if cache_on
+               else order)
+    status = torch.empty(nd, dtype=torch.uint8, device=dev)
+    _launch(dev, _load().store_screen_run,
+            small13.data_ptr(), eth2.data_ptr(), reads.data_ptr(),
+            cbits.data_ptr() if cache_on else None, tvec.data_ptr(),
+            seqs.data_ptr(), lens.data_ptr(),
+            n, nd, W, int(center), int(bool(greedy)), int(bool(cache_on)),
+            float(np.float32(5.0 * L)), float(np.float32(L + 5.0)),
+            float(np.float32(-(1074.0 + L) * _LN2 - 1.0)),
+            status.data_ptr(), order.data_ptr(), order_u.data_ptr(),
+            buf.data_ptr(), MU, K, int(kind == "bits"), o1, o2, o3)
+    with _count_lock:   # multi-sample dada() launches from worker threads
+        launches["pack"] += 1
+    return buf, order, order_u
+
+
+def take_subs(small13, tvec, seqs, lens, center: int, order, *, M0: int,
+              M: int, K: int, kind: str = "tiles"):
+    """Kernel B5's follow-up (see take_subs_ref): one launch of its pack
+    kernel over compacted rows [M0, M0 + M) on CUDA tensors (one count in
+    launches["take"]); CPU tensors run take_subs_ref."""
+    _check(small13, tvec, seqs, lens, center, K, kind)
+    n, W = seqs.shape
+    if M0 < 0 or M <= 0 or M0 + M > order.shape[0]:
+        raise ValueError(f"rows [{M0}, {M0 + M}) outside the order's "
+                         f"{order.shape[0]}")
+    dev = seqs.device
+    if dev.type == "cpu":
+        return take_subs_ref(small13, tvec, seqs, lens, center, order, M0=M0,
+                             M=M, K=K, kind=kind)
+    if dev.type != "cuda":
+        raise ValueError(f"take_subs runs on cuda or cpu, not {dev}")
+    if order.dtype != torch.int32 or not order.is_contiguous():
+        raise ValueError("order must be contiguous int32")
+    out = torch.empty(M * (5 + subw(W, K, kind)), dtype=torch.uint8,
+                      device=dev)
+    _launch(dev, _load().store_screen_take,
+            order.data_ptr(), small13.data_ptr(), tvec.data_ptr(),
+            seqs.data_ptr(), lens.data_ptr(),
+            M0, M, n, W, int(center), K, int(kind == "bits"),
+            out.data_ptr(), out.data_ptr() + 5 * M)
+    with _count_lock:
+        launches["take"] += 1
+    return out
+
+
+launches = {"pack": 0, "take": 0}

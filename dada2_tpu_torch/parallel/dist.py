@@ -185,16 +185,28 @@ def build_compare_and_tally(mesh: Mesh, nd: int, W: int, ncol: int, *,
     replaces accumulateTrans (reference: R/errorModels.R:462-471) each
     selfConsist round. Also returns per-unique log-lambda under logerr
     (the f32 sum of logerr[t, q] over valid positions), gathered over the
-    pairs axis in shard order. Shards may be uneven (tensor_split)."""
+    pairs axis in shard order. Shards may be uneven (tensor_split).
+
+    On a mesh that spans processes (pod_mesh) every process passes the
+    same global inputs and runs only its own entries' shards, as the JAX
+    package's shard_map does; one int64 all_reduce over the default
+    process group then sums the counts and fills in the other processes'
+    ham and loglam rows (each entry is one process's, the rest add
+    zeros: loglam travels as its float32 bits), so every process returns
+    the whole result."""
+    me = process_index()
     devs = np.empty(mesh.devices.shape, dtype=object)
     for k, e in enumerate(mesh.devices.reshape(-1)):
-        if e.process_index != process_index():
-            raise ValueError("build_compare_and_tally runs on this "
-                             "process's mesh entries only")
-        devs.reshape(-1)[k] = _local_device(e.device)
+        devs.reshape(-1)[k] = (_local_device(e.device)
+                               if e.process_index == me else None)
     if devs.ndim != 2:
         raise ValueError('the mesh must have axes ("samples", "pairs")')
-    out_dev = devs[0, 0]
+    local = [d for d in devs.reshape(-1) if d is not None]
+    if not local:
+        raise ValueError("build_compare_and_tally needs an entry of this "
+                         "process in the mesh")
+    spans = len(local) < devs.size
+    out_dev = local[0]
 
     def local_step(dev, center_seq, center_len, seqs, lens, quals, reads,
                    logerr):
@@ -223,25 +235,47 @@ def build_compare_and_tally(mesh: Mesh, nd: int, W: int, ncol: int, *,
                                             lens, quals, reads)]
         lerr = torch.as_tensor(logerr).to(torch.float32)
         ms, mp = devs.shape
-        rows = torch.tensor_split(torch.arange(ins[2].shape[0]), ms)
-        cols = torch.tensor_split(torch.arange(ins[2].shape[1]), mp)
-        hams, lams, total = [], [], None
+        S, npairs = ins[2].shape[:2]
+        rows = torch.tensor_split(torch.arange(S), ms)
+        cols = torch.tensor_split(torch.arange(npairs), mp)
+        ham = torch.zeros((S, npairs), dtype=torch.int32, device=out_dev)
+        lam = torch.zeros((S, npairs), dtype=torch.float32, device=out_dev)
+        total = torch.zeros((16, ncol), dtype=torch.int32, device=out_dev)
         for i, si in enumerate(rows):
-            hrow, lrow = [], []
             for j, pj in enumerate(cols):
-                h, lam, c = local_step(
+                if devs[i, j] is None:
+                    continue
+                h, lm, c = local_step(
                     devs[i, j], ins[0][si], ins[1][si],
                     ins[2][si][:, pj], ins[3][si][:, pj],
                     ins[4][si][:, pj], ins[5][si][:, pj], lerr)
-                hrow.append(h.to(out_dev))
-                lrow.append(lam.to(out_dev))
-                c = c.to(out_dev)
-                total = c if total is None else total + c
-            hams.append(torch.cat(hrow, dim=1))
-            lams.append(torch.cat(lrow, dim=1))
-        return torch.cat(hams), torch.cat(lams), total
+                ham[si[:, None], pj[None, :]] = h.to(out_dev, torch.int32)
+                lam[si[:, None], pj[None, :]] = lm.to(out_dev)
+                total = total + c.to(out_dev)
+        if spans:
+            ham, lam, total = _sum_across_processes(ham, lam, total)
+        return ham, lam, total
 
     return step
+
+
+def _sum_across_processes(ham, lam, counts):
+    """One int64 all_reduce of (counts, ham, loglam's float32 bits): the
+    counts are summed, and ham and loglam come back whole, since every
+    element of theirs is nonzero in one process at most."""
+    import torch.distributed as dist
+
+    parts = (counts.to(torch.int64).reshape(-1),
+             ham.to(torch.int64).reshape(-1),
+             lam.view(torch.int32).to(torch.int64).reshape(-1))
+    buf = torch.cat(parts).to(_collective_device())
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    buf = buf.to(ham.device)
+    nc, nh = parts[0].numel(), parts[1].numel()
+    return (buf[nc: nc + nh].to(torch.int32).reshape(ham.shape),
+            buf[nc + nh:].to(torch.int32).view(torch.float32).reshape(
+                lam.shape),
+            buf[:nc].to(torch.int32).reshape(counts.shape))
 
 
 def dryrun_multichip(n_devices: int, device=None):

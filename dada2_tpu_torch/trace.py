@@ -27,6 +27,11 @@ class Counters:
     device_fetches: int = 0    # forcing device -> host reads
     put_bytes: int = 0
     fetch_bytes: int = 0
+    # budded compares (kernel B5): shortlist buffers that overflowed into
+    # a follow-up fetch, and shortlist rows whose substitutions overflowed
+    # their records into a dense tvec fetch
+    followup_fetches: int = 0
+    dense_refetches: int = 0
 
     def reset(self) -> None:
         self.compares = 0
@@ -38,6 +43,8 @@ class Counters:
         self.device_fetches = 0
         self.put_bytes = 0
         self.fetch_bytes = 0
+        self.followup_fetches = 0
+        self.dense_refetches = 0
 
     def alignments_per_sec(self) -> float:
         if self.compare_seconds == 0:
@@ -52,6 +59,8 @@ class Counters:
             "device_fetches": self.device_fetches,
             "put_bytes": self.put_bytes,
             "fetch_bytes": self.fetch_bytes,
+            "followup_fetches": self.followup_fetches,
+            "dense_refetches": self.dense_refetches,
         }
 
     def summary(self) -> str:
@@ -62,7 +71,9 @@ class Counters:
                 f"device ops: {self.device_puts} puts "
                 f"({self.put_bytes / 1e6:.1f}MB), "
                 f"{self.device_fetches} fetches "
-                f"({self.fetch_bytes / 1e6:.1f}MB)")
+                f"({self.fetch_bytes / 1e6:.1f}MB), "
+                f"{self.followup_fetches} follow-ups, "
+                f"{self.dense_refetches} dense re-fetches")
 
 
 COUNTERS = Counters()

@@ -70,19 +70,50 @@ def test_compare_parity(sample, kdist):
     np.testing.assert_array_equal(lam_j, lam_t)
 
 
-def test_compare_parity_e_thresh(sample):
-    """With an e_thresh the port screens on the f32 log-lambda: ham stays
-    bit-identical, lam is bit-identical on every row it keeps, every row
-    the engine would store is kept, and a zeroed row is provably below
-    the store threshold."""
+def test_compare_parity_e_thresh(sample, monkeypatch):
+    """With an e_thresh at the engine's cutoff the compare is budded: the
+    port screens on the card (kernel B5's plain version here) and gives
+    dada2_tpu's budded lam and ham (-2 for screened rows) bit for bit;
+    every row it keeps has the full compare's ham and lam, every row the
+    engine would store is kept, and a screened row is provably below the
+    store threshold."""
     (rs, err, opts), (rs_t, err_t, opts_t) = _states(sample)
     skip = np.zeros(rs.n, dtype=bool)
     cutoff = opts.KDIST_CUTOFF
     lam_j, ham_j = TpuBackend(rs).compare(0, skip, opts, err, True, cutoff)
     total = int(rs.reads.sum())
     e_minmax = np.full(rs.n, np.median(lam_j[lam_j > 0]) * total / 2)
+    monkeypatch.setenv("DADA2_TPU_PALLAS", "1")
+    be_j = TpuBackend(rs)
+    be_j.SPEC_K = 0
+    lam_s, ham_s = be_j.compare(0, skip, opts, err, True, cutoff,
+                                e_minmax / total)
     lam_t, ham_t = CudaBackend(rs_t, device="cpu").compare(
         0, skip, opts_t, err_t, True, cutoff, e_minmax / total)
+    np.testing.assert_array_equal(ham_s, ham_t)
+    np.testing.assert_array_equal(lam_s, lam_t)
+    kept = ham_t != -2
+    assert 0 < kept.sum() < (lam_j != 0).sum()     # the screen screened
+    np.testing.assert_array_equal(ham_t[kept], ham_j[kept])
+    np.testing.assert_array_equal(lam_t[kept], lam_j[kept])
+    assert kept[lam_j * total > e_minmax].all()
+    assert (lam_j[~kept] * total <= e_minmax[~kept]).all()
+
+
+def test_compare_parity_e_thresh_host_screen(sample):
+    """At another cutoff than the engine's (not budded) the port screens
+    on the host (_screen_need): ham stays bit-identical, lam is
+    bit-identical on every row it keeps, every row the engine would store
+    is kept, and a zeroed row is provably below the store threshold."""
+    (rs, err, opts), (rs_t, err_t, opts_t) = _states(sample)
+    skip = np.zeros(rs.n, dtype=bool)
+    lam_j, ham_j = TpuBackend(rs).compare(0, skip, opts, err, True, 1.0)
+    total = int(rs.reads.sum())
+    e_minmax = np.full(rs.n, np.median(lam_j[lam_j > 0]) * total / 2)
+    be_t = CudaBackend(rs_t, device="cpu")
+    lam_t, ham_t = be_t.compare(0, skip, opts_t, err_t, True, 1.0,
+                                e_minmax / total)
+    assert be_t.last_stats is None                 # not the budded route
     np.testing.assert_array_equal(ham_j, ham_t)
     kept = lam_t != 0
     assert 0 < kept.sum() < (lam_j != 0).sum()     # the screen screened

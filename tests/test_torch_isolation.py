@@ -21,7 +21,8 @@ def test_import_loads_no_jax():
     code = ("import sys, dada2_tpu_torch, dada2_tpu_torch.chimeras, "
             "dada2_tpu_torch.seqtab, dada2_tpu_torch.paired, "
             "dada2_tpu_torch.ops.nw_batch, dada2_tpu_torch.parallel, "
-            "dada2_tpu_torch.parallel.dist; "
+            "dada2_tpu_torch.parallel.dist, "
+            "dada2_tpu_torch.ops.store_screen; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'dada2_tpu' "
             "or m.startswith('dada2_tpu.')]; print(bad)")
@@ -36,7 +37,7 @@ def test_sources_import_no_jax():
                      re.M)
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "ab_b1.py", "ab_b2.py",
-                                 "ab_b4.py", "sass_fill.py")]
+                                 "ab_b4.py", "ab_bud.py", "sass_fill.py")]
     assert len(files) > 15
     for f in files:
         hits = pat.findall(f.read_text())
@@ -177,6 +178,61 @@ def test_second_card_launches_on_its_own_device(extdata):
     assert all(x.device == torch.device("cuda", 1) for x in got)
     for g, w in zip(got, nwb.nw_batch(*args, device="cpu", **kw)):
         assert torch.equal(g.cpu(), w)
+
+
+def test_store_screen_refuses_other_devices():
+    """Kernel B5's wrappers run the plain version only for CPU tensors:
+    any other device is refused, never quietly computed elsewhere."""
+    from dada2_tpu_torch.ops import store_screen as ss
+
+    n, W, nd = 4, 8, 16
+    meta = torch.device("meta")
+    args = (torch.zeros((n, 13), dtype=torch.int8, device=meta),
+            torch.zeros((n, W), dtype=torch.int8, device=meta),
+            torch.zeros((n, W), dtype=torch.int8, device=meta),
+            torch.zeros(n, dtype=torch.int64, device=meta))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ss.budded_pack(*args, torch.zeros(n, dtype=torch.int32, device=meta),
+                       0, torch.zeros(2 * nd + nd // 8, dtype=torch.uint8,
+                                      device=meta),
+                       nd=nd, L=W, M0=4, K=4, greedy=False)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ss.take_subs(*args, 0, torch.zeros(nd, dtype=torch.int32,
+                                            device=meta), M0=0, M=4, K=4)
+
+
+@pytest.mark.gpu
+def test_budded_route_under_mesh_equal(extdata):
+    """On the card: the budded compares (kernel B5) of a selfConsist
+    engine run give the same results with B1's blocks split over two mesh
+    entries of the card (use_mesh) as meshless, and B5 launches in both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dada2_tpu_torch.core.engine import Engine
+    from dada2_tpu_torch.core.output import finalize
+    from dada2_tpu_torch.ops import store_screen as ss
+    from dada2_tpu_torch.parallel.dist import make_mesh
+
+    drp = dt.derep_fastq(str(extdata / "sam1F.fastq.gz"))
+    rs = dt.core.raws.make_rawset(drp.sequences, drp.abundances, None,
+                                  drp.quals)
+    opts = dt.DEFAULT_OPTIONS.normalized()
+    err = dt.data.tperr1()
+    runs = []
+    for mesh in (None, make_mesh(devices=["cuda:0"] * 2)):
+        be = dt.CudaBackend(rs, mesh=mesh)
+        before = ss.launches["pack"]
+        eng = Engine(rs, err, opts, be, use_quals=True)
+        eng.run(max_clust=opts.MAX_CLUST)
+        runs.append((eng.comp_lam.copy(),
+                     finalize(eng, opts, err.shape[1], opts.OMEGA_C),
+                     ss.launches["pack"] - before))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    for k in ("clustering", "birth_subs"):
+        pd.testing.assert_frame_equal(runs[0][1][k], runs[1][1][k])
+    for k in ("subqual", "map", "pval", "clusterquals"):
+        np.testing.assert_array_equal(runs[0][1][k], runs[1][1][k])
+    assert runs[0][2] == runs[1][2] > 0
 
 
 def test_cpu_device_runs_plain_version():
