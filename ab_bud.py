@@ -1,6 +1,6 @@
 """Measure the compare transport of a checkout of this repo on one card, for
-comparing two checkouts (the budded compare's store screen, kernel B5,
-against a checkout without it).
+comparing two checkouts (two designs of the budded compare's kernel B5, or
+a checkout without it).
 
     python3 ab_bud.py [ROOT]
 

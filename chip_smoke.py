@@ -13,7 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
                and homopolymer aligners, and the one-block-per-pair body,
                the three aligners x pointer slab in shared or device
                memory: eighteen) and csrc/store_screen.cu (kernel B5: the
-               screen, the compaction, the pack's tiles and bits: four);
+               one cooperative budded kernel and the follow-up, tiles and
+               bits each, and the small pack alone: five);
                prints their `-Xptxas -v` reports;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
@@ -35,7 +36,7 @@ Phases (any failure exits non-zero and prints no result line):
   5. main    — a simulated 120,000-read MiSeq sample (the DADA2 tutorial
                scale) through dada(selfConsist=True) on the card, with the
                kernels' launch counts reset just before and read just after
-               (B1 and B5, the budded compares' store screen, must launch);
+               (B1 and B5, the budded compares' one launch, must launch);
                then kernel B1's time (CUDA events) against its plain version
                and its bound, at the main path's largest shapes, and also at
                one block and at samPB.fastq.gz's geometry (BAND_SIZE=32);
@@ -147,20 +148,28 @@ Phases (any failure exits non-zero and prints no result line):
                version on two CPU shards (ham and counts bitwise, loglam
                within rtol = atol = 1e-6), then dryrun_multichip(8) on the
                card. Walls, launches and times printed on [dist] lines.
- 17. shortlist — the budded compare (kernel B5): (b) phase 5's sample
+ 17. shortlist — the budded compare (kernel B5, one launch from the
+               small pack to the shortlist buffer): (b) phase 5's sample
                again with the transport instrumented, then with the budded
-               route off (SHORTLIST_MIN_N: every compare the full route),
-               both equal to phase 5's result; for each the wall, budded
-               compares, B5 launches, bytes per budded compare (min,
-               median, max), fetches and bytes, the be.* phases and the
-               rows whose lambda the host multiplied; (a) B5 against its
-               plain version on the card, bitwise (buffer, order, order_u
-               and the follow-up), at three buds of that run: as called,
-               greedy flipped, M0 = 16, tiles of K = 1, bits at K = 8 and
-               at full coverage, cache mode (M0U 16 and 0), and a
-               threshold mixing -999, 0 and subnormal values; (c) B5's time
-               (CUDA events) at the run's median and largest M0 beside the
-               torch-ops chain (its plain version) and its bound.
+               route off (SHORTLIST_MIN_N: every compare the full route,
+               its small pack B5's small-only launch), both equal to phase
+               5's result; for each the wall, budded compares, B5 launches,
+               bytes per budded compare (min, median, max), fetches and
+               bytes, the be.* phases and the rows whose lambda the host
+               multiplied; (a) B5 against its plain version on the card,
+               bitwise (buffer, order, order_u, small13 and the
+               follow-up), with small13 computed in the launch and with it
+               given, at three buds of that run: as called, greedy
+               flipped, M0 = 16, tiles of K = 1, bits at K = 8 and at full
+               coverage, cache mode (M0U 16 and 0), and a threshold mixing
+               -999, 0 and subnormal values; and the small-only launch
+               against small_pack_ref and the budded launch's small13;
+               (c) B5's device time (torch.profiler's kernel durations,
+               one call after a sync, and the kernels per call) and call
+               time (CUDA events over back-to-back calls) at the run's
+               median and largest M0, the follow-up's and the small-only
+               launch's, beside the plain versions (torch-ops chains) and
+               the bound (the small pack's bytes included).
 It prints one {"device_stages": [...]} line (the taxonomy scorer, torch
 ops, not a hand-written kernel), one {"kernels": [...]} line (B1 to B5)
 and, last, {"ok": true, ...}.
@@ -1621,7 +1630,7 @@ def distributed_phase(dt, dev, card, reset_launches, counts, asvs, err,
 
 # ---- main ------------------------------------------------------------------
 
-# ---- phase 17: the budded compare's store screen (kernel B5) ---------------
+# ---- phase 17: the budded compare in one launch (kernel B5) ----------------
 
 def transport_run(run, per_compare=True):
     """run() with the port's compare backend instrumented (class and module
@@ -1717,28 +1726,30 @@ def transport_run(run, per_compare=True):
 
 def b5_cases(call, ss, rng):
     """The configurations phase 17 holds kernel B5 to its plain version in,
-    from one budded_pack call of the main path: as called, greedy
-    flipped, a 16-row buffer, tiles of one entry, bits at K = 8 and at
-    full coverage, cache mode (a seeded cached-row bitmap, M0U 16 and 0),
-    and a threshold that mixes the -999 init state, 0 and subnormal values
-    into the captured one. Yields (label, args, kwargs)."""
+    from one budded_pack call of the main path that computed its small
+    pack: as called, greedy flipped, a 16-row buffer, tiles of one entry,
+    bits at K = 8 and at full coverage, cache mode (a seeded cached-row
+    bitmap, M0U 16 and 0), and a threshold that mixes the -999 init state,
+    0 and subnormal values into the captured one. Every case computes
+    small13 in the launch (the first argument None). Yields (label, args,
+    kwargs)."""
     import torch
 
     a, kw = call
     W = a[2].shape[1]
     nd = kw["nd"]
-    n = a[0].shape[0]
+    n = a[2].shape[0]
     base = dict(kw, cache_on=False, M0U=None)
-    args = list(a[:7]) + [None]
+    args = [None] + list(a[1:7]) + [None]
     cb = torch.from_numpy(rng.integers(0, 256, nd // 8).astype("uint8")).to(
-        a[0].device)
+        a[2].device)
     eth = a[6].clone()
     e = eth[: 2 * nd].view(torch.bfloat16)
     e[0:n:7] = -999.0 / 120_000
     e[1:n:11] = 0.0
     e[2:n:13] = 9.2e-41
     kfull = min(((W + 3) // 4) * 4, 508)
-    yield "as called", list(a[:8]), dict(kw)
+    yield "as called", [None] + list(a[1:8]), dict(kw)
     yield "greedy flipped", args, dict(base, greedy=not kw["greedy"])
     yield "M0 16", args, dict(base, M0=16)
     yield "tiles K=1", args, dict(base, kind="tiles", K=1)
@@ -1751,16 +1762,21 @@ def b5_cases(call, ss, rng):
 
 
 def b5_vs_plain(ss, args, kw):
-    """Kernel B5 and its plain version on the same card tensors: the
-    largest |difference| over buf, order and order_u, then over the
-    follow-up (take_subs) of the rows past the buffer (or the first 64
+    """Kernel B5 and its plain version on the same card tensors, with
+    small13 computed in the launch and then given (the kernel's): the
+    largest |difference| over buf, order, order_u and small13, then over
+    the follow-up (take_subs) of the rows past the buffer (or the first 64
     compacted rows when the buffer holds them all). Returns (err, buf,
-    m_u)."""
+    m_u, small13)."""
     import torch
 
     got = ss.budded_pack(*args, **kw)
     want = ss.budded_pack_ref(*args, **kw)
     err = max_abs_diff(got, want)
+    small13 = got[3]
+    given = [small13] + list(args[1:])
+    err = max(err, max_abs_diff(ss.budded_pack(*given, **kw),
+                                ss.budded_pack_ref(*given, **kw)))
     buf = got[0]
     m_u = int(buf[:16].view(torch.int32)[3 if kw["cache_on"] else 0])
     MU = kw["M0U"] if kw["cache_on"] else kw["M0"]
@@ -1768,40 +1784,162 @@ def b5_vs_plain(ss, args, kw):
     M0, M = ((MU, min(ss.bucket15(m_u - MU), nd - MU)) if m_u > MU
              else (0, min(64, nd)))
     tk = dict(M0=M0, M=M, K=kw["K"], kind=kw["kind"])
-    targs = args[:4] + [args[5], got[2]]
+    targs = given[:4] + [args[5], got[2]]
     err = max(err, max_abs_diff([ss.take_subs(*targs, **tk)],
                                 [ss.take_subs_ref(*targs, **tk)]))
-    return err, buf, m_u
+    return err, buf, m_u, small13
+
+
+def small_args(a, kw):
+    """small_pack's arguments from a budded_pack call that computed its
+    small pack."""
+    return (a[1], a[2], a[3], kw["quals"], a[5], kw["lerr"], kw["small5"])
+
+
+def small_bound_bytes(a, kw):
+    """Bytes B5's small pack must move on this call's data (0 when the
+    call gives small13): each row's quals and its tvec (or its sequence,
+    gapless rows) up to its length, its small5 and length, the lerr table
+    and the center's row. The small13 rows (written, or read when given)
+    are counted by the caller."""
+    if a[0] is not None:
+        return 0
+    lens = a[3]
+    per_pos = 2 if kw["quals"] is not None else 1
+    return (per_pos * int(lens.clamp(max=a[2].shape[1]).sum()) + a[3].numel()
+            * (5 + 8) + kw["lerr"].numel() * 4 + a[2].shape[1])
 
 
 def b5_bound(args, kw, buflen):
     """(bound_ms, bound_by, detail) of one budded_pack: the bytes B5 must
-    move at the HBM rate — small13, eth2 and reads over every row (and the
-    cached-row bitmap), tvec and seqs rows and lengths of the MU packed
-    slots and the center's row; buf and the order(s) written — against
-    its operations (a few dozen per row: negligible at the int32 rate)."""
+    move at the HBM rate — the small pack's (small_bound_bytes), small13
+    (written or read), eth2 and reads over every row (and the cached-row
+    bitmap), tvec and seqs rows and lengths of the MU packed slots and the
+    center's row; buf and the order(s) written — against its operations
+    (a few per position of the small pack and a few dozen per row for the
+    screen: negligible at the int32 rate)."""
     n, W = args[2].shape
     nd = kw["nd"]
     MU = kw["M0U"] if kw["cache_on"] else kw["M0"]
-    nbytes = (n * (13 + 4) + 2 * nd + nd // 8
+    small = small_bound_bytes(args, kw)
+    nbytes = (small + n * (13 + 4) + 2 * nd + nd // 8
               + (nd // 8 if kw["cache_on"] else 0)
               + MU * (2 * W + 8) + W
               + buflen + 4 * nd * (2 if kw["cache_on"] else 1))
-    ops = 40 * nd + 8 * MU * W
+    ops = 40 * nd + 8 * MU * W + (4 * n * W if small else 0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, (
-        f"{nbytes} bytes -> {t_bytes:.6f} ms; ~{ops} int32 ops -> "
-        f"{t_ops:.6f} ms")
+        f"{nbytes} bytes ({small} of them the small pack's) -> "
+        f"{t_bytes:.6f} ms; ~{ops} int32 ops -> {t_ops:.6f} ms")
+
+
+def device_ms_per_call(fn, calls=20):
+    """fn's device time per call from torch.profiler's kernel durations:
+    each of `calls` calls after a sync, under the profiler, after a spin
+    kernel of ~10 ms (kernels at the very start of a short profiling
+    window can be missing from its trace; the spin is not counted).
+    Returns (median device ms per call, kernels per call, {kernel name:
+    count}); (None, 0, {}) when the profiler saw no device events."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "spin" not in e.name)
+    if not kern:
+        return None, 0, {}
+    for _, _, name in kern:
+        names[name] = names.get(name, 0) + 1
+    k = len(kern) // calls
+    if k * calls == len(kern):
+        per = [sum(e - s for s, e, _ in kern[i * k:(i + 1) * k])
+               for i in range(calls)]
+        return float(np.median(per)) / 1e3, k, names
+    return (sum(e - s for s, e, _ in kern) / calls / 1e3, len(kern) / calls,
+            names)
+
+
+def b5_device_child(path: str) -> None:
+    """17c's device times in a fresh process: in chip_smoke's own process,
+    after its earlier phases, torch.profiler recorded no kernel of a
+    window this short (the cause is not known), where a fresh process
+    records them. Loads the budded_pack calls saved at path ({label: (args,
+    kwargs)}, CPU tensors) onto the card and prints one JSON line {label:
+    {"budded" (small13 computed), "given" (small13 given), "take" (the
+    follow-up over the first max(MU, 16) compacted rows), "small" (the
+    small-only launch): [device ms per call, kernels per call, {kernel
+    name: count}]}}."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from dada2_tpu_torch.ops import store_screen as ss
+
+    dev = torch.device("cuda", 0)
+
+    def card(x):
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    out = {}
+    for label, (a, kw) in torch.load(path).items():
+        a = [card(x) for x in a]
+        kw = {k: card(v) for k, v in kw.items()}
+        got = ss.budded_pack(*a, **kw)
+        given = [got[3]] + a[1:]
+        MU = kw["M0U"] if kw["cache_on"] else kw["M0"]
+        tk = dict(M0=0, M=min(max(MU, 16), kw["nd"]), K=kw["K"],
+                  kind=kw["kind"])
+        targs = (got[3], a[1], a[2], a[3], a[5], got[2])
+        sa = small_args(a, kw)
+        out[label] = {
+            "budded": device_ms_per_call(lambda: ss.budded_pack(*a, **kw)),
+            "given": device_ms_per_call(lambda: ss.budded_pack(*given,
+                                                               **kw)),
+            "take": device_ms_per_call(lambda: ss.take_subs(*targs, **tk)),
+            "small": device_ms_per_call(lambda: ss.small_pack(*sa))}
+    print(json.dumps(out), flush=True)
+
+
+def b5_device_times(calls):
+    """Run b5_device_child on {label: (args, kwargs)} in a fresh process;
+    returns its {label: {...}}."""
+    import torch
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "b5_calls.pt")
+        torch.save({label: ([cpu(x) for x in a],
+                            {k: cpu(v) for k, v in kw.items()})
+                    for label, (a, kw) in calls.items()}, path)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--b5-device-time",
+             path], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"17c: the device-time process failed ({proc.returncode}): "
+             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def shortlist_phase(dt, dev, card, sim, res5, n_b5):
     """Phase 17: kernel B5 against its plain version on inputs captured
     from phase 5's path (17a), phase 5's sample through the budded route
-    against the full route on the card (17b), and B5's time at the run's
-    median and largest buffer (17c). Fails on any difference; returns
-    B5's row of the kernels line."""
+    against the full route on the card (17b), and B5's device and call
+    times at the run's median and largest buffer (17c). Fails on any
+    difference; returns B5's row of the kernels line."""
     import numpy as np
     import torch
 
@@ -1827,59 +1965,113 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
         same_sample(res5, res_f, "17b full route vs phase 5")
     except AssertionError as e:
         fail(f"17b: phase 5's sample differs between routes: {e}")
-    if not calls or st_b["b5_launches"]["pack"] != len(calls) or any(
-            st_f["b5_launches"].values()):
+    if (not calls or st_b["b5_launches"]["pack"] != len(calls)
+            or st_f["b5_launches"]["pack"] or st_f["b5_launches"]["take"]
+            or not st_f["b5_launches"]["small"]):
         fail(f"17b: B5 launches {st_b['b5_launches']} budded, "
-             f"{st_f['b5_launches']} with the route off")
+             f"{st_f['b5_launches']} with the route off (the full route's "
+             f"small packs must be B5's small-only launch)")
     for label, st in (("budded route", st_b), ("full route", st_f)):
         log(f"[shortlist] 17b phase 5's sample, {label}: "
             f"{json.dumps(st, sort_keys=True)}; card {card}")
+    computed = [k for k, (a, _) in enumerate(calls) if a[0] is None]
     log(f"[shortlist] 17b: both routes equal phase 5's result (phase 4 "
         f"holds sam1F card == CPU through the budded route; this sample is "
-        f"too large for the CPU's plain B1)")
+        f"too large for the CPU's plain B1); {len(computed)} of "
+        f"{len(calls)} budded compares computed their small pack in B5's "
+        f"launch, the rest hit the small13 cache")
+    if not computed:
+        fail("17b: no budded compare computed its small pack in B5")
 
-    # 17a. B5 against its plain version at three buds of 17b's run
+    # 17a. B5 against its plain version at three buds of 17b's run (of
+    # those that computed their small pack), and the small-only launch
     rng = np.random.default_rng(17)
     err17 = 0
-    picks = sorted({0, len(calls) // 2, len(calls) - 1})
+    picks = sorted({computed[0], computed[len(computed) // 2],
+                    computed[-1]})
     for k in picks:
         for label, args, kw in b5_cases(calls[k], ss, rng):
-            err, buf, m_u = b5_vs_plain(ss, args, kw)
+            err, buf, m_u, small13 = b5_vs_plain(ss, args, kw)
             err17 = max(err17, err)
             log(f"[shortlist] 17a bud {k} {label}: M0={kw['M0']} "
                 f"M0U={kw['M0U']} {kw['kind']} K={kw['K']} "
                 f"greedy={kw['greedy']}: {len(buf)} bytes, m_u={m_u}; max "
-                f"|kernel - plain| = {err}")
+                f"|kernel - plain| = {err} (small13 computed and given)")
             if err != 0:
                 fail(f"kernel B5 disagrees with its plain version (bud {k}, "
                      f"{label})")
+        sa = small_args(*calls[k])
+        alone = ss.small_pack(*sa)
+        err = max_abs_diff([alone, alone], [ss.small_pack_ref(*sa), small13])
+        err17 = max(err17, err)
+        log(f"[shortlist] 17a bud {k} small-only launch: max |kernel - "
+            f"small_pack_ref|, |small-only - budded small13| = {err}")
+        if err != 0:
+            fail(f"B5's small-only launch disagrees (bud {k})")
     torch.cuda.synchronize()
 
-    # 17c. B5's time at the run's median and largest buffer
-    m0s = [kw["M0"] for _, kw in calls]
+    # 17c. B5's device and call times at the run's median and largest
+    # buffer (calls that computed their small pack), the follow-up and the
+    # small-only launch; device times from torch.profiler in a fresh
+    # process (b5_device_child)
+    m0s = [calls[k][1]["M0"] for k in computed]
     tiny = torch.zeros(1, device=dev)
     floor_ms = cuda_ms(lambda: tiny.add_(1), 200)
+    picked = {label: next(calls[k] for k in computed
+                          if calls[k][1]["M0"] == M0)
+              for label, M0 in (("median M0", int(np.median(m0s))),
+                                ("largest M0", max(m0s)))}
+    dev_t = b5_device_times(picked)
     timed = []
-    for label, M0 in (("median M0", int(np.median(m0s))),
-                      ("largest M0", max(m0s))):
-        a, kw = next(c for c in calls if c[1]["M0"] == M0)
+    for label, (a, kw) in picked.items():
+        d = dev_t[label]
+        for part, (_, per_call, names) in d.items():
+            if per_call != 1:
+                fail(f"17c: {part} at {label} ran {per_call} kernels per "
+                     f"call, not 1 ({names})")
         ms = cuda_ms(lambda: ss.budded_pack(*a, **kw), 50)
         plain = cuda_ms(lambda: ss.budded_pack_ref(*a, **kw), 5)
-        buflen = len(ss.budded_pack(*a, **kw)[0])
+        out = ss.budded_pack(*a, **kw)
+        buflen = len(out[0])
         b_ms, b_by, det = b5_bound(a, kw, buflen)
-        timed.append(dict(shape=label, M0=M0, K=kw["K"], kind=kw["kind"],
-                          cache_on=kw["cache_on"], nd=kw["nd"], ms=ms,
-                          plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                          buf_bytes=buflen))
-        log(f"[shortlist] 17c B5 at {label} (nd={kw['nd']}, M0={M0}, "
-            f"{kw['kind']} K={kw['K']}, cache {kw['cache_on']}): kernel "
-            f"{ms:.4f} ms per call (three launches), torch-ops chain "
-            f"(plain version) {plain:.4f} ms; bound {b_ms:.6f} ms by {b_by} "
-            f"({det}); one launch's floor {floor_ms:.4f} ms (a 1-element "
-            f"add_), three of them {3 * floor_ms:.4f} ms; card {card}")
+        given = [out[3]] + list(a[1:])
+        g_ms = cuda_ms(lambda: ss.budded_pack(*given, **kw), 50)
+        g_bound, _, _ = b5_bound(given, kw, buflen)
+        MU = kw["M0U"] if kw["cache_on"] else kw["M0"]
+        tk = dict(M0=0, M=min(max(MU, 16), kw["nd"]), K=kw["K"],
+                  kind=kw["kind"])
+        targs = (out[3], a[1], a[2], a[3], a[5], out[2])
+        t_ms = cuda_ms(lambda: ss.take_subs(*targs, **tk), 50)
+        sa = small_args(a, kw)
+        s_ms = cuda_ms(lambda: ss.small_pack(*sa), 50)
+        s_plain = cuda_ms(lambda: ss.small_pack_ref(*sa), 5)
+        s_bound = ((small_bound_bytes([None] + list(a[1:]), kw)
+                    + 13 * a[2].shape[0]) / HBM_BYTES_PER_S * 1e3)
+        timed.append(dict(
+            shape=label, M0=kw["M0"], K=kw["K"], kind=kw["kind"],
+            cache_on=kw["cache_on"], nd=kw["nd"], ms=ms,
+            device_ms=d["budded"][0], plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, buf_bytes=buflen, given_ms=g_ms,
+            given_device_ms=d["given"][0], given_bound_ms=g_bound,
+            take=dict(rows=tk["M"], ms=t_ms, device_ms=d["take"][0]),
+            small=dict(ms=s_ms, device_ms=d["small"][0], plain_ms=s_plain,
+                       bound_ms=s_bound)))
+        log(f"[shortlist] 17c B5 at {label} (nd={kw['nd']}, M0={kw['M0']}, "
+            f"{kw['kind']} K={kw['K']}, cache {kw['cache_on']}): device "
+            f"{d['budded'][0]} ms per call (one kernel: "
+            f"{list(d['budded'][2])}), call {ms:.4f} ms (CUDA events over 50 "
+            f"calls); small13 given: device {d['given'][0]} ms, call "
+            f"{g_ms:.4f} ms, bound {g_bound:.6f} ms; plain version "
+            f"(torch-ops chain, small pack included) {plain:.4f} ms; bound "
+            f"{b_ms:.6f} ms by {b_by} ({det}); follow-up ({tk['M']} rows) "
+            f"device {d['take'][0]} ms, call {t_ms:.4f} ms; small-only "
+            f"launch device {d['small'][0]} ms, call {s_ms:.4f} ms, bound "
+            f"{s_bound:.6f} ms by bytes, plain version (small_pack_ref) "
+            f"{s_plain:.4f} ms; one launch's floor {floor_ms:.4f} ms (a "
+            f"1-element add_); card {card}")
     top = timed[-1]
     return dict(launches=sum(n_b5.values()), launches_by_wrapper=n_b5,
-                ms=top["ms"],
+                ms=top["ms"], device_ms=top["device_ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], launch_floor_ms=floor_ms,
                 timed=timed, max_abs_err=err17)
@@ -1979,9 +2171,10 @@ def main() -> None:
              f"one-block-per-pair body: the three aligners x two slab "
              f"routes), ptxas compiled {entries}")
     entries = reports["store_screen.cu"].count("Compiling entry function")
-    if entries != 4:
-        fail(f"expected 4 kernels of B5 (screen, compaction, the pack's "
-             f"tiles and bits), ptxas compiled {entries}")
+    if entries != 5:
+        fail(f"expected 5 kernels of B5 (the cooperative budded kernel and "
+             f"the follow-up, tiles and bits each, and the small pack "
+             f"alone), ptxas compiled {entries}")
     b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
     if sorted(b1_regs) != [1, 2, 3, 4]:
         fail(f"B1's four instantiations not found in the ptxas report: "
@@ -2228,9 +2421,21 @@ def main() -> None:
             fail(f"kernel B1 disagrees with its plain version at {label}")
 
     # 6. where the main path's device time goes (fresh backend, so the
-    # kernel runs again)
-    profile_device("selfConsist run", lambda: dt.dada(
+    # kernel runs again); B5 shows one kernel per counted launch
+    b5_before = dict(ss.launches)
+    by_name = profile_device("selfConsist run", lambda: dt.dada(
         sim, err=None, selfConsist=True, device="cuda", verbose=False))
+    b5_calls = {k: ss.launches[k] - b5_before[k] for k in ss.launches}
+    b5_kernels = {k: sum(c for name, (_, c) in by_name.items()
+                         if f"{k}_kernel" in name)
+                  for k in ("budded", "take", "small")}
+    log(f"[profile] B5 in that run: wrapper calls {b5_calls}, kernels "
+        f"{b5_kernels} (budded = pack, take = take, small = small)")
+    if by_name and (b5_kernels["budded"] != b5_calls["pack"]
+                    or b5_kernels["take"] != b5_calls["take"]
+                    or b5_kernels["small"] != b5_calls["small"]):
+        fail("B5's kernels in the profile do not match its counted calls "
+             "one for one")
 
     # 7. the chimera slice, small: card against CPU, identical
     def small_table(device):
@@ -2905,5 +3110,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-child"]:
         dist_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--b5-device-time"]:
+        b5_device_child(sys.argv[2])
     else:
         main()

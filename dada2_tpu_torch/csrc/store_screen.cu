@@ -1,57 +1,122 @@
-// Kernel B5: the budded compare's store screen and shortlist pack, for
-// Hopper (sm_90a).
+// Kernel B5: the whole budded compare in one launch, for Hopper (sm_90a).
 //
-// Replaces the XLA programs of dada2_tpu/core/backend_tpu.py's budded
-// compare: _budded_fused (:520) after its small pack, i.e.
+// Replaces the XLA program dada2_tpu/core/backend_tpu.py::_budded_fused
+// (:520): the small pack _small_trace (:341), the store screen
 // _shortlist_screen (:779), the stable ascending compactions
-// (argsort(~need, stable=True)), _subs_tile_trace (:410) and
-// _subs_bits_trace (:426) over _sel_tv (:386), and the follow-up
-// _take_subs (:640). Plain version and layout: ops/store_screen.py
-// (budded_pack_ref, take_subs_ref, budbuf_layout); every output byte is
-// the plain version's.
+// (argsort(~need, stable=True)) and the substitution transport
+// _subs_tile_trace (:410) / _subs_bits_trace (:426) over _sel_tv (:386);
+// and the follow-up _take_subs (:640). Plain version and layout:
+// ops/store_screen.py (small_pack_ref, budded_pack_ref, take_subs_ref,
+// budbuf_layout); every output byte is the plain version's.
 //
-// Three kernels per budded compare (one launch each):
-//   screen_kernel   one thread per row: the f32 store screen, a status
-//                   byte per row, and the need and shroud bitmaps from
-//                   warp ballots;
-//   compact_kernel  one block: a chunked block scan of the status bytes
-//                   gives the stable compactions (needed rows ascending,
-//                   then the others ascending; in cache mode the same
-//                   for needed uncached rows) and the header. A scan,
-//                   never an atomic counter: the host rebuilds the
-//                   shortlist's row indices from the need bitmap, so the
-//                   order must be ascending;
-//   pack_kernel     one warp per shortlist slot: the slot's 5-byte small
-//                   row and its substitution records (tiles: the first K
-//                   pos | nt0 << 14 entries in ascending position, 0xFFFF
-//                   after; bits: the position bitmap and the 2-bit nt0
-//                   stream), positions compacted with ballots and popc.
-// The follow-up runs pack_kernel alone over compacted rows [M0, M0 + M).
+// budded_kernel<BITS> is one persistent cooperative kernel (launched with
+// cudaLaunchCooperativeKernel, grid = blocks the occupancy calculator
+// fits on every SM x the SM count, capped by the work). Each block owns a
+// contiguous range of rows (a multiple of 32), so the compaction stays
+// local to it:
+//   1. small pack and screen, fused, THREADS rows at a time: the small
+//      pack a warp per row, then the screen a thread per row, so that
+//      the screen's loads and logf stay off the warps' path. Lane l sums
+//      the f32 log factors lerr[t, q] (lerr [17, Q] in shared memory) of
+//      positions l, l + 32, ... in ascending order, loglam and
+//      |factor| in two accumulators, then an xor butterfly over offsets
+//      16, 8, 4, 2, 1 combines the lanes (small_pack_ref defines this
+//      order; it is the kernel's, not XLA's: the sums are a screen and
+//      the screen's margin covers any order). The row's gapless flag
+//      picks the transitions before the sum (gapless: the
+//      pad-to-length construction from the row and the center; else
+//      kernel B1's tvec): the same bits as summing both and selecting,
+//      with half the reads. The row's 13 bytes go to small13, its sums
+//      to shared memory; then a thread per row screens the rows (a
+//      status byte in shared memory), from the small pack's sums or,
+//      given small13 (a cache hit), from the given row. Then ballots
+//      over 32 consecutive rows write the need and shroud
+//      bitmaps, and each block's four counts (need, need_u, cand,
+//      nshroud) go to a global array.
+//   2. grid sync. Each block sums the counts of the blocks before it and
+//      writes its rows' stable ascending compactions (needed rows at
+//      pn++, the others at m + r - pn; the same over need_u in cache
+//      mode); block 0 writes the header. No atomics on positions: the
+//      host rebuilds the shortlist's rows from the need bitmap, so the
+//      order must be ascending.
+//   3. grid sync. One warp per shortlist slot (grid-stride): the slot's
+//      5-byte small row and its substitution records (tiles: the first
+//      K pos | nt0 << 14 entries in ascending position, 0xFFFF after;
+//      bits: the position bitmap and the 2-bit nt0 stream), positions
+//      compacted with ballots and popc.
+// take_kernel<BITS> runs phase 3's device function alone over compacted
+// rows [M0, M0 + M) (the follow-up); small_kernel runs phase 1's small
+// pack alone (the full route's small13), so the card has one definition
+// of small13's bits.
 //
-// What bounds it: bytes. The screen reads 13 + 2 + 4 bytes a row and
-// writes one status byte; the pack reads two W-byte rows (tvec, seqs) per
-// slot. The work is a few hundred KB per compare, so at phase 5's sizes
-// the launches' latency, not the card's memory rate, sets its time.
+// Grid sync needs no -rdc=true: since CUDA 11 cooperative_groups'
+// grid.sync() compiles in whole-program mode, and build_library's
+// command is unchanged.
+//
+// Data written in one phase and read by other blocks in a later one
+// (small13, order, the block counts) is read with ld.global.cg (__ldcg,
+// L2), and its pointers are not const __restrict__ (no ld.global.nc).
+//
+// What bounds it: bytes. Phase 1 reads each row's quals and its tvec (or
+// its sequence, gapless rows) up to its length, about 11 MB at phase 5
+// (n 21,630, W 250), and 5 + 8 bytes of small5 and lens, then 19 bytes a
+// row for the screen and writes 13; phase 3 reads two W-byte rows per
+// slot. At those sizes the launch, the per-row latency of a warp walking
+// its rows and the two grid syncs, not the memory rate, set its time;
+// one launch instead of three (and no torch-ops small pack before it) is
+// what this design buys. Vector loads or TMA for phase 1 are later work.
 //
 // Numerics: the screen's f32 arithmetic is the JAX package's, in its
 // order, with no contraction into FMAs (__fmul_rn / __fadd_rn) and the
 // accurate logf (no fast math), and subnormals read as zero, as XLA
 // reads them (flush), so `need` is bitwise the plain version's.
-// e_thresh arrives as bf16 bits, the f32's upper half (a
-// truncation, so a lower bound of the threshold); the kernel rebuilds the
-// f32 as bits << 16.
+// e_thresh arrives as bf16 bits, the f32's upper half (a truncation, so
+// a lower bound of the threshold); the kernel rebuilds the f32 as
+// bits << 16. The small pack's adds are __fadd_rn, subnormals kept (as
+// torch's CPU adds keep them).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int SCREEN_THREADS = 256;
-constexpr int COMPACT_THREADS = 1024;
-constexpr int PACK_WARPS = 8;
-constexpr int STREAM_WORDS = 64;   // a warp's nt0 stream: K <= 1024
-constexpr uint8_t ST_NEED = 1, ST_NEED_U = 2, ST_CAND = 4, ST_NSHROUD = 8;
+constexpr int WARPS = 16;                 // budded and take kernels
+constexpr int THREADS = WARPS * 32;
+constexpr int SMALL_WARPS = 8;            // small_kernel: a warp per row
+constexpr int STREAM_WORDS = 64;          // a warp's nt0 stream: K <= 1024
+constexpr int SUM_UNROLL = 8;             // small pack: positions in flight
+constexpr int MAX_DYN_SMEM = 36 * 1024;   // + static, under 48 KB: no opt-in
+constexpr uint8_t ST_NEED = 1, ST_NEED_U = 2, ST_CAND = 4, ST_NSHROUD = 8,
+                  ST_SHROUD = 16;
+
+// what the small pack reads and writes
+struct SmallIn {
+  const int8_t* small5;     // [n, 5]: ham i16, ham_gapless i16, flags
+  const int8_t* tvec;       // [n, W] kernel B1's transitions
+  const int8_t* seqs;       // [n, W]
+  const long long* lens;    // [n]
+  const uint8_t* quals;     // [n, W] or null (every q = 0)
+  const float* lerr;        // [17, Q] log error factors, row 16 = 0
+  uint8_t* small13;         // [n, 13] out (or in, given)
+  int n, W, Q, center;
+};
+
+struct BudArgs {
+  SmallIn sm;
+  const uint8_t* eth2;      // [2 nd + nd/8]: bf16 e_thresh, lock bits
+  const int* reads;         // [n]
+  const uint8_t* cbits;     // [nd/8] cached rows (cache mode)
+  int* order;               // [nd]
+  int* order_u;             // [nd] (cache mode)
+  uint8_t* buf;             // budbuf_layout
+  int4* counts;             // [gridDim.x] per-block counts
+  int nd, greedy, cache_on, compute, MU, K, o1, o2, o3, chunk;
+  float c5L, cL5, und;
+};
 
 __device__ __forceinline__ float load_f32(const uint8_t* p) {
   uint32_t b = (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
@@ -68,134 +133,135 @@ __device__ __forceinline__ float flush(float x) {
 // rows n..nd-1 are the JAX package's pad rows: copies of row 0
 __device__ __forceinline__ int src_row(int r, int n) { return r < n ? r : 0; }
 
-__global__ void __launch_bounds__(SCREEN_THREADS)
-screen_kernel(const uint8_t* __restrict__ small13,
-              const uint8_t* __restrict__ eth2, const int* __restrict__ reads,
-              const uint8_t* __restrict__ cbits, int n, int nd, int center,
-              int greedy, int cache_on, float c5L, float cL5, float und,
-              uint8_t* __restrict__ status, uint8_t* __restrict__ need_pk,
-              uint8_t* __restrict__ shroud_pk) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  bool need = false, shroud = false;
-  if (r < nd) {
-    const int s = src_row(r, n);
-    const uint8_t* row = small13 + (size_t)s * 13;
-    const uint32_t eb = (uint32_t)eth2[2 * r] | ((uint32_t)eth2[2 * r + 1] << 8);
-    const float e = flush(__uint_as_float(eb << 16));
-    bool nskip = (eth2[2 * nd + (r >> 3)] >> (r & 7)) & 1;
-    if (greedy) {
-      nskip = nskip || reads[s] > reads[center];
-      nskip = nskip && r != center;
+__host__ __device__ __forceinline__ int lerr_bytes(int Q) {
+  return ((17 * Q * 4) + 15) & ~15;
+}
+
+__device__ __forceinline__ void load_lerr(const SmallIn& sm, float* lerr_s) {
+  for (int i = threadIdx.x; i < 17 * sm.Q; i += blockDim.x)
+    lerr_s[i] = sm.lerr[i];
+}
+
+// Row s's f32 loglam and abssum over its gapless-selected transitions, in
+// the defined order (lane-strided ascending adds, then the butterfly);
+// every lane returns the same bits. Positions past the row's length add
+// nothing (their factor is 0), so the walk stops there. The loads of
+// SUM_UNROLL positions a lane are issued before their adds, so a row
+// costs one memory latency per 32 * SUM_UNROLL positions; the adds keep
+// the ascending order.
+__device__ void small_sums(const SmallIn& sm, int s, bool gl,
+                           const float* lerr_s, int lane, float& loglam,
+                           float& abssum) {
+  const int W = sm.W, Q = sm.Q;
+  const int lim = min(W, (int)sm.lens[s]);
+  const int8_t* s1 = sm.seqs + (size_t)s * W;
+  const int8_t* s0 = sm.seqs + (size_t)sm.center * W;
+  const int8_t* tv = sm.tvec + (size_t)s * W;
+  const uint8_t* qrow = sm.quals ? sm.quals + (size_t)s * W : nullptr;
+  const int l1 = (int)sm.lens[sm.center];
+  float al = 0.f, aa = 0.f;
+  // loads run to W (in bounds), so they need not wait for the length
+  for (int base = lane; base < W; base += 32 * SUM_UNROLL) {
+    int tq[SUM_UNROLL];   // transition | quality << 8
+#pragma unroll
+    for (int j = 0; j < SUM_UNROLL; ++j) {
+      const int p = base + 32 * j;
+      int t = 0, q = 0;
+      if (p < W) {
+        if (gl) {
+          const int a = s1[p], b = s0[p];
+          t = (p < l1 && b != a) ? 4 * b + a : 5 * a;
+        } else {
+          t = tv[p];
+        }
+        q = qrow ? qrow[p] : 0;
+      }
+      tq[j] = t | (q << 8);
     }
-    const float loglam = flush(load_f32(row + 4));
-    const float abssum = flush(load_f32(row + 8));
-    shroud = (row[12] & 4) != 0;
-    const bool cand = !nskip && !shroud;
-    const bool pos = e > 0.f;
-    const float logthr = pos ? logf(e) : -INFINITY;
-    const float eps = 1.1920928955078125e-7f;   // 2^-23
-    const float m1 = __fadd_rn(
-        1e-3f, __fmul_rn(eps, __fadd_rn(c5L, __fmul_rn(cL5, abssum))));
-    const float margin = __fadd_rn(
-        m1, __fmul_rn(4.f * eps, isfinite(logthr) ? fabsf(logthr) : 0.f));
-    const float logthr2 = pos ? logthr : (e == 0.f ? und : -INFINITY);
-    need = cand && ((flush(__fadd_rn(loglam, margin)) >= logthr2) ||
-                    (!isfinite(loglam) && e != 0.f));
-    const bool need_u =
-        need && !(cache_on && ((cbits[r >> 3] >> (r & 7)) & 1));
-    status[r] = (need ? ST_NEED : 0) | (need_u ? ST_NEED_U : 0) |
-                (cand ? ST_CAND : 0) | (shroud && !nskip ? ST_NSHROUD : 0);
+#pragma unroll
+    for (int j = 0; j < SUM_UNROLL; ++j) {
+      if (base + 32 * j < lim) {
+        const int t = tq[j] & 0xff, q = tq[j] >> 8;
+        const float f = q < Q ? lerr_s[t * Q + q] : 0.f;
+        al = __fadd_rn(al, f);
+        aa = __fadd_rn(aa, fabsf(f));
+      }
+    }
   }
-  // bitmaps: a warp's 32 rows are 4 bytes, little-endian
-  const unsigned nbal = __ballot_sync(FULL, need);
-  const unsigned sbal = __ballot_sync(FULL, shroud);
-  const int lane = threadIdx.x & 31;
-  const int byte = ((r - lane) >> 3) + lane;
-  if (lane < 4 && byte < (nd >> 3)) {
-    need_pk[byte] = (nbal >> (8 * lane)) & 0xff;
-    shroud_pk[byte] = (sbal >> (8 * lane)) & 0xff;
+  for (int off = 16; off > 0; off >>= 1) {
+    al = __fadd_rn(al, __shfl_xor_sync(FULL, al, off));
+    aa = __fadd_rn(aa, __shfl_xor_sync(FULL, aa, off));
+  }
+  loglam = al;
+  abssum = aa;
+}
+
+// small13 row r: small5's ham, ham_gapless, then loglam, abssum, flags
+__device__ __forceinline__ void write_small13(uint8_t* out,
+                                              const int8_t* s5, float ll,
+                                              float as, int lane) {
+  if (lane < 13) {
+    uint32_t v;
+    if (lane < 4) v = (uint8_t)s5[lane];
+    else if (lane < 8) v = __float_as_uint(ll) >> (8 * (lane - 4));
+    else if (lane < 12) v = __float_as_uint(as) >> (8 * (lane - 8));
+    else v = (uint8_t)s5[4];
+    out[lane] = (uint8_t)v;
   }
 }
 
-// inclusive block scan of two counters (blockDim.x == COMPACT_THREADS)
-__device__ void block_scan2(int& a, int& b, int& tot_a, int& tot_b) {
-  __shared__ int wa[32], wb[32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int xa = __shfl_up_sync(FULL, a, o), xb = __shfl_up_sync(FULL, b, o);
-    if (lane >= o) { a += xa; b += xb; }
+// Whether row r (source row s) is skipped: its lock bit and, under greedy,
+// the abundance skip, never the center itself.
+__device__ __forceinline__ bool row_nskip(const BudArgs& a, int r, int s) {
+  bool nskip = (a.eth2[2 * a.nd + (r >> 3)] >> (r & 7)) & 1;
+  if (a.greedy) {
+    nskip = nskip || a.reads[s] > a.reads[a.sm.center];
+    nskip = nskip && r != a.sm.center;
   }
-  if (lane == 31) { wa[w] = a; wb[w] = b; }
-  __syncthreads();
-  if (w == 0) {
-    int va = wa[lane], vb = wb[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int xa = __shfl_up_sync(FULL, va, o), xb = __shfl_up_sync(FULL, vb, o);
-      if (lane >= o) { va += xa; vb += xb; }
-    }
-    wa[lane] = va;
-    wb[lane] = vb;
-  }
-  __syncthreads();
-  if (w > 0) { a += wa[w - 1]; b += wb[w - 1]; }
-  tot_a = wa[31];
-  tot_b = wb[31];
-  __syncthreads();
+  return nskip;
 }
 
-__global__ void __launch_bounds__(COMPACT_THREADS)
-compact_kernel(const uint8_t* __restrict__ status, int nd, int cache_on,
-               int* __restrict__ order, int* __restrict__ order_u,
-               int* __restrict__ header) {
-  const int t = threadIdx.x;
-  const int chunk = (nd + COMPACT_THREADS - 1) / COMPACT_THREADS;
-  const int lo = min(t * chunk, nd), hi = min(lo + chunk, nd);
-  int cn = 0, cu = 0, cc = 0, cs = 0;
-  for (int r = lo; r < hi; ++r) {
-    const uint8_t s = status[r];
-    cn += s & ST_NEED;
-    cu += (s & ST_NEED_U) != 0;
-    cc += (s & ST_CAND) != 0;
-    cs += (s & ST_NSHROUD) != 0;
-  }
-  int pn = cn, pu = cu, m, mu, naligned, nshroud;
-  block_scan2(pn, pu, m, mu);
-  block_scan2(cc, cs, naligned, nshroud);
-  pn -= cn;   // exclusive: needed rows before lo
-  pu -= cu;
-  if (t == 0) {
-    header[0] = m;
-    header[1] = naligned;
-    header[2] = nshroud;
-    header[3] = cache_on ? mu : 0;
-  }
-  for (int r = lo; r < hi; ++r) {
-    const uint8_t s = status[r];
-    // rows not needed follow the needed ones, also ascending: r - pn of
-    // them come before r
-    if (s & ST_NEED) order[pn++] = r; else order[m + r - pn] = r;
-    if (cache_on) {
-      if (s & ST_NEED_U) order_u[pu++] = r; else order_u[mu + r - pu] = r;
-    }
-  }
+// Row r's f32 store screen from its small pack: its status byte.
+__device__ uint8_t screen_row(const BudArgs& a, int r, bool nskip,
+                              float loglam, float abssum, uint8_t flags) {
+  const uint32_t eb =
+      (uint32_t)a.eth2[2 * r] | ((uint32_t)a.eth2[2 * r + 1] << 8);
+  const float e = flush(__uint_as_float(eb << 16));
+  loglam = flush(loglam);
+  abssum = flush(abssum);
+  const bool shroud = (flags & 4) != 0;
+  const bool cand = !nskip && !shroud;
+  const bool pos = e > 0.f;
+  const float logthr = pos ? logf(e) : -INFINITY;
+  const float eps = 1.1920928955078125e-7f;   // 2^-23
+  const float m1 = __fadd_rn(
+      1e-3f, __fmul_rn(eps, __fadd_rn(a.c5L, __fmul_rn(a.cL5, abssum))));
+  const float margin = __fadd_rn(
+      m1, __fmul_rn(4.f * eps, isfinite(logthr) ? fabsf(logthr) : 0.f));
+  const float logthr2 = pos ? logthr : (e == 0.f ? a.und : -INFINITY);
+  const bool need = cand && ((flush(__fadd_rn(loglam, margin)) >= logthr2) ||
+                             (!isfinite(loglam) && e != 0.f));
+  const bool need_u =
+      need && !(a.cache_on && ((a.cbits[r >> 3] >> (r & 7)) & 1));
+  return (need ? ST_NEED : 0) | (need_u ? ST_NEED_U : 0) |
+         (cand ? ST_CAND : 0) | (shroud && !nskip ? ST_NSHROUD : 0) |
+         (shroud ? ST_SHROUD : 0);
 }
 
+// One shortlist slot (source row s): its 5-byte small row and its
+// substitution records. The warp's nt0 stream sits in `stream`.
 template <bool BITS>
-__global__ void __launch_bounds__(PACK_WARPS * 32)
-pack_kernel(const int* __restrict__ order, int slot0, int nslots, int n,
-            const uint8_t* __restrict__ small13,
-            const int8_t* __restrict__ tvec, const int8_t* __restrict__ seqs,
-            const long long* __restrict__ lens, int W, int center, int K,
-            uint8_t* __restrict__ rows_out, uint8_t* __restrict__ subs_out) {
-  __shared__ uint32_t stream[PACK_WARPS][STREAM_WORDS];
-  const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * PACK_WARPS + wib;
-  if (slot >= nslots) return;   // warp-uniform
-  const int s = src_row(order[slot0 + slot], n);
+__device__ void pack_slot(int s, int slot, const uint8_t* small13,
+                          const int8_t* __restrict__ tvec,
+                          const int8_t* __restrict__ seqs,
+                          const long long* __restrict__ lens, int W,
+                          int center, int K, uint8_t* rows_out,
+                          uint8_t* subs_out, uint32_t* stream, int lane) {
   const uint8_t* sm = small13 + (size_t)s * 13;
-  if (lane < 5) rows_out[(size_t)slot * 5 + lane] = sm[lane < 4 ? lane : 12];
+  if (lane < 5)
+    rows_out[(size_t)slot * 5 + lane] = __ldcg(sm + (lane < 4 ? lane : 12));
   const int l2 = (int)lens[s], mn = min(l2, (int)lens[center]);
-  const bool gl = (sm[12] & 2) != 0;
+  const bool gl = (__ldcg(sm + 12) & 2) != 0;
   const int8_t* s1 = seqs + (size_t)s * W;
   const int8_t* s0 = seqs + (size_t)center * W;
   const int8_t* tv_row = tvec + (size_t)s * W;
@@ -203,7 +269,7 @@ pack_kernel(const int* __restrict__ order, int slot0, int nslots, int n,
   const int subw = BITS ? bmb + K / 4 : 2 * K;
   uint8_t* out = subs_out + (size_t)slot * subw;
   if (BITS) {
-    for (int w = lane; w < STREAM_WORDS; w += 32) stream[wib][w] = 0;
+    for (int w = lane; w < STREAM_WORDS; w += 32) stream[w] = 0;
     __syncwarp();
   }
   int count = 0;
@@ -228,7 +294,7 @@ pack_kernel(const int* __restrict__ order, int slot0, int nslots, int n,
     if (BITS) {
       if ((lane & 7) == 0 && (p >> 3) < bmb) out[p >> 3] = (bal >> lane) & 0xff;
       if (sub && k < K)
-        atomicOr(&stream[wib][k >> 4], (uint32_t)((tv >> 2) & 3) << (2 * (k & 15)));
+        atomicOr(&stream[k >> 4], (uint32_t)((tv >> 2) & 3) << (2 * (k & 15)));
     } else if (sub && k < K) {
       const uint32_t v = (uint32_t)p | ((uint32_t)(tv >> 2) << 14);
       out[2 * k] = v & 0xff;
@@ -239,7 +305,8 @@ pack_kernel(const int* __restrict__ order, int slot0, int nslots, int n,
   if (BITS) {
     __syncwarp();
     for (int j = lane; j < K / 4; j += 32)
-      out[bmb + j] = (stream[wib][j >> 2] >> (8 * (j & 3))) & 0xff;
+      out[bmb + j] = (stream[j >> 2] >> (8 * (j & 3))) & 0xff;
+    __syncwarp();   // the stream is reused by the warp's next slot
   } else {
     for (int k = count + lane; k < K; k += 32) {
       out[2 * k] = 0xff;
@@ -248,53 +315,266 @@ pack_kernel(const int* __restrict__ order, int slot0, int nslots, int n,
   }
 }
 
-int launch_pack(const int* order, int slot0, int nslots, int n,
-                const uint8_t* small13, const int8_t* tvec,
-                const int8_t* seqs, const long long* lens, int W, int center,
-                int K, int bits, uint8_t* rows_out, uint8_t* subs_out,
-                cudaStream_t stream) {
-  if (nslots <= 0) return 0;
-  const int blocks = (nslots + PACK_WARPS - 1) / PACK_WARPS;
-  if (bits)
-    pack_kernel<true><<<blocks, PACK_WARPS * 32, 0, stream>>>(
-        order, slot0, nslots, n, small13, tvec, seqs, lens, W, center, K,
-        rows_out, subs_out);
-  else
-    pack_kernel<false><<<blocks, PACK_WARPS * 32, 0, stream>>>(
-        order, slot0, nslots, n, small13, tvec, seqs, lens, W, center, K,
-        rows_out, subs_out);
-  return (int)cudaGetLastError();
+// sum of x over the block (THREADS threads); every thread gets it
+__device__ __forceinline__ int block_sum(int x, int* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  __syncthreads();
+  if (lane == 0) red[w] = x;
+  __syncthreads();
+  int t = 0;
+  for (int i = 0; i < WARPS; ++i) t += red[i];
+  return t;
+}
+
+// two blocks an SM: at most 64 registers a thread
+template <bool BITS>
+__global__ void __launch_bounds__(THREADS, 2) budded_kernel(BudArgs a) {
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ uint32_t stream[WARPS][STREAM_WORDS];
+  __shared__ float2 sums[THREADS];   // a sub-chunk's loglam, abssum
+  __shared__ int4 red4[WARPS];
+  __shared__ int red[WARPS];
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = a.nd >> 3;
+  const int lo = blockIdx.x * a.chunk, hi = min(lo + a.chunk, a.nd);
+  float* lerr_s = (float*)dyn;
+  uint8_t* status = dyn + (a.compute ? lerr_bytes(a.sm.Q) : 0);
+
+  // 1. small pack and screen, THREADS rows at a time: the small pack a
+  // warp per row, then the screen a thread per row
+  const SmallIn& sm = a.sm;
+  if (a.compute) load_lerr(sm, lerr_s);
+  __syncthreads();
+  for (int r0 = lo; r0 < hi; r0 += THREADS) {
+    const int r1 = min(r0 + THREADS, hi);
+    if (a.compute) {
+      for (int r = r0 + warp; r < r1; r += WARPS) {
+        const int s = src_row(r, sm.n);
+        const int8_t* s5 = sm.small5 + (size_t)s * 5;
+        const uint8_t flags = (uint8_t)s5[4];
+        float ll = 0.f, as = 0.f;
+        // a pad row's sums matter only if it is a candidate (never, when
+        // its lock bit is set, as the backend sets it)
+        if (r < sm.n || (!(flags & 4) && !row_nskip(a, r, s))) {
+          small_sums(sm, s, (flags & 2) != 0, lerr_s, lane, ll, as);
+          if (r < sm.n)
+            write_small13(sm.small13 + (size_t)r * 13, s5, ll, as, lane);
+        }
+        if (lane == 0) sums[r - r0] = make_float2(ll, as);
+      }
+      __syncthreads();
+    }
+    const int r = r0 + threadIdx.x;
+    if (r < r1) {
+      const int s = src_row(r, sm.n);
+      float ll, as;
+      uint8_t flags;
+      if (a.compute) {
+        ll = sums[threadIdx.x].x;
+        as = sums[threadIdx.x].y;
+        flags = (uint8_t)sm.small5[(size_t)s * 5 + 4];
+      } else {
+        const uint8_t* row = sm.small13 + (size_t)s * 13;
+        flags = row[12];
+        ll = load_f32(row + 4);
+        as = load_f32(row + 8);
+      }
+      status[r - lo] = screen_row(a, r, row_nskip(a, r, s), ll, as, flags);
+    }
+    __syncthreads();   // sums are the next sub-chunk's
+  }
+  int cn = 0, cu = 0, cc = 0, cs = 0;
+  for (int g0 = lo + 32 * warp; g0 < hi; g0 += 32 * WARPS) {
+    const int r = g0 + lane;
+    const uint8_t st = r < hi ? status[r - lo] : 0;
+    const unsigned bn = __ballot_sync(FULL, st & ST_NEED);
+    const unsigned bs = __ballot_sync(FULL, st & ST_SHROUD);
+    const int byte = (g0 >> 3) + lane;
+    if (lane < 4 && byte < nb) {   // a warp's 32 rows: 4 bytes, little-endian
+      a.buf[16 + byte] = (bn >> (8 * lane)) & 0xff;
+      a.buf[a.o3 + byte] = (bs >> (8 * lane)) & 0xff;
+    }
+    cn += __popc(bn);
+    cu += __popc(__ballot_sync(FULL, st & ST_NEED_U));
+    cc += __popc(__ballot_sync(FULL, st & ST_CAND));
+    cs += __popc(__ballot_sync(FULL, st & ST_NSHROUD));
+  }
+  if (lane == 0) red4[warp] = make_int4(cn, cu, cc, cs);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int4 t = make_int4(0, 0, 0, 0);
+    for (int i = 0; i < WARPS; ++i) {
+      t.x += red4[i].x; t.y += red4[i].y; t.z += red4[i].z; t.w += red4[i].w;
+    }
+    a.counts[blockIdx.x] = t;
+  }
+  grid.sync();
+
+  // 2. the blocks before this one, the totals, the compactions
+  int pn = 0, pu = 0, tn = 0, tu = 0, tc = 0, ts = 0;
+  for (int j = threadIdx.x; j < (int)gridDim.x; j += THREADS) {
+    const int4 c = __ldcg(a.counts + j);
+    tn += c.x; tu += c.y; tc += c.z; ts += c.w;
+    if (j < (int)blockIdx.x) { pn += c.x; pu += c.y; }
+  }
+  pn = block_sum(pn, red);
+  pu = block_sum(pu, red);
+  const int m = block_sum(tn, red), mu = block_sum(tu, red);
+  const int naligned = block_sum(tc, red), nshroud = block_sum(ts, red);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    int* header = (int*)a.buf;
+    header[0] = m;
+    header[1] = naligned;
+    header[2] = nshroud;
+    header[3] = a.cache_on ? mu : 0;
+  }
+  if (warp == 0) {
+    const unsigned lt = (1u << lane) - 1;
+    for (int g0 = lo; g0 < hi; g0 += 32) {
+      const int r = g0 + lane;
+      const bool in = r < hi;
+      const uint8_t st = in ? status[r - lo] : 0;
+      // rows not needed follow the needed ones, also ascending: r - k of
+      // them come before r
+      const unsigned bn = __ballot_sync(FULL, st & ST_NEED);
+      const int k = pn + __popc(bn & lt);
+      if (in) {
+        if (st & ST_NEED) a.order[k] = r; else a.order[m + r - k] = r;
+      }
+      pn += __popc(bn);
+      if (a.cache_on) {
+        const unsigned bu = __ballot_sync(FULL, st & ST_NEED_U);
+        const int ku = pu + __popc(bu & lt);
+        if (in) {
+          if (st & ST_NEED_U) a.order_u[ku] = r;
+          else a.order_u[mu + r - ku] = r;
+        }
+        pu += __popc(bu);
+      }
+    }
+  }
+  grid.sync();
+
+  // 3. the shortlist's first MU slots, a warp per slot
+  const int* ord = a.cache_on ? a.order_u : a.order;
+  for (int slot = blockIdx.x * WARPS + warp; slot < a.MU;
+       slot += gridDim.x * WARPS)
+    pack_slot<BITS>(src_row(__ldcg(ord + slot), a.sm.n), slot, a.sm.small13,
+                    a.sm.tvec, a.sm.seqs, a.sm.lens, a.sm.W, a.sm.center,
+                    a.K, a.buf + a.o1, a.buf + a.o2, stream[warp], lane);
+}
+
+template <bool BITS>
+__global__ void __launch_bounds__(THREADS)
+take_kernel(const int* order, int slot0, int nslots, int n,
+            const uint8_t* small13, const int8_t* __restrict__ tvec,
+            const int8_t* __restrict__ seqs,
+            const long long* __restrict__ lens, int W, int center, int K,
+            uint8_t* __restrict__ rows_out, uint8_t* __restrict__ subs_out) {
+  __shared__ uint32_t stream[WARPS][STREAM_WORDS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = blockIdx.x * WARPS + warp;
+  if (slot >= nslots) return;   // warp-uniform
+  pack_slot<BITS>(src_row(order[slot0 + slot], n), slot, small13, tvec, seqs,
+                  lens, W, center, K, rows_out, subs_out, stream[warp], lane);
+}
+
+__global__ void __launch_bounds__(SMALL_WARPS * 32) small_kernel(SmallIn sm) {
+  extern __shared__ __align__(16) uint8_t dyn[];
+  float* lerr_s = (float*)dyn;
+  load_lerr(sm, lerr_s);
+  __syncthreads();
+  const int r = blockIdx.x * SMALL_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= sm.n) return;   // warp-uniform
+  const int8_t* s5 = sm.small5 + (size_t)r * 5;
+  float ll, as;
+  small_sums(sm, r, (s5[4] & 2) != 0, lerr_s, lane, ll, as);
+  write_small13(sm.small13 + (size_t)r * 13, s5, ll, as, lane);
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+SmallIn small_in(const void* small5, const void* tvec, const void* seqs,
+                 const void* lens, const void* quals, const void* lerr,
+                 void* small13, int n, int W, int Q, int center) {
+  return SmallIn{(const int8_t*)small5, (const int8_t*)tvec,
+                 (const int8_t*)seqs,   (const long long*)lens,
+                 (const uint8_t*)quals, (const float*)lerr,
+                 (uint8_t*)small13,     n, W, Q, center};
 }
 
 }  // namespace
 
-// One budded compare: screen, compaction, pack into buf (layout
-// ops/store_screen.py::budbuf_layout; o1..o3 are its offsets).
+// One budded compare: the small pack (compute != 0; else small13 is
+// given), the screen, the compactions and the pack into buf (layout
+// ops/store_screen.py::budbuf_layout; o1..o3 are its offsets), in one
+// cooperative launch. counts is a workspace of counts_cap int4.
 extern "C" int store_screen_run(
-    const void* small13, const void* eth2, const void* reads,
-    const void* cbits, const void* tvec, const void* seqs, const void* lens,
-    int n, int nd, int W, int center, int greedy, int cache_on, float c5L,
-    float cL5, float und, void* status, void* order, void* order_u,
-    void* buf, int MU, int K, int bits, int o1, int o2, int o3,
-    void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
-  uint8_t* b = (uint8_t*)buf;
-  const int blocks = (nd + SCREEN_THREADS - 1) / SCREEN_THREADS;
-  screen_kernel<<<blocks, SCREEN_THREADS, 0, stream>>>(
-      (const uint8_t*)small13, (const uint8_t*)eth2, (const int*)reads,
-      (const uint8_t*)cbits, n, nd, center, greedy, cache_on, c5L, cL5, und,
-      (uint8_t*)status, b + 16, b + o3);
-  int rc = (int)cudaGetLastError();
+    void* small13, const void* small5, const void* tvec, const void* seqs,
+    const void* lens, const void* quals, const void* lerr, const void* eth2,
+    const void* reads, const void* cbits, void* order, void* order_u,
+    void* buf, int n, int nd, int W, int Q, int center, int greedy,
+    int cache_on, int compute, int MU, int K, int bits, int o1, int o2,
+    int o3, float c5L, float cL5, float und, void* counts, int counts_cap,
+    void* stream) {
+  const void* fn = bits ? (const void*)budded_kernel<true>
+                        : (const void*)budded_kernel<false>;
+  int dev = 0, sms = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (!rc) rc = (int)cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc) return rc;
-  compact_kernel<<<1, COMPACT_THREADS, 0, stream>>>(
-      (const uint8_t*)status, nd, cache_on, (int*)order, (int*)order_u,
-      (int*)b);
-  rc = (int)cudaGetLastError();
+  const int lb = compute ? lerr_bytes(Q) : 0;
+  // blocks: as many as fit on the card at once (cooperative), at most one
+  // per 32 rows and one per workspace entry; rows per block a multiple of
+  // 32, so a warp's ballot covers 4 whole bitmap bytes of one block
+  int G = ceil_div(nd, 32) < counts_cap ? ceil_div(nd, 32) : counts_cap;
+  int chunk = 0, smem = 0, fits = 0;
+  for (int it = 0; it < 16 && !fits; ++it) {
+    chunk = ceil_div(ceil_div(nd, G), 32) * 32;
+    G = ceil_div(nd, chunk);
+    smem = lb + chunk;
+    if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
+    int occ = 0;
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, THREADS,
+                                                           smem);
+    if (rc) return rc;
+    if (occ * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    fits = G <= occ * sms;
+    if (!fits) G = occ * sms;
+  }
+  if (!fits) return (int)cudaErrorCooperativeLaunchTooLarge;
+  BudArgs a{small_in(small5, tvec, seqs, lens, quals, lerr, small13, n, W, Q,
+                     center),
+            (const uint8_t*)eth2, (const int*)reads, (const uint8_t*)cbits,
+            (int*)order, (int*)order_u, (uint8_t*)buf, (int4*)counts,
+            nd, greedy, cache_on, compute, MU, K, o1, o2, o3, chunk,
+            c5L, cL5, und};
+  void* params[] = {&a};
+  rc = (int)cudaLaunchCooperativeKernel(fn, dim3(G), dim3(THREADS), params,
+                                        (size_t)smem, (cudaStream_t)stream);
   if (rc) return rc;
-  return launch_pack((const int*)(cache_on ? order_u : order), 0, MU, n,
-                     (const uint8_t*)small13, (const int8_t*)tvec,
-                     (const int8_t*)seqs, (const long long*)lens, W, center,
-                     K, bits, b + o1, b + o2, stream);
+  return (int)cudaGetLastError();
+}
+
+// The full route's small pack alone: small13 [n, 13] from small5, tvec,
+// seqs, lens, quals and lerr, a warp per row.
+extern "C" int store_screen_small(const void* small5, const void* tvec,
+                                  const void* seqs, const void* lens,
+                                  const void* quals, const void* lerr,
+                                  void* small13, int n, int W, int Q,
+                                  int center, void* stream) {
+  const int smem = lerr_bytes(Q);
+  if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  small_kernel<<<ceil_div(n, SMALL_WARPS), SMALL_WARPS * 32, smem,
+                 (cudaStream_t)stream>>>(
+      small_in(small5, tvec, seqs, lens, quals, lerr, small13, n, W, Q,
+               center));
+  return (int)cudaGetLastError();
 }
 
 // The follow-up: rows and substitution records of compacted rows
@@ -305,9 +585,18 @@ extern "C" int store_screen_take(const void* order, const void* small13,
                                  int n, int W, int center, int K, int bits,
                                  void* rows_out, void* subs_out,
                                  void* stream) {
-  return launch_pack((const int*)order, slot0, nslots, n,
-                     (const uint8_t*)small13, (const int8_t*)tvec,
-                     (const int8_t*)seqs, (const long long*)lens, W, center,
-                     K, bits, (uint8_t*)rows_out, (uint8_t*)subs_out,
-                     (cudaStream_t)stream);
+  if (nslots <= 0) return 0;
+  const int blocks = ceil_div(nslots, WARPS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bits)
+    take_kernel<true><<<blocks, THREADS, 0, st>>>(
+        (const int*)order, slot0, nslots, n, (const uint8_t*)small13,
+        (const int8_t*)tvec, (const int8_t*)seqs, (const long long*)lens, W,
+        center, K, (uint8_t*)rows_out, (uint8_t*)subs_out);
+  else
+    take_kernel<false><<<blocks, THREADS, 0, st>>>(
+        (const int*)order, slot0, nslots, n, (const uint8_t*)small13,
+        (const int8_t*)tvec, (const int8_t*)seqs, (const long long*)lens, W,
+        center, K, (uint8_t*)rows_out, (uint8_t*)subs_out);
+  return (int)cudaGetLastError();
 }

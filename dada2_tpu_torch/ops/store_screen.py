@@ -1,21 +1,23 @@
-"""Kernel B5: the budded compare's store screen and shortlist pack.
+"""Kernel B5: the budded compare, small pack to shortlist buffer, in one
+launch.
 
-The counterpart of the device half of dada2_tpu/core/backend_tpu.py's
-budded compare: `_budded_fused` (:520) without its small pack (the port
-builds small13 beforehand, `backend_cuda._small_trace`), i.e.
-`_shortlist_screen` (:779), the ascending compactions and the
-substitution transport `_subs_tile_trace` (:410) / `_subs_bits_trace`
-(:426) over `_sel_tv` (:386), plus the overflow follow-up `_take_subs`
-(:640). In the JAX package these are XLA programs; here they are one
-hand-written CUDA source, csrc/store_screen.cu, built with nvcc at first
-use and loaded through ctypes like kernel B1.
+The counterpart of dada2_tpu/core/backend_tpu.py's `_budded_fused`
+(:520), the device half of a budded compare: the small pack
+`_small_trace` (:341), `_shortlist_screen` (:779), the ascending
+compactions and the substitution transport `_subs_tile_trace` (:410) /
+`_subs_bits_trace` (:426) over `_sel_tv` (:386), plus the overflow
+follow-up `_take_subs` (:640). In the JAX package these are XLA
+programs; here they are one hand-written CUDA source,
+csrc/store_screen.cu, built with nvcc at first use and loaded through
+ctypes like kernel B1.
 
-`budded_pack` screens every row of a compare sweep against the engine's
-store threshold, compacts the survivors in ascending row order and
-writes, for the first M0 (cache mode: M0U uncached) of them, their
-5-byte small rows and substitution records into ONE buffer that the host
-fetches once. Its layout is the JAX package's, byte for byte
-(`budbuf_layout`):
+`budded_pack` sums each row's f32 log-lambda screen (the small pack,
+unless the caller passes small13), screens every row of a compare sweep
+against the engine's store threshold, compacts the survivors in
+ascending row order and writes, for the first M0 (cache mode: M0U
+uncached) of them, their 5-byte small rows and substitution records
+into ONE buffer that the host fetches once. Its layout is the JAX
+package's, byte for byte (`budbuf_layout`):
 
     [16 B header: m, naligned, nshroud, m_u | nd/8 need bitmap |
      MU x 5 B rows | MU x subw B substitutions | nd/8 shroud bitmap]
@@ -24,12 +26,17 @@ Rows are the backend's nd = pad_rows(n): rows n..nd-1 repeat row 0 and
 travel locked, as the JAX package's padded device arrays do, so the
 bitmaps' offsets and every byte match. Bitmaps are little-endian.
 
-On CUDA tensors the wrappers launch the kernels (three for
-`budded_pack`: the screen, the compaction, the pack; one for
-`take_subs`) and count one launch per call in `launches`; on CPU tensors
-they run the plain versions below (`budded_pack_ref`, `take_subs_ref`),
-the JAX functions written in torch ops. There is no fallback between the
-two.
+The small pack's f32 sums are taken in the kernel's order, defined by
+`small_pack_ref` (lane-strided sums over 32 lanes, then an xor
+butterfly), not XLA's: they are a screen, and its margin covers any
+order. Every byte after them is the JAX package's.
+
+On CUDA tensors the wrappers launch the kernels (one cooperative launch
+for `budded_pack`, one for `take_subs`, one for the full route's
+`small_pack`) and count one launch per call in `launches`; on CPU
+tensors they run the plain versions below (`small_pack_ref`,
+`budded_pack_ref`, `take_subs_ref`), the JAX functions written in torch
+ops. There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -133,6 +140,62 @@ def _flush(x: torch.Tensor) -> torch.Tensor:
     TPU flush them): the JAX package's screen reads a subnormal e_thresh
     as 0, the underflow branch."""
     return torch.where(x.abs() < FLT_MIN, torch.zeros_like(x), x)
+
+
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of x [n, W] f32 in the kernel's order: lane l (of 32)
+    adds positions l, l + 32, ... left to right from 0.0, then five xor
+    steps v = v + v[lane ^ off] (off 16, 8, 4, 2, 1) combine the lanes.
+    Bitwise reproducible: every add is one f32 rounding."""
+    n, W = x.shape
+    Wp = -(-W // 32) * 32
+    x3 = torch.nn.functional.pad(x, (0, Wp - W)).reshape(n, Wp // 32, 32)
+    acc = torch.zeros((n, 32), dtype=torch.float32, device=x.device)
+    for j in range(Wp // 32):
+        acc = acc + x3[:, j]
+    lane = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    return acc[:, 0]
+
+
+def small_pack_ref(tvec, seqs, lens, quals, center: int, lerr, small5):
+    """Plain version of B5's small pack (backend_tpu._small_trace): each
+    row's f32 log-lambda and |log-factor| sums, the screen of the exact
+    host float64 product (reference: src/pval.cpp:144-197), over the
+    transitions its gapless flag (small5[:, 4] & 2) picks: the
+    pad-to-length construction against the center, else kernel B1's
+    tvec. lerr [17, Q] f32 holds log(err) with row 16 = 0 (the pad
+    transition); each factor is lerr[t, q], 0 where q >= Q or past the
+    row's length (quals None: q = 0). The sums run in the kernel's order
+    (_lane_sum), not XLA's; the screen's margin
+    (TpuBackend._screen_need) covers any order, and exact lambdas always
+    come from the host.
+
+    Returns small13 [n, 13] int8: ham i16, ham_gapless i16, loglam f32,
+    abssum f32, flags u8."""
+    n, W = seqs.shape
+    dev = seqs.device
+    pos = torch.arange(W, device=dev)[None, :]
+    valid = pos < lens[:, None]
+    s2 = seqs.to(torch.int64)
+    s0 = s2[center][None, :]
+    subg = valid & (pos < lens[center]) & (s0 != s2)
+    t_gl = torch.where(subg, 4 * s0 + s2, 5 * s2)
+    glr = (small5[:, 4] & 2) != 0
+    t = torch.where(glr[:, None], t_gl, tvec.to(torch.int64))
+    t = torch.where(valid, t, 16)
+    Q = lerr.shape[1]
+    q = (quals.to(torch.int64) if quals is not None
+         else torch.zeros_like(s2))
+    lf = torch.where((q < Q) & valid, lerr[t, q.clamp(max=Q - 1)],
+                     _f32(0.0, dev))
+
+    def f32col(x):
+        return x[:, None].view(torch.int8)
+
+    return torch.cat([small5[:, :4], f32col(_lane_sum(lf)),
+                      f32col(_lane_sum(lf.abs())), small5[:, 4:5]], dim=1)
 
 
 def sel_tv(tvec, seqs, lens, center: int, flags, idx):
@@ -274,15 +337,20 @@ def _rows5(small13, src):
 def budded_pack_ref(small13, tvec, seqs, lens, reads, center: int, eth2,
                     cbits=None, *, nd: int, L: int, M0: int, K: int,
                     greedy: bool, kind: str = "tiles",
-                    M0U: Optional[int] = None, cache_on: bool = False):
-    """Plain version of kernel B5 (backend_tpu._budded_fused after its
-    small pack): the screen, the need bitmap, in cache mode (cbits: the
-    host's cached-row bitmap, uint8 [nd/8]) the compaction of the needed
-    uncached rows with m_u in header[3], and the 5 B rows and
-    substitution records of the first MU compacted rows. Returns (buf
-    uint8, order int32 [nd], order_u int32 [nd]; order_u is order
-    outside cache mode)."""
-    n = small13.shape[0]
+                    M0U: Optional[int] = None, cache_on: bool = False,
+                    small5=None, quals=None, lerr=None):
+    """Plain version of kernel B5 (backend_tpu._budded_fused): with
+    small13 None the small pack (small_pack_ref of small5, quals, lerr),
+    else the given small13; then the screen, the need bitmap, in cache
+    mode (cbits: the host's cached-row bitmap, uint8 [nd/8]) the
+    compaction of the needed uncached rows with m_u in header[3], and the
+    5 B rows and substitution records of the first MU compacted rows.
+    Returns (buf uint8, order int32 [nd], order_u int32 [nd], small13;
+    order_u is order outside cache mode)."""
+    n = seqs.shape[0]
+    if small13 is None:
+        small13 = small_pack_ref(tvec, seqs, lens, quals, center, lerr,
+                                 small5)
     header, order, shroud_pk, need = shortlist_screen(
         small13, eth2, reads, center, nd=nd, L=L, greedy=greedy)
     need_pk = _pack(need)
@@ -299,7 +367,7 @@ def budded_pack_ref(small13, tvec, seqs, lens, reads, center: int, eth2,
     buf = torch.cat([header.view(torch.uint8), need_pk,
                      _rows5(small13, src).reshape(-1), subs.reshape(-1),
                      shroud_pk])
-    return buf, order, order_u
+    return buf, order, order_u, small13
 
 
 def take_subs_ref(small13, tvec, seqs, lens, center: int, order, *,
@@ -332,27 +400,57 @@ def _load():
             V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.store_screen_run.restype = I
             lib.store_screen_run.argtypes = (
-                [V] * 7 + [I] * 6 + [F] * 3 + [V] * 4 + [I] * 6 + [V])
+                [V] * 13 + [I] * 14 + [F] * 3 + [V, I, V])
+            lib.store_screen_small.restype = I
+            lib.store_screen_small.argtypes = [V] * 7 + [I] * 4 + [V]
             lib.store_screen_take.restype = I
             lib.store_screen_take.argtypes = [V] * 5 + [I] * 7 + [V] * 2 + [V]
             _lib = lib
     return _lib
 
 
+# the largest Q whose [17, Q] f32 table fits the kernels' shared memory
+Q_MAX = 512
+# a block count's ceiling for the per-block counts workspace: 32 resident
+# blocks per SM is the card's limit, so a cooperative grid never exceeds it
+_BLOCKS_PER_SM_MAX = 32
+_ws: dict = {}
+
+
+def _workspace(dev, stream) -> torch.Tensor:
+    """B5's per-block counts (int4 a block), one per device and stream:
+    launches on one stream are ordered, so they can share it."""
+    key = (dev.index, stream)
+    ws = _ws.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ws = torch.empty(4 * _BLOCKS_PER_SM_MAX * sms, dtype=torch.int32,
+                         device=dev)
+        _ws[key] = ws
+    return ws
+
+
+def _want(**named):
+    """Raise unless each name's (tensor, shape, dtype) matches and the
+    tensor is contiguous on the first one's device."""
+    dev = None
+    for name, (x, shape, dtype) in named.items():
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"{name} is {x.dtype} {tuple(x.shape)}, "
+                             f"expected {dtype} {shape}")
+        dev = x.device if dev is None else dev
+        if not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be contiguous on {dev}")
+
+
 def _check(small13, tvec, seqs, lens, center, K, kind):
     n, W = seqs.shape
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
-    want = {"small13": (small13, (n, 13), torch.int8),
-            "tvec": (tvec, (n, W), torch.int8),
-            "seqs": (seqs, (n, W), torch.int8),
-            "lens": (lens, (n,), torch.int64)}
-    for name, (x, shape, dtype) in want.items():
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"{name} is {x.dtype} {tuple(x.shape)}, "
-                             f"expected {dtype} {shape}")
-        if not x.is_contiguous() or x.device != seqs.device:
-            raise ValueError(f"{name} must be contiguous on {seqs.device}")
+    _want(seqs=(seqs, (n, W), torch.int8), tvec=(tvec, (n, W), torch.int8),
+          lens=(lens, (n,), torch.int64),
+          **({} if small13 is None else
+             {"small13": (small13, (n, 13), torch.int8)}))
     if not 0 <= center < n:
         raise ValueError(f"center {center} outside [0, {n})")
     if kind == "tiles" and not 0 < K <= W:
@@ -362,32 +460,88 @@ def _check(small13, tvec, seqs, lens, center, K, kind):
                          f"K % 4 == 0, not K={K}")
 
 
-def _launch(dev, fn, *args):
+def _check_small_in(seqs, quals, lerr, small5):
+    """The small pack's inputs (on the card): small5 int8 [n, 5], quals
+    uint8 [n, W] or None, lerr f32 [17, Q] with 1 <= Q <= Q_MAX."""
+    n, W = seqs.shape
+    if lerr is None or small5 is None:
+        raise ValueError("the small pack needs small5 and lerr")
+    Q = lerr.shape[-1]
+    if not 1 <= Q <= Q_MAX:
+        raise ValueError(f"lerr has Q={Q} columns, outside [1, {Q_MAX}]")
+    _want(seqs=(seqs, (n, W), torch.int8),
+          small5=(small5, (n, 5), torch.int8),
+          lerr=(lerr, (17, Q), torch.float32),
+          **({} if quals is None else
+             {"quals": (quals, (n, W), torch.uint8)}))
+    return Q
+
+
+def _launch(dev, fn, *args, workspace=False):
+    """fn(*args[, counts workspace, its int4 entries], stream) on dev's
+    current stream; raises on a CUDA error code."""
     with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if workspace:
+            ws = _workspace(dev, stream)
+            args += (ws.data_ptr(), ws.shape[0] // 4)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"store_screen kernel B5 launch failed: CUDA "
                            f"error {rc}")
 
 
+def _count(name: str) -> None:
+    with _count_lock:   # multi-sample dada() launches from worker threads
+        launches[name] += 1
+
+
+def _ptr(x) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def small_pack(tvec, seqs, lens, quals, center: int, lerr, small5):
+    """B5's small pack alone (the full route's small13; see
+    small_pack_ref): one launch on CUDA tensors (one count in
+    launches["small"]); CPU tensors run small_pack_ref."""
+    dev = seqs.device
+    if dev.type == "cpu":
+        return small_pack_ref(tvec, seqs, lens, quals, center, lerr, small5)
+    if dev.type != "cuda":
+        raise ValueError(f"small_pack runs on cuda or cpu, not {dev}")
+    n, W = seqs.shape
+    _check(None, tvec, seqs, lens, center, 1, "tiles")
+    Q = _check_small_in(seqs, quals, lerr, small5)
+    small13 = torch.empty((n, 13), dtype=torch.int8, device=dev)
+    _launch(dev, _load().store_screen_small,
+            small5.data_ptr(), tvec.data_ptr(), seqs.data_ptr(),
+            lens.data_ptr(), _ptr(quals), lerr.data_ptr(),
+            small13.data_ptr(), n, W, Q, int(center))
+    _count("small")
+    return small13
+
+
 def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
                 cbits=None, *, nd: int, L: int, M0: int, K: int,
                 greedy: bool, kind: str = "tiles",
-                M0U: Optional[int] = None, cache_on: bool = False):
-    """Kernel B5: see budded_pack_ref for what it computes. CUDA tensors
-    launch the screen, the compaction and the pack on the current stream
-    (one count in launches["pack"]); CPU tensors run budded_pack_ref."""
+                M0U: Optional[int] = None, cache_on: bool = False,
+                small5=None, quals=None, lerr=None):
+    """Kernel B5: see budded_pack_ref for what it computes (small13 None:
+    the small pack from small5, quals and lerr too; given small13, those
+    are not read). CUDA tensors launch the one cooperative kernel on the
+    current stream (one count in launches["pack"]); CPU tensors run
+    budded_pack_ref. Returns (buf, order, order_u, small13)."""
     _check(small13, tvec, seqs, lens, center, K, kind)
     n, W = seqs.shape
     MU = M0U if cache_on else M0
     if nd % 8 or nd < n or not 0 <= MU <= nd or (cache_on and cbits is None):
         raise ValueError(f"nd={nd}, n={n}, MU={MU}, cache_on={cache_on}")
-    kw = dict(nd=nd, L=L, M0=M0, K=K, greedy=greedy, kind=kind, M0U=M0U,
-              cache_on=cache_on)
     dev = seqs.device
     if dev.type == "cpu":
-        return budded_pack_ref(small13, tvec, seqs, lens, reads, center, eth2,
-                               cbits, **kw)
+        return budded_pack_ref(
+            small13, tvec, seqs, lens, reads, center, eth2, cbits, nd=nd,
+            L=L, M0=M0, K=K, greedy=greedy, kind=kind, M0U=M0U,
+            cache_on=cache_on, small5=small5, quals=quals, lerr=lerr)
     if dev.type != "cuda":
         raise ValueError(f"budded_pack runs on cuda or cpu, not {dev}")
     nb = nd // 8
@@ -397,31 +551,36 @@ def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
                               or tuple(cbits.shape) != (nb,)))):
         raise ValueError("eth2 must be uint8 [2 nd + nd/8], reads int32 "
                          "[n], cbits uint8 [nd/8]")
+    compute = small13 is None
+    if compute:
+        Q = _check_small_in(seqs, quals, lerr, small5)
+        small13 = torch.empty((n, 13), dtype=torch.int8, device=dev)
+    else:
+        Q, small5, quals, lerr = 0, None, None, None
     o1, o2, o3, total = budbuf_layout(nd, W, M0, K, kind,
                                       M0U if cache_on else None)
     buf = torch.empty(total, dtype=torch.uint8, device=dev)
     order = torch.empty(nd, dtype=torch.int32, device=dev)
     order_u = (torch.empty(nd, dtype=torch.int32, device=dev) if cache_on
                else order)
-    status = torch.empty(nd, dtype=torch.uint8, device=dev)
     _launch(dev, _load().store_screen_run,
-            small13.data_ptr(), eth2.data_ptr(), reads.data_ptr(),
-            cbits.data_ptr() if cache_on else None, tvec.data_ptr(),
-            seqs.data_ptr(), lens.data_ptr(),
-            n, nd, W, int(center), int(bool(greedy)), int(bool(cache_on)),
+            small13.data_ptr(), _ptr(small5), tvec.data_ptr(),
+            seqs.data_ptr(), lens.data_ptr(), _ptr(quals), _ptr(lerr),
+            eth2.data_ptr(), reads.data_ptr(),
+            cbits.data_ptr() if cache_on else None, order.data_ptr(),
+            order_u.data_ptr(), buf.data_ptr(),
+            n, nd, W, Q, int(center), int(bool(greedy)), int(bool(cache_on)),
+            int(compute), MU, K, int(kind == "bits"), o1, o2, o3,
             float(np.float32(5.0 * L)), float(np.float32(L + 5.0)),
-            float(np.float32(-(1074.0 + L) * _LN2 - 1.0)),
-            status.data_ptr(), order.data_ptr(), order_u.data_ptr(),
-            buf.data_ptr(), MU, K, int(kind == "bits"), o1, o2, o3)
-    with _count_lock:   # multi-sample dada() launches from worker threads
-        launches["pack"] += 1
-    return buf, order, order_u
+            float(np.float32(-(1074.0 + L) * _LN2 - 1.0)), workspace=True)
+    _count("pack")
+    return buf, order, order_u, small13
 
 
 def take_subs(small13, tvec, seqs, lens, center: int, order, *, M0: int,
               M: int, K: int, kind: str = "tiles"):
     """Kernel B5's follow-up (see take_subs_ref): one launch of its pack
-    kernel over compacted rows [M0, M0 + M) on CUDA tensors (one count in
+    over compacted rows [M0, M0 + M) on CUDA tensors (one count in
     launches["take"]); CPU tensors run take_subs_ref."""
     _check(small13, tvec, seqs, lens, center, K, kind)
     n, W = seqs.shape
@@ -443,9 +602,8 @@ def take_subs(small13, tvec, seqs, lens, center: int, order, *, M0: int,
             seqs.data_ptr(), lens.data_ptr(),
             M0, M, n, W, int(center), K, int(kind == "bits"),
             out.data_ptr(), out.data_ptr() + 5 * M)
-    with _count_lock:
-        launches["take"] += 1
+    _count("take")
     return out
 
 
-launches = {"pack": 0, "take": 0}
+launches = {"pack": 0, "take": 0, "small": 0}

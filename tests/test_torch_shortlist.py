@@ -161,10 +161,11 @@ def test_plain_functions_equal(case):
         d["qlerr"], d["eth2"], None, d["cbits"], L=L, M0=M0, K=K,
         greedy=greedy, kind=kind, M0U=M0U, cache_on=cache_on)
     np.testing.assert_array_equal(np.asarray(small_j), jx["small"])
-    buf_t, ord_t, oru_t = ss.budded_pack_ref(
+    buf_t, ord_t, oru_t, small_t = ss.budded_pack_ref(
         pt["small13"], pt["tvec"], pt["seqs"], pt["lens"], pt["reads"],
         center, pt["eth2"], pt["cbits"], nd=nd, L=L, M0=M0, K=K,
         greedy=greedy, kind=kind, M0U=M0U, cache_on=cache_on)
+    assert small_t is pt["small13"]     # given, not recomputed
     buf_j = np.asarray(buf_j).view(np.uint8)
     assert len(buf_t) == len(buf_j) == ss.budbuf_layout(
         nd, pt["seqs"].shape[1], M0, K, kind, M0U)[3]
@@ -252,7 +253,8 @@ def _backends(monkeypatch, rs, rs_t, opts=None, **attrs):
 def _share_small(be_j, be_t, opts):
     """The port's budded compares get dada2_tpu's small pack for the same
     center and error matrix (its f32 loglam summed in XLA's order), so
-    that their screens see the same bits."""
+    that their screens see the same bits: every lookup of the port's
+    small13 cache hits with it, so B5 runs in its small13-given mode."""
     def small13(ent, center, err):
         ent_j = be_j._align_ent(center, opts, be_j._pallas_ok(
             int(be_j.lens[center]), opts))
@@ -260,7 +262,7 @@ def _share_small(be_j, be_t, opts):
                                  be_j._center_dev(center),
                                  be_j._get_qlerr(err), ent_j[2])
         return torch.from_numpy(np.asarray(small)[: be_t.rs.n].copy())
-    be_t._small13 = small13
+    be_t._small13 = be_t._small13_cached = small13
 
 
 def _same_buffers(be_j, be_t):
