@@ -14,7 +14,8 @@ Phases (any failure exits non-zero and prints no result line):
                the three aligners x pointer slab in shared or device
                memory: eighteen) and csrc/store_screen.cu (kernel B5: the
                one cooperative budded kernel and the follow-up, tiles and
-               bits each, and the small pack alone: five);
+               bits each, the gather mode, the small pack alone and the
+               full mode, screened and not: eight);
                prints their `-Xptxas -v` reports;
   3. kernel  — kernel B1 against its plain PyTorch version on the card, on
                seeded fuzz blocks (uniform and mixed lengths, windows of
@@ -30,9 +31,10 @@ Phases (any failure exits non-zero and prints no result line):
                set (len ~1450: NDP 3072, L1R 1664); every output bitwise
                equal;
   4. small   — derep_fastq(sam1F) -> dada(err=tperr1()) on the card and on
-               the CPU: clustering, map, pval, birth_subs, trans identical;
-               then the same at BAND_SIZE=0 (every candidate gapless on the
-               host), which must launch no kernel;
+               the CPU: clustering, map, pval, birth_subs, trans identical,
+               the init compare through B5's full mode (its launches
+               printed); then the same at BAND_SIZE=0 (every candidate
+               gapless on the host), which must launch no kernel;
   5. main    — a simulated 120,000-read MiSeq sample (the DADA2 tutorial
                scale) through dada(selfConsist=True) on the card, with the
                kernels' launch counts reset just before and read just after
@@ -41,7 +43,8 @@ Phases (any failure exits non-zero and prints no result line):
                and its bound, at the main path's largest shapes, and also at
                one block and at samPB.fastq.gz's geometry (BAND_SIZE=32);
   6. profile — the same selfConsist run again under torch.profiler: device
-               time by kernel and the device's busy share;
+               time by kernel and the device's busy share; one B5 kernel
+               per counted wrapper call, in each of its five wrappers;
   7. table   — sam1F and sam2F: derep_fastq -> dada(err=tperr1()) ->
                make_sequence_table -> remove_bimera_denovo with each of the
                three methods, on the card and on the CPU: identical;
@@ -170,14 +173,38 @@ Phases (any failure exits non-zero and prints no result line):
                median and largest M0, the follow-up's and the small-only
                launch's, beside the plain versions (torch-ops chains) and
                the bound (the small pack's bytes included).
-It prints one {"device_stages": [...]} line (the taxonomy scorer, torch
-ops, not a hand-written kernel), one {"kernels": [...]} line (B1 to B5)
+ 18. full    — the full compare's one-fetch transport (B5's full mode), the
+               classic path's tile gather (its gather mode) and host tvec
+               cache, compare_many and the packed construction upload:
+               (a) the full mode against full_pack_ref (buffer and order)
+               with the follow-up over its order, and the gather mode
+               against gather_subs_ref, bitwise, at sam1F's 896 uniques
+               and phase 5's sample, screened and not, M0 16 and the
+               adaptive size, K 8 and 48, a threshold mixing -999, 0 and
+               subnormal values; (b) sam1F and sam2F through
+               dada(selfConsist=True), card == CPU, the first real-err init
+               compare through the full mode and every later one a host
+               cache hit fetching no tvec row; (c) phase 5's transport
+               bytes (17b's run) beside the parent's, dense re-fetches,
+               follow-ups, puts, gather launches, and the construction
+               blob's bytes beside the parent's two arrays; (d)
+               compare_many of five centers == five compare() calls, in
+               both halves; (e) the full mode's device time (fresh
+               process, torch.profiler) and call time (CUDA events) at
+               both sizes and the gather mode's, beside the plain
+               versions and the bound by bytes; the 4-bit tvec row gather
+               and the construction unpack (torch ops) timed on the card
+               against the CPU and their bounds.
+It prints one {"device_stages": [...]} line (the taxonomy scorer, the
+4-bit tvec row gather and the construction unpack: torch ops, not
+hand-written kernels), one {"kernels": [...]} line (B1 to B5)
 and, last, {"ok": true, ...}.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1709,6 +1736,7 @@ def transport_run(run, per_compare=True):
         wall_s=wall, compares=len(per), budded_compares=len(budded),
         device_fetches=COUNTERS.device_fetches,
         fetch_bytes=COUNTERS.fetch_bytes,
+        device_puts=COUNTERS.device_puts, put_bytes=COUNTERS.put_bytes,
         followup_fetches=getattr(COUNTERS, "followup_fetches", None),
         dense_refetches=getattr(COUNTERS, "dense_refetches", None),
         host_lambda_rows=rows["n"],
@@ -1966,11 +1994,13 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
     except AssertionError as e:
         fail(f"17b: phase 5's sample differs between routes: {e}")
     if (not calls or st_b["b5_launches"]["pack"] != len(calls)
-            or st_f["b5_launches"]["pack"] or st_f["b5_launches"]["take"]
-            or not st_f["b5_launches"]["small"]):
+            or st_f["b5_launches"]["pack"]
+            or not st_f["b5_launches"]["small"]
+            or not st_f["b5_launches"]["full"]):
         fail(f"17b: B5 launches {st_b['b5_launches']} budded, "
-             f"{st_f['b5_launches']} with the route off (the full route's "
-             f"small packs must be B5's small-only launch)")
+             f"{st_f['b5_launches']} with the route off (its compares must "
+             f"be screened full compares: B5's small-only launch and full "
+             f"mode)")
     for label, st in (("budded route", st_b), ("full route", st_f)):
         log(f"[shortlist] 17b phase 5's sample, {label}: "
             f"{json.dumps(st, sort_keys=True)}; card {card}")
@@ -2074,7 +2104,452 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
                 ms=top["ms"], device_ms=top["device_ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], launch_floor_ms=floor_ms,
-                timed=timed, max_abs_err=err17)
+                timed=timed, max_abs_err=err17), st_b
+
+
+# ---- phase 18: the full compare's one-fetch transport (B5's full and ------
+# gather modes), compare_many and the packed construction upload
+
+# phase 5's transport bytes before this slice (PERF.md §5: PR 11's run 3,
+# the same in PR 12's run 3; NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_PHASE5_BYTES = {"be.tvec": 10_160_750, "be.small_fetch": 432_600}
+
+
+def full_inputs(be, err, center=0):
+    """A full compare's device inputs from backend be at its main-path
+    state: center's align entry (kernel B1's sweep), its small13 under err
+    (B5's small-only launch), e_thresh near each row's lambda mixing the
+    -999 init state, 0 and subnormal values, and the eth operands (bf16
+    thresholds then the pad bitmap; the pad bitmap alone)."""
+    import numpy as np
+    import torch
+
+    from dada2_tpu_torch.options import DEFAULT_OPTIONS
+
+    opts = DEFAULT_OPTIONS.normalized()
+    ent = be._align_ent(center, opts, be._kernel_geom(
+        int(be.lens[center]), opts))
+    small13 = be._small13(ent, center, err)
+    n, nd = be.rs.n, be.nd
+    rng = np.random.default_rng(18)
+    loglam = small13[:, 4:8].contiguous().view(torch.float32).cpu().numpy()
+    e = np.exp(np.nan_to_num(loglam[:, 0].astype(np.float64), neginf=-80.0)
+               + rng.normal(0, 0.3, n))
+    e[0::7], e[1::11], e[2::13] = -999.0 / 120_000, 0.0, 9.2e-41
+    eth = np.zeros(2 * nd + nd // 8, np.uint8)
+    eth[: 2 * n] = (e.astype(np.float32).view(np.uint32) >> 16).astype(
+        np.uint16).view(np.uint8)
+    eth[2 * nd:] = np.packbits(np.arange(nd) >= n, bitorder="little")
+    dev = small13.device
+    return dict(ent=ent, small13=small13, small5=ent[2],
+                eth=torch.from_numpy(eth).to(dev),
+                pad=torch.from_numpy(eth[2 * nd:].copy()).to(dev),
+                base=(ent[1], be.d_seqs, be.d_lens, center), nd=nd, n=n,
+                L=be.maxlen, W=be.rs.seqs.shape[1])
+
+
+def full_args(inp, screened, M0, K):
+    """full_pack's (args, kwargs) for inputs from full_inputs."""
+    small = inp["small13"] if screened else inp["small5"]
+    eth = inp["eth"] if screened else inp["pad"]
+    return ((small,) + inp["base"] + (eth,),
+            dict(nd=inp["nd"], L=inp["L"], M0=M0, K=K, screened=screened))
+
+
+def full_adaptive_m0(be, screened):
+    """The M0 a first full compare of this backend takes
+    (CudaBackend._full_dispatch with no history)."""
+    if screened:
+        return min(be.FULL_SCREENED_M0, be.nd)
+    M0 = 256
+    while M0 < be.rs.n:
+        M0 *= 2
+    return min(M0, be.nd)
+
+
+def full_vs_plain(ss, inp, screened, M0, K):
+    """B5's full mode against full_pack_ref (buffer, order), then the
+    follow-up over its order (take over the small rows it read) against
+    take_subs_ref. Returns (max |difference|, m, buffer bytes)."""
+    import torch
+
+    a, kw = full_args(inp, screened, M0, K)
+    got = ss.full_pack(*a, **kw)
+    err = max_abs_diff(got, ss.full_pack_ref(*a, **kw))
+    m = int(got[0][:16].view(torch.int32)[0])
+    nd = kw["nd"]
+    T0, M = ((M0, min(ss.bucket15(m - M0), nd - M0)) if m > M0
+             else (0, min(64, nd)))
+    targs = (a[0],) + inp["base"] + (got[1],)
+    tk = dict(M0=T0, M=M, K=K)
+    err = max(err, max_abs_diff([ss.take_subs(*targs, **tk)],
+                                [ss.take_subs_ref(*targs, **tk)]))
+    return err, m, len(got[0])
+
+
+def gather_args(ss, inp, K, hmax=None):
+    """gather_subs's arguments over the center's non-gapless rows (those
+    with ham <= hmax, if given), bucketed with copies of the first, as the
+    classic path's tile fetch takes them."""
+    import numpy as np
+    import torch
+
+    s5 = inp["small5"].cpu().numpy()
+    ham = s5[:, :4].copy().view(np.int16)[:, 0]
+    rows = np.nonzero((s5[:, 4] & 2) == 0)[0]
+    if hmax is not None:
+        rows = rows[ham[rows] <= hmax]
+    idx = np.concatenate([rows, np.full(ss.bucket15(len(rows)) - len(rows),
+                                        rows[0])]).astype(np.int32)
+    return (inp["base"] + (inp["small5"], torch.from_numpy(idx).to(
+        inp["small5"].device)), dict(K=K))
+
+
+def full_bound(inp, a, kw, buflen):
+    """(bound_ms, detail) of one full_pack by bytes at the HBM rate: the
+    small rows and eth read, the tvec and sequence rows and lengths of
+    the M0 packed slots and the center's row, the buffer and the order
+    written (its operations, a few dozen a row and a few a position of
+    the slots, are negligible at the int32 rate)."""
+    n, nd, W, M0 = inp["n"], kw["nd"], inp["W"], kw["M0"]
+    nbytes = (a[0].numel() + a[5].numel() + M0 * (2 * W + 8) + W + buflen
+              + 4 * nd)
+    return nbytes / HBM_BYTES_PER_S * 1e3, f"{nbytes} bytes"
+
+
+def gather_bound(inp, a, kw):
+    """(bound_ms, detail) of one gather_subs by bytes: each listed row's
+    tvec and sequence rows, length, flags and index read, its tile
+    written."""
+    M, W, K = a[5].shape[0], inp["W"], kw["K"]
+    nbytes = M * (2 * W + 8 + 1 + 4 + 2 * K) + W
+    return nbytes / HBM_BYTES_PER_S * 1e3, f"{nbytes} bytes"
+
+
+def b5_call_device_child(path: str) -> None:
+    """18e's device times in a fresh process (as 17c's): loads {label:
+    (wrapper name in ops/store_screen.py, args, kwargs)} (CPU tensors) onto
+    the card and prints one JSON line {label: [device ms per call,
+    kernels per call, {kernel name: count}]}."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from dada2_tpu_torch.ops import store_screen as ss
+
+    dev = torch.device("cuda", 0)
+
+    def card(x):
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    out = {}
+    for label, (fn, a, kw) in torch.load(path).items():
+        a = [card(x) for x in a]
+        kw = {k: card(v) for k, v in kw.items()}
+        out[label] = device_ms_per_call(
+            lambda: getattr(ss, fn)(*a, **kw))
+    print(json.dumps(out), flush=True)
+
+
+def b5_call_device_times(calls):
+    """Run b5_call_device_child on {label: (wrapper, args, kwargs)} in a
+    fresh process; returns its {label: [...]}."""
+    import torch
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "b5_calls.pt")
+        torch.save({label: (fn, [cpu(x) for x in a],
+                            {k: cpu(v) for k, v in kw.items()})
+                    for label, (fn, a, kw) in calls.items()}, path)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--b5-call-device-time", path], capture_output=True, text=True,
+            timeout=600)
+    if proc.returncode != 0:
+        fail(f"18e: the device-time process failed ({proc.returncode}): "
+             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def init_compare_log(run):
+    """run() with every compare recorded: whether it is an init compare
+    (no positive e_thresh) under a real error matrix, the be.tvec bytes
+    it fetched and the full-mode launches it made (one sample at a time:
+    the phases and launches are process-wide). Returns (run's result,
+    [(init, tvec bytes, full launches)])."""
+    import numpy as np
+
+    from dada2_tpu_torch.core import backend_cuda as bc
+    from dada2_tpu_torch.ops import store_screen as ss
+    from dada2_tpu_torch.trace import PHASES
+
+    B = bc.CudaBackend
+    orig = B.compare
+    log_ = []
+
+    def compare(self, center, skip, opts, err, use_kmers, kdist_cutoff,
+                e_thresh=None):
+        init = (not (err == 1.0).all() and (
+            e_thresh is None or not bool(np.any(e_thresh > 0))))
+        b0 = PHASES.bytes_dict().get("be.tvec", 0)
+        f0 = ss.launches["full"]
+        out = orig(self, center, skip, opts, err, use_kmers, kdist_cutoff,
+                   e_thresh)
+        log_.append((init, PHASES.bytes_dict().get("be.tvec", 0) - b0,
+                     ss.launches["full"] - f0))
+        return out
+
+    B.compare = compare
+    try:
+        return run(), log_
+    finally:
+        B.compare = orig
+
+
+def full_phase(dt, dev, card, p5, st17):
+    """Phase 18: B5's full and gather modes against their plain versions
+    at sam1F's and phase 5's sizes (18a), sam1F and sam2F through
+    dada(selfConsist=True) card against CPU with the host tvec cache
+    (18b), phase 5's transport bytes against the parent's from 17b's
+    instrumented run and the construction upload's bytes (18c),
+    compare_many against k compare() calls (18d), and the full and gather
+    modes' device and call times against their bounds (18e). Fails on any
+    difference; returns B5's full-mode entries for the kernels line."""
+    import numpy as np
+    import torch
+
+    from dada2_tpu_torch.core import backend_cuda as bc
+    from dada2_tpu_torch.core.backend_cuda import CudaBackend
+    from dada2_tpu_torch.core.raws import make_rawset
+    from dada2_tpu_torch.ops import store_screen as ss
+    from dada2_tpu_torch.options import DEFAULT_OPTIONS
+
+    t_phase = time.time()
+    sim = p5["sim"]
+    drp1 = dt.derep_fastq(SAM1F)
+    bes = {"sam1F": CudaBackend(make_rawset(
+        drp1.sequences, drp1.abundances, None, drp1.quals), device=dev),
+        "phase 5": CudaBackend(make_rawset(
+            sim.sequences, sim.abundances, None, sim.quals), device=dev)}
+    errs = {"sam1F": dt.data.tperr1(), "phase 5": p5["err"]}
+    inps = {k: full_inputs(be, errs[k]) for k, be in bes.items()}
+
+    # 18a. the full mode (screened and not, M0 16 and the adaptive size,
+    # K 8 and 48, the threshold mixing -999, 0 and subnormal values) with
+    # the follow-up over its order, and the gather mode, bitwise
+    err18 = 0
+    for name, inp in inps.items():
+        for screened in (False, True):
+            for M0 in (16, full_adaptive_m0(bes[name], screened)):
+                for K in (8, 48):
+                    e, m, blen = full_vs_plain(ss, inp, screened, M0, K)
+                    err18 = max(err18, e)
+                    log(f"[full] 18a {name} (n={inp['n']}, nd={inp['nd']}) "
+                        f"screened={screened} M0={M0} K={K}: m={m}, "
+                        f"{blen} bytes; max |kernel - plain| = {e} (buffer, "
+                        f"order, follow-up)")
+        for K in (8, 48):
+            a, kw = gather_args(ss, inp, K)
+            for small in (inp["small5"], inp["small13"]):
+                a = a[:4] + (small, a[5])
+                e = max_abs_diff([ss.gather_subs(*a, **kw)], [
+                    ss.gather_subs_ref(*a[:4], small[:, -1], a[5], **kw)])
+                err18 = max(err18, e)
+            log(f"[full] 18a {name} gather K={K} over {a[5].shape[0]} "
+                f"rows (small5 and small13): max |kernel - plain| = {e}")
+    if err18 != 0:
+        fail("B5's full or gather mode disagrees with its plain version")
+    torch.cuda.synchronize()
+
+    # 18b. sam1F and sam2F through selfConsist, card against CPU: the
+    # first real-err init compare takes the full mode and seeds the host
+    # tvec cache, every later one fetches no tvec row
+    for f in (SAM1F, SAM2F):
+        drp = dt.derep_fastq(f)
+        label = os.path.basename(f).split(".")[0]
+        f0 = ss.launches["full"]
+        res_c, clog = init_compare_log(lambda: dt.dada(
+            drp, err=None, selfConsist=True, device="cuda", verbose=False))
+        n_full = ss.launches["full"] - f0
+        t0 = time.time()
+        res_h = dt.dada(dt.derep_fastq(f), err=None, selfConsist=True,
+                        device="cpu", verbose=False)
+        t_cpu = time.time() - t0
+        try:
+            same_sample(res_c, res_h, f"18b {label} card vs CPU")
+        except AssertionError as e:
+            fail(f"18b: {label} selfConsist differs card vs CPU: {e}")
+        inits = [c for c in clog if c[0]]
+        log(f"[full] 18b {label}: {len(res_c.err_in)} rounds, "
+            f"{len(res_c.denoised)} ASVs, card == CPU (err_out, trans, "
+            f"clustering, map; CPU {t_cpu:.1f}s); full-mode launches "
+            f"{n_full}; init compares under a real err (tvec bytes, full "
+            f"launches): {inits}")
+        if n_full <= 0 or not inits or inits[0][2] != 1 or any(
+                c[1] or c[2] for c in inits[1:]):
+            fail(f"18b: {label}: the first real-err init compare must take "
+                 f"the full mode and every later one the host tvec cache")
+
+    # 18c. phase 5's transport (17b's instrumented run) against the parent,
+    # and the construction upload
+    ph = st17["phases"]
+    got = {k: ph.get(k, [0, 0])[1] for k in (
+        "be.tvec", "be.full_fetch", "be.small_fetch", "be.bud_fetch")}
+    log(f"[full] 18c phase 5's sample (17b, budded route): bytes {got} "
+        f"against the parent's be.tvec {PARENT_PHASE5_BYTES['be.tvec']} and "
+        f"be.small_fetch {PARENT_PHASE5_BYTES['be.small_fetch']} (PERF.md "
+        f"§5); dense re-fetches {st17['dense_refetches']}, follow-ups "
+        f"{st17['followup_fetches']}, fetches {st17['device_fetches']}, "
+        f"puts {st17['device_puts']} ({st17['put_bytes']} bytes); B5 "
+        f"launches {st17['b5_launches']}; card {card}")
+    if st17["b5_launches"]["gather"] <= 0:
+        fail("18c: phase 5's path never launched B5's gather mode")
+    rs5 = bes["phase 5"].rs
+    blob, q6 = bc._pack_construction(np.asarray(rs5.seqs), rs5.quals)
+    log(f"[full] 18c construction upload of phase 5's sample (n="
+        f"{rs5.n}, W={rs5.seqs.shape[1]}): one blob of {blob.nbytes} bytes "
+        f"(quals {'6-bit' if q6 else 'uint8'}) against the parent's "
+        f"{rs5.seqs.size + rs5.quals.size} (int8 sequences and uint8 "
+        f"quals, two puts)")
+
+    # 18d. compare_many against k compare() calls, both halves
+    be1 = bes["sam1F"]
+    opts = DEFAULT_OPTIONS.normalized()
+    err = dt.data.tperr1()
+    skip = np.zeros(be1.rs.n, bool)
+    e_minmax = np.full(be1.rs.n, -999.0)
+    for c in range(4):
+        lam_c, _ = be1.compare(c, skip, opts, err, True, 1.0)
+        e_minmax = np.maximum(e_minmax, lam_c * int(be1.rs.reads[c]))
+    eth = e_minmax / int(be1.rs.reads.sum())
+    centers = [0, 3, 7, 11, 19]
+    for label, e_t, kd in (("unscreened", None, 1.0),
+                           ("screened", eth, 1.0),
+                           ("budded", eth, opts.KDIST_CUTOFF)):
+        rs1 = be1.rs
+        a = CudaBackend(rs1, device=dev)
+        b = CudaBackend(rs1, device=dev)
+        many = a.compare_many(centers, skip, opts, err, True, kd, e_t)
+        for c, (lam_m, ham_m) in zip(centers, many):
+            lam_s, ham_s = b.compare(c, skip, opts, err, True, kd, e_t)
+            if not (np.array_equal(lam_s, lam_m)
+                    and np.array_equal(ham_s, ham_m)):
+                fail(f"18d: compare_many ({label}) differs from compare() "
+                     f"at center {c}")
+        log(f"[full] 18d compare_many of {len(centers)} sam1F centers "
+            f"({label}) == compare() bit for bit")
+
+    # 18e. device time (torch.profiler, fresh process) and call time (CUDA
+    # events) of the full mode at both sizes and of the gather mode at
+    # phase 5's init compare's shape, against the plain versions and the
+    # bound
+    timed = {}
+    be5 = bes["phase 5"]
+    for label, inp, screened, M0, K in (
+            ("sam1F init", inps["sam1F"], False,
+             full_adaptive_m0(bes["sam1F"], False), 64),
+            ("phase 5 screened", inps["phase 5"], True,
+             full_adaptive_m0(be5, True), be5.FULL_SCREENED_K)):
+        a, kw = full_args(inp, screened, M0, K)
+        timed[label] = ("full_pack", a, kw)
+    a, kw = gather_args(ss, inps["phase 5"], 32, hmax=32)
+    timed["phase 5 gather"] = ("gather_subs", a, kw)
+    dev_t = b5_call_device_times(timed)
+    out = []
+    for label, (fn, a, kw) in timed.items():
+        d_ms, per_call, names = dev_t[label]
+        if per_call != 1:
+            fail(f"18e: {label} ran {per_call} kernels per call ({names})")
+        call = getattr(ss, fn)
+        ref = (ss.full_pack_ref if fn == "full_pack" else
+               (lambda *x, **k: ss.gather_subs_ref(*x[:4], x[4][:, -1],
+                                                   x[5], **k)))
+        ms = cuda_ms(lambda: call(*a, **kw), 50)
+        plain = cuda_ms(lambda: ref(*a, **kw), 5)
+        r = call(*a, **kw)
+        inp = inps["sam1F" if label.startswith("sam1F") else "phase 5"]
+        b_ms, det = (full_bound(inp, a, kw, len(r[0])) if fn == "full_pack"
+                     else gather_bound(inp, a, kw))
+        out.append(dict(shape=label, mode=fn, ms=ms, device_ms=d_ms,
+                        plain_ms=plain, bound_ms=b_ms, bound_by="bytes",
+                        **{k: v for k, v in kw.items() if k != "nd"}))
+        log(f"[full] 18e {fn} at {label} ({json.dumps(kw)}): device {d_ms} "
+            f"ms per call (one kernel: {list(names)}), call {ms:.4f} ms "
+            f"(CUDA events over 50 calls), plain version {plain:.4f} ms, "
+            f"bound {b_ms:.6f} ms by bytes ({det}); card {card}")
+    stages = torch_stages(ss, bc, bes["phase 5"], inps["phase 5"], card,
+                          st17["dense_refetches"])
+    log(f"[full] phase 18 took {time.time() - t_phase:.1f}s")
+    return dict(timed=out, max_abs_err=err18, stages=stages)
+
+
+def host_ms(fn, reps):
+    """fn's mean wall ms over reps calls on the host (CPU tensors)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def torch_stages(ss, bc, be, inp, card, nrows):
+    """18e's device stages in torch ops: the 4-bit tvec row gather
+    (gather_tvec_packed, the dense re-fetch) over nrows rows bucketed as
+    the backend sends them, and the construction unpack (_construct_dev)
+    of phase 5's sample: call time on the card (CUDA events), the same
+    ops on the CPU, the bound by bytes; card == CPU. Returns their
+    device_stages entries."""
+    import numpy as np
+    import torch
+
+    rs = be.rs
+    rows = np.arange(max(nrows, 1), dtype=np.int64)
+    idx = be._bucketed(rows)
+    tvec = inp["ent"][1]
+    got = ss.gather_tvec_packed(tvec, idx)
+    want = ss.gather_tvec_packed(tvec.cpu(), idx.cpu())
+    if not torch.equal(got.cpu(), want):
+        fail("18e: gather_tvec_packed differs card vs CPU")
+    M, W = idx.shape[0], tvec.shape[1]
+    g_ms = cuda_ms(lambda: ss.gather_tvec_packed(tvec, idx), 50)
+    g_cpu = host_ms(lambda: ss.gather_tvec_packed(tvec.cpu(), idx.cpu()), 5)
+    g_bytes = M * (W + 4 + (W + 1) // 2)
+    g_bound = g_bytes / HBM_BYTES_PER_S * 1e3
+    blob, q6 = bc._pack_construction(np.asarray(rs.seqs), rs.quals)
+    n, W = rs.seqs.shape
+    kw = dict(n=n, W=W, q6=q6, with_quals=True)
+    d_blob = torch.from_numpy(blob).to(be.device)
+    got = bc._construct_dev(d_blob, be.d_lens, **kw)
+    want = bc._construct_dev(torch.from_numpy(blob), be.d_lens.cpu(), **kw)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)) or not (
+            torch.equal(got[0], be.d_seqs)):
+        fail("18e: the construction unpack differs card vs CPU")
+    c_ms = cuda_ms(lambda: bc._construct_dev(d_blob, be.d_lens, **kw), 20)
+    c_cpu = host_ms(lambda: bc._construct_dev(
+        torch.from_numpy(blob), be.d_lens.cpu(), **kw), 3)
+    c_bytes = blob.nbytes + 8 * n + 2 * n * W
+    c_bound = c_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[full] 18e gather_tvec_packed over {M} rows (phase 5's "
+        f"{nrows} dense re-fetches, bucketed) x W {W}: call {g_ms:.4f} ms "
+        f"(CUDA events), CPU {g_cpu:.4f} ms, bound {g_bound:.6f} ms by "
+        f"bytes ({g_bytes}); construction unpack of phase 5's sample (blob "
+        f"{blob.nbytes} bytes, quals {'6-bit' if q6 else 'uint8'}): call "
+        f"{c_ms:.4f} ms, CPU {c_cpu:.4f} ms, bound {c_bound:.6f} ms by bytes "
+        f"({c_bytes}); card == CPU; card {card}")
+    return [dict(name="4-bit tvec row gather (gather_tvec_packed)",
+                 route="torch ops", source="dada2_tpu_torch/ops/"
+                 "store_screen.py", replaces="dada2_tpu/core/backend_tpu.py"
+                 ":886", rows=M, ms=g_ms, plain_ms=g_cpu, plain_device="cpu",
+                 bound_ms=g_bound, bound_by="bytes", library_ms=None),
+            dict(name="construction unpack (_construct_dev)",
+                 route="torch ops", source="dada2_tpu_torch/core/"
+                 "backend_cuda.py", replaces="dada2_tpu/core/backend_tpu.py"
+                 ":682", blob_bytes=int(blob.nbytes),
+                 parent_bytes=int(rs.seqs.size + rs.quals.size), ms=c_ms,
+                 plain_ms=c_cpu, plain_device="cpu", bound_ms=c_bound,
+                 bound_by="bytes", library_ms=None)]
 
 
 def main() -> None:
@@ -2115,7 +2590,8 @@ def main() -> None:
     def counts():
         return dict(launches, B4=nwb.nw_batch.launches,
                     B5=sum(ss.launches.values()),
-                    **{f"B4 {k}": v for k, v in by_body.items()})
+                    **{f"B4 {k}": v for k, v in by_body.items()},
+                    **{f"B5 {k}": v for k, v in ss.launches.items()})
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2171,10 +2647,11 @@ def main() -> None:
              f"one-block-per-pair body: the three aligners x two slab "
              f"routes), ptxas compiled {entries}")
     entries = reports["store_screen.cu"].count("Compiling entry function")
-    if entries != 5:
-        fail(f"expected 5 kernels of B5 (the cooperative budded kernel and "
-             f"the follow-up, tiles and bits each, and the small pack "
-             f"alone), ptxas compiled {entries}")
+    if entries != 8:
+        fail(f"expected 8 kernels of B5 (the cooperative budded kernel and "
+             f"the follow-up, tiles and bits each, the gather mode, the "
+             f"small pack alone and the full mode, screened and not), ptxas "
+             f"compiled {entries}")
     b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
     if sorted(b1_regs) != [1, 2, 3, 4]:
         fail(f"B1's four instantiations not found in the ptxas report: "
@@ -2295,9 +2772,11 @@ def main() -> None:
     # 4. main path, small: card against CPU, identical
     err41 = dt.data.tperr1()
     drp = dt.derep_fastq(SAM1F)
+    reset_launches()
     t0 = time.time()
     res_gpu = dt.dada(drp, err=err41, device="cuda", verbose=False)
     t_gpu = time.time() - t0
+    n4 = counts()
     t0 = time.time()
     res_cpu = dt.dada(dt.derep_fastq(SAM1F), err=err41, device="cpu",
                       verbose=False)
@@ -2308,7 +2787,10 @@ def main() -> None:
         fail(f"sam1F dada() on the card differs from the CPU run: {e}")
     log(f"[small] sam1F: {len(drp.uniques)} uniques -> "
         f"{len(res_gpu.denoised)} ASVs; card {t_gpu:.2f}s, CPU "
-        f"{t_cpu:.2f}s; clustering/map/pval/birth_subs/trans identical")
+        f"{t_cpu:.2f}s; clustering/map/pval/birth_subs/trans identical; "
+        f"kernel launches {n4}")
+    if n4["B5 full"] <= 0:
+        fail("sam1F dada(err=tperr1()) did not take B5's full mode")
     # BAND_SIZE=0: every candidate gapless on the host, no kernel
     reset_launches()
     res0_gpu = dt.dada(drp, err=err41, BAND_SIZE=0, device="cuda",
@@ -2428,12 +2910,18 @@ def main() -> None:
     b5_calls = {k: ss.launches[k] - b5_before[k] for k in ss.launches}
     b5_kernels = {k: sum(c for name, (_, c) in by_name.items()
                          if f"{k}_kernel" in name)
-                  for k in ("budded", "take", "small")}
+                  for k in ("budded", "take", "small", "full")}
+    # the gather mode is take_kernel<false, false> (demangled or not)
+    gather = sum(c for name, (_, c) in by_name.items()
+                 if re.search(r"take_kernel(<\s*(false|\(bool\)0)\s*,\s*"
+                              r"(false|\(bool\)0)\s*>|ILb0ELb0E)", name))
+    b5_kernels.update(take=b5_kernels["take"] - gather, gather=gather)
     log(f"[profile] B5 in that run: wrapper calls {b5_calls}, kernels "
-        f"{b5_kernels} (budded = pack, take = take, small = small)")
-    if by_name and (b5_kernels["budded"] != b5_calls["pack"]
-                    or b5_kernels["take"] != b5_calls["take"]
-                    or b5_kernels["small"] != b5_calls["small"]):
+        f"{b5_kernels} (budded = pack, take = take, small = small, full = "
+        f"full, gather = take_kernel<false, false>)")
+    if by_name and any(b5_kernels[k] != b5_calls[w] for k, w in (
+            ("budded", "pack"), ("take", "take"), ("small", "small"),
+            ("full", "full"), ("gather", "gather"))):
         fail("B5's kernels in the profile do not match its counted calls "
              "one for one")
 
@@ -2446,9 +2934,11 @@ def main() -> None:
         return st, {m: dt.remove_bimera_denovo(st, method=m, device=device)
                     for m in ("consensus", "pooled", "per-sample")}, dadas
 
+    reset_launches()
     t0 = time.time()
     st_gpu, nochim_gpu, dadas_f_gpu = small_table("cuda")
     t_gpu = time.time() - t0
+    n7 = counts()
     t0 = time.time()
     st_cpu, nochim_cpu, dadas_f_cpu = small_table("cpu")
     t_cpu = time.time() - t0
@@ -2462,7 +2952,8 @@ def main() -> None:
     log(f"[table] sam1F+sam2F: sequence table {st_gpu.shape}; without "
         f"bimeras: " + ", ".join(f"{m} {v.shape[1]} ASVs"
                                  for m, v in nochim_gpu.items())
-        + f"; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; identical")
+        + f"; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; identical; kernel "
+        f"launches {n7}")
 
     # 8. kernel B3's path: one center against every sam1F unique
     codes, lens = pack_sequences(drp.sequences)
@@ -3082,8 +3573,13 @@ def main() -> None:
                                    **p5)
     for k in ("B1", "B4"):
         rows[k]["launches_phase16"] = launches16[k]
-    rows["B5"] = shortlist_phase(dt, dev, card, p5["sim"], p5["res5"], n_b5)
+    rows["B5"], st17 = shortlist_phase(dt, dev, card, p5["sim"], p5["res5"],
+                                       n_b5)
     err_b["B5"] = rows["B5"].pop("max_abs_err")
+    full = full_phase(dt, dev, card, p5, st17)
+    err_b["B5"] = max(err_b["B5"], full.pop("max_abs_err"))
+    rows["B5"]["full_and_gather"] = full["timed"]
+    stages += full["stages"]
 
     wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",
             "dada2_tpu/ops/nw_pallas.py:452")
@@ -3094,7 +3590,7 @@ def main() -> None:
         "B3": ("nw_wavefront kinds (B3)",) + wave,
         "B4": ("nw_batch (B4)", "dada2_tpu_torch/csrc/nw_batch.cu",
                "dada2_tpu/ops/nw_batch.py:63"),
-        "B5": ("store_screen budded pack (B5)",
+        "B5": ("store_screen budded pack, take, full, gather (B5)",
                "dada2_tpu_torch/csrc/store_screen.cu",
                "dada2_tpu/core/backend_tpu.py:520")}
     log(json.dumps({"device_stages": stages}))
@@ -3112,5 +3608,7 @@ if __name__ == "__main__":
         dist_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--b5-device-time"]:
         b5_device_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--b5-call-device-time"]:
+        b5_call_device_child(sys.argv[2])
     else:
         main()

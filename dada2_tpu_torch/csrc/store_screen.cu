@@ -1,13 +1,17 @@
-// Kernel B5: the whole budded compare in one launch, for Hopper (sm_90a).
+// Kernel B5: the compare transport's device half for Hopper (sm_90a): the
+// whole budded compare in one launch, its follow-up, the full compare's
+// one-fetch buffer and the classic path's tile gather.
 //
-// Replaces the XLA program dada2_tpu/core/backend_tpu.py::_budded_fused
-// (:520): the small pack _small_trace (:341), the store screen
+// Replaces the XLA programs dada2_tpu/core/backend_tpu.py::_budded_fused
+// (:520), _full_fused (:578) and _gather_subs (:659): the small pack
+// _small_trace (:341), the store screen
 // _shortlist_screen (:779), the stable ascending compactions
 // (argsort(~need, stable=True)) and the substitution transport
 // _subs_tile_trace (:410) / _subs_bits_trace (:426) over _sel_tv (:386);
-// and the follow-up _take_subs (:640). Plain version and layout:
+// and the follow-up _take_subs (:640). Plain versions and layouts:
 // ops/store_screen.py (small_pack_ref, budded_pack_ref, take_subs_ref,
-// budbuf_layout); every output byte is the plain version's.
+// full_pack_ref, gather_subs_ref, budbuf_layout, fullbuf_layout); every
+// output byte is the plain version's.
 //
 // budded_kernel<BITS> is one persistent cooperative kernel (launched with
 // cudaLaunchCooperativeKernel, grid = blocks the occupancy calculator
@@ -44,10 +48,24 @@
 //      K pos | nt0 << 14 entries in ascending position, 0xFFFF after;
 //      bits: the position bitmap and the 2-bit nt0 stream), positions
 //      compacted with ballots and popc.
-// take_kernel<BITS> runs phase 3's device function alone over compacted
-// rows [M0, M0 + M) (the follow-up); small_kernel runs phase 1's small
-// pack alone (the full route's small13), so the card has one definition
-// of small13's bits.
+// take_kernel<BITS, true> runs phase 3's device function alone over
+// compacted rows [M0, M0 + M) (the follow-up; its small rows small13 or
+// small5); take_kernel<false, false> is the gather mode, the tiles alone
+// over an explicit row list (_gather_subs :659, the classic full
+// compare's tile fetch); small_kernel runs phase 1's small pack alone (the
+// full route's small13), so the card has one definition of small13's bits.
+//
+// full_kernel<SCREENED> is the full mode, the one-fetch transport of a
+// full compare (_full_fused :578), one cooperative launch with the same
+// grid rule: a thread per row writes its 5-byte row into the slab and,
+// screened, runs the full screen (the budded screen's margin without its
+// skip, shroud and underflow rules); ballots write the need bitmap and
+// count sel = need & ~gapless & ~pad; after a grid sync the ascending
+// compaction of sel; after another, a warp per slot of the first M0
+// writes the slot's row index and its substitution tile. An unscreened
+// compare hands it small5, so no small pack is summed for it. Bound by
+// bytes as the budded kernel: the slab is 5 bytes a row, the tiles read
+// two W-byte rows a slot.
 //
 // Grid sync needs no -rdc=true: since CUDA 11 cooperative_groups'
 // grid.sync() compiles in whole-program mode, and build_library's
@@ -91,7 +109,7 @@ constexpr int STREAM_WORDS = 64;          // a warp's nt0 stream: K <= 1024
 constexpr int SUM_UNROLL = 8;             // small pack: positions in flight
 constexpr int MAX_DYN_SMEM = 36 * 1024;   // + static, under 48 KB: no opt-in
 constexpr uint8_t ST_NEED = 1, ST_NEED_U = 2, ST_CAND = 4, ST_NSHROUD = 8,
-                  ST_SHROUD = 16;
+                  ST_SHROUD = 16, ST_SEL = 32;
 
 // what the small pack reads and writes
 struct SmallIn {
@@ -248,20 +266,23 @@ __device__ uint8_t screen_row(const BudArgs& a, int r, bool nskip,
          (shroud ? ST_SHROUD : 0);
 }
 
-// One shortlist slot (source row s): its 5-byte small row and its
-// substitution records. The warp's nt0 stream sits in `stream`.
-template <bool BITS>
-__device__ void pack_slot(int s, int slot, const uint8_t* small13,
+// One shortlist slot (source row s): its 5-byte small row (ROWS) and its
+// substitution records. Small rows are small13 or small5 (rstride 13 or
+// 5): bytes 0..3 ham and ham_gapless, the last byte the flags. The warp's
+// nt0 stream sits in `stream` (BITS only).
+template <bool BITS, bool ROWS>
+__device__ void pack_slot(int s, int slot, const uint8_t* small, int rstride,
                           const int8_t* __restrict__ tvec,
                           const int8_t* __restrict__ seqs,
                           const long long* __restrict__ lens, int W,
                           int center, int K, uint8_t* rows_out,
                           uint8_t* subs_out, uint32_t* stream, int lane) {
-  const uint8_t* sm = small13 + (size_t)s * 13;
-  if (lane < 5)
-    rows_out[(size_t)slot * 5 + lane] = __ldcg(sm + (lane < 4 ? lane : 12));
+  const uint8_t* sm = small + (size_t)s * rstride;
+  if (ROWS && lane < 5)
+    rows_out[(size_t)slot * 5 + lane] =
+        __ldcg(sm + (lane < 4 ? lane : rstride - 1));
   const int l2 = (int)lens[s], mn = min(l2, (int)lens[center]);
-  const bool gl = (__ldcg(sm + 12) & 2) != 0;
+  const bool gl = (__ldcg(sm + rstride - 1) & 2) != 0;
   const int8_t* s1 = seqs + (size_t)s * W;
   const int8_t* s0 = seqs + (size_t)center * W;
   const int8_t* tv_row = tvec + (size_t)s * W;
@@ -461,24 +482,149 @@ __global__ void __launch_bounds__(THREADS, 2) budded_kernel(BudArgs a) {
   const int* ord = a.cache_on ? a.order_u : a.order;
   for (int slot = blockIdx.x * WARPS + warp; slot < a.MU;
        slot += gridDim.x * WARPS)
-    pack_slot<BITS>(src_row(__ldcg(ord + slot), a.sm.n), slot, a.sm.small13,
-                    a.sm.tvec, a.sm.seqs, a.sm.lens, a.sm.W, a.sm.center,
-                    a.K, a.buf + a.o1, a.buf + a.o2, stream[warp], lane);
+    pack_slot<BITS, true>(src_row(__ldcg(ord + slot), a.sm.n), slot,
+                          a.sm.small13, 13, a.sm.tvec, a.sm.seqs, a.sm.lens,
+                          a.sm.W, a.sm.center, a.K, a.buf + a.o1,
+                          a.buf + a.o2, stream[warp], lane);
 }
 
-template <bool BITS>
+// The follow-up (ROWS: 5-byte rows, then records) over compacted rows
+// [slot0, slot0 + nslots) of order; the gather mode (ROWS false, tiles
+// only) over an explicit row list, order = idx and slot0 = 0.
+template <bool BITS, bool ROWS>
 __global__ void __launch_bounds__(THREADS)
 take_kernel(const int* order, int slot0, int nslots, int n,
-            const uint8_t* small13, const int8_t* __restrict__ tvec,
-            const int8_t* __restrict__ seqs,
+            const uint8_t* small, int rstride,
+            const int8_t* __restrict__ tvec, const int8_t* __restrict__ seqs,
             const long long* __restrict__ lens, int W, int center, int K,
             uint8_t* __restrict__ rows_out, uint8_t* __restrict__ subs_out) {
-  __shared__ uint32_t stream[WARPS][STREAM_WORDS];
+  __shared__ uint32_t stream[BITS ? WARPS : 1][STREAM_WORDS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int slot = blockIdx.x * WARPS + warp;
   if (slot >= nslots) return;   // warp-uniform
-  pack_slot<BITS>(src_row(order[slot0 + slot], n), slot, small13, tvec, seqs,
-                  lens, W, center, K, rows_out, subs_out, stream[warp], lane);
+  pack_slot<BITS, ROWS>(src_row(order[slot0 + slot], n), slot, small,
+                        rstride, tvec, seqs, lens, W, center, K, rows_out,
+                        subs_out, stream[BITS ? warp : 0], lane);
+}
+
+struct FullArgs {
+  const uint8_t* small;     // [n, rstride]: small13 (screened) or small5
+  const int8_t* tvec;       // [n, W]
+  const int8_t* seqs;       // [n, W]
+  const long long* lens;    // [n]
+  const uint8_t* eth2;      // [2 nd] bf16 e_thresh (screened), [nd/8] pad
+  int* order;               // [nd]
+  uint8_t* buf;             // fullbuf_layout
+  int4* counts;             // [gridDim.x] per-block counts (.x: |sel|)
+  int n, nd, W, rstride, center, M0, K, o1, o2, o3, chunk;
+  float c5L, cL5;
+};
+
+// The full compare's f32 store screen of row r (backend_tpu._full_fused):
+// the budded screen's margin without its skip, shroud and underflow
+// rules; non-finite loglam is kept.
+__device__ bool full_need(const FullArgs& a, int r, float loglam,
+                          float abssum) {
+  const uint32_t eb =
+      (uint32_t)a.eth2[2 * r] | ((uint32_t)a.eth2[2 * r + 1] << 8);
+  const float e = flush(__uint_as_float(eb << 16));
+  loglam = flush(loglam);
+  abssum = flush(abssum);
+  const bool pos = e > 0.f;
+  const float logthr = pos ? logf(e) : -INFINITY;
+  const float eps = 1.1920928955078125e-7f;   // 2^-23
+  const float m1 = __fadd_rn(
+      1e-3f, __fmul_rn(eps, __fadd_rn(a.c5L, __fmul_rn(a.cL5, abssum))));
+  const float margin =
+      __fadd_rn(m1, __fmul_rn(4.f * eps, pos ? fabsf(logthr) : 0.f));
+  return flush(__fadd_rn(loglam, margin)) >= logthr || !isfinite(loglam);
+}
+
+// B5's full mode, one cooperative launch (the grid and the row ranges as
+// budded_kernel's): 1. a thread per row writes its 5-byte row into the
+// slab, screens it (SCREENED) and marks sel = need & ~gapless & ~pad; a
+// warp's ballots write 4 bytes of the need bitmap and count sel;
+// 2. grid sync, the ascending compaction of sel into order (unselected
+// rows after, also ascending) and the header; 3. grid sync, a warp per
+// slot of the first M0: its row index and its substitution tile.
+template <bool SCREENED>
+__global__ void __launch_bounds__(THREADS, 2) full_kernel(FullArgs a) {
+  extern __shared__ __align__(16) uint8_t status[];
+  __shared__ int red[WARPS];
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb = a.nd >> 3;
+  const int lo = blockIdx.x * a.chunk, hi = min(lo + a.chunk, a.nd);
+  const uint8_t* padb = a.eth2 + (SCREENED ? 2 * a.nd : 0);
+
+  // 1. slab rows, the screen, sel
+  for (int r = lo + threadIdx.x; r < hi; r += THREADS) {
+    const uint8_t* row = a.small + (size_t)src_row(r, a.n) * a.rstride;
+    const uint8_t flags = row[a.rstride - 1];
+    uint8_t* out = a.buf + 16 + (size_t)r * 5;
+    for (int j = 0; j < 4; ++j) out[j] = row[j];
+    out[4] = flags;
+    const bool need =
+        SCREENED ? full_need(a, r, load_f32(row + 4), load_f32(row + 8))
+                 : true;
+    const bool pad = (padb[r >> 3] >> (r & 7)) & 1;
+    const bool sel = need && !(flags & 2) && !pad;
+    status[r - lo] = (need ? ST_NEED : 0) | (sel ? ST_SEL : 0);
+  }
+  __syncthreads();
+  int cs = 0;
+  for (int g0 = lo + 32 * warp; g0 < hi; g0 += 32 * WARPS) {
+    const int r = g0 + lane;
+    const uint8_t st = r < hi ? status[r - lo] : 0;
+    const unsigned bn = __ballot_sync(FULL, st & ST_NEED);
+    const int byte = (g0 >> 3) + lane;
+    if (lane < 4 && byte < nb) a.buf[a.o1 + byte] = (bn >> (8 * lane)) & 0xff;
+    cs += __popc(__ballot_sync(FULL, st & ST_SEL));
+  }
+  cs = block_sum(lane == 0 ? cs : 0, red);   // a warp's lanes hold one count
+  if (threadIdx.x == 0) a.counts[blockIdx.x] = make_int4(cs, 0, 0, 0);
+  grid.sync();
+
+  // 2. the compaction and the header
+  int pn = 0, tn = 0;
+  for (int j = threadIdx.x; j < (int)gridDim.x; j += THREADS) {
+    const int c = __ldcg(&a.counts[j].x);
+    tn += c;
+    if (j < (int)blockIdx.x) pn += c;
+  }
+  pn = block_sum(pn, red);
+  const int m = block_sum(tn, red);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    int* header = (int*)a.buf;
+    header[0] = m;
+    header[1] = header[2] = header[3] = 0;
+  }
+  if (warp == 0) {
+    const unsigned lt = (1u << lane) - 1;
+    for (int g0 = lo; g0 < hi; g0 += 32) {
+      const int r = g0 + lane;
+      const bool in = r < hi;
+      const uint8_t st = in ? status[r - lo] : 0;
+      const unsigned bs = __ballot_sync(FULL, st & ST_SEL);
+      const int k = pn + __popc(bs & lt);
+      if (in) {
+        if (st & ST_SEL) a.order[k] = r; else a.order[m + r - k] = r;
+      }
+      pn += __popc(bs);
+    }
+  }
+  grid.sync();
+
+  // 3. the first M0 slots: row index (unaligned int32, byte by byte) and
+  // substitution tile, a warp per slot
+  for (int slot = blockIdx.x * WARPS + warp; slot < a.M0;
+       slot += gridDim.x * WARPS) {
+    const int r = __ldcg(a.order + slot);
+    if (lane < 4) a.buf[a.o2 + 4 * slot + lane] = (r >> (8 * lane)) & 0xff;
+    pack_slot<false, false>(src_row(r, a.n), slot, a.small, a.rstride,
+                            a.tvec, a.seqs, a.lens, a.W, a.center, a.K,
+                            nullptr, a.buf + a.o3, nullptr, lane);
+  }
 }
 
 __global__ void __launch_bounds__(SMALL_WARPS * 32) small_kernel(SmallIn sm) {
@@ -506,31 +652,18 @@ SmallIn small_in(const void* small5, const void* tvec, const void* seqs,
                  (uint8_t*)small13,     n, W, Q, center};
 }
 
-}  // namespace
-
-// One budded compare: the small pack (compute != 0; else small13 is
-// given), the screen, the compactions and the pack into buf (layout
-// ops/store_screen.py::budbuf_layout; o1..o3 are its offsets), in one
-// cooperative launch. counts is a workspace of counts_cap int4.
-extern "C" int store_screen_run(
-    void* small13, const void* small5, const void* tvec, const void* seqs,
-    const void* lens, const void* quals, const void* lerr, const void* eth2,
-    const void* reads, const void* cbits, void* order, void* order_u,
-    void* buf, int n, int nd, int W, int Q, int center, int greedy,
-    int cache_on, int compute, int MU, int K, int bits, int o1, int o2,
-    int o3, float c5L, float cL5, float und, void* counts, int counts_cap,
-    void* stream) {
-  const void* fn = bits ? (const void*)budded_kernel<true>
-                        : (const void*)budded_kernel<false>;
+// B5's grid rule for a cooperative launch of fn over nd rows: as many
+// blocks as fit on the card at once (occupancy x SMs), at most one per 32
+// rows and one per workspace entry; rows per block (chunk) a multiple of
+// 32, so a warp's ballot covers 4 whole bitmap bytes of one block; lb
+// bytes of dynamic shared memory before the chunk's status bytes.
+int coop_grid(const void* fn, int nd, int counts_cap, int lb, int* G_out,
+              int* chunk_out, int* smem_out) {
   int dev = 0, sms = 0;
   int rc = (int)cudaGetDevice(&dev);
   if (!rc) rc = (int)cudaDeviceGetAttribute(
       &sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc) return rc;
-  const int lb = compute ? lerr_bytes(Q) : 0;
-  // blocks: as many as fit on the card at once (cooperative), at most one
-  // per 32 rows and one per workspace entry; rows per block a multiple of
-  // 32, so a warp's ballot covers 4 whole bitmap bytes of one block
   int G = ceil_div(nd, 32) < counts_cap ? ceil_div(nd, 32) : counts_cap;
   int chunk = 0, smem = 0, fits = 0;
   for (int it = 0; it < 16 && !fits; ++it) {
@@ -547,6 +680,32 @@ extern "C" int store_screen_run(
     if (!fits) G = occ * sms;
   }
   if (!fits) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *G_out = G;
+  *chunk_out = chunk;
+  *smem_out = smem;
+  return 0;
+}
+
+}  // namespace
+
+// One budded compare: the small pack (compute != 0; else small13 is
+// given), the screen, the compactions and the pack into buf (layout
+// ops/store_screen.py::budbuf_layout; o1..o3 are its offsets), in one
+// cooperative launch. counts is a workspace of counts_cap int4.
+extern "C" int store_screen_run(
+    void* small13, const void* small5, const void* tvec, const void* seqs,
+    const void* lens, const void* quals, const void* lerr, const void* eth2,
+    const void* reads, const void* cbits, void* order, void* order_u,
+    void* buf, int n, int nd, int W, int Q, int center, int greedy,
+    int cache_on, int compute, int MU, int K, int bits, int o1, int o2,
+    int o3, float c5L, float cL5, float und, void* counts, int counts_cap,
+    void* stream) {
+  const void* fn = bits ? (const void*)budded_kernel<true>
+                        : (const void*)budded_kernel<false>;
+  int G = 0, chunk = 0, smem = 0;
+  int rc = coop_grid(fn, nd, counts_cap, compute ? lerr_bytes(Q) : 0, &G,
+                     &chunk, &smem);
+  if (rc) return rc;
   BudArgs a{small_in(small5, tvec, seqs, lens, quals, lerr, small13, n, W, Q,
                      center),
             (const uint8_t*)eth2, (const int*)reads, (const uint8_t*)cbits,
@@ -578,25 +737,61 @@ extern "C" int store_screen_small(const void* small5, const void* tvec,
 }
 
 // The follow-up: rows and substitution records of compacted rows
-// [slot0, slot0 + nslots).
-extern "C" int store_screen_take(const void* order, const void* small13,
+// [slot0, slot0 + nslots) of order. With rows_out null, the gather mode:
+// the tiles alone (bits refused) of rows order[slot0 ..]. Small rows of
+// rstride bytes (13 or 5).
+extern "C" int store_screen_take(const void* order, const void* small,
                                  const void* tvec, const void* seqs,
                                  const void* lens, int slot0, int nslots,
-                                 int n, int W, int center, int K, int bits,
-                                 void* rows_out, void* subs_out,
-                                 void* stream) {
+                                 int n, int W, int rstride, int center,
+                                 int K, int bits, void* rows_out,
+                                 void* subs_out, void* stream) {
   if (nslots <= 0) return 0;
+  if (!rows_out && bits) return (int)cudaErrorInvalidValue;
   const int blocks = ceil_div(nslots, WARPS);
   cudaStream_t st = (cudaStream_t)stream;
-  if (bits)
-    take_kernel<true><<<blocks, THREADS, 0, st>>>(
-        (const int*)order, slot0, nslots, n, (const uint8_t*)small13,
-        (const int8_t*)tvec, (const int8_t*)seqs, (const long long*)lens, W,
-        center, K, (uint8_t*)rows_out, (uint8_t*)subs_out);
+  const int* o = (const int*)order;
+  const uint8_t* sm = (const uint8_t*)small;
+  const int8_t *tv = (const int8_t*)tvec, *sq = (const int8_t*)seqs;
+  const long long* ln = (const long long*)lens;
+  uint8_t *ro = (uint8_t*)rows_out, *so = (uint8_t*)subs_out;
+  if (!rows_out)
+    take_kernel<false, false><<<blocks, THREADS, 0, st>>>(
+        o, slot0, nslots, n, sm, rstride, tv, sq, ln, W, center, K, ro, so);
+  else if (bits)
+    take_kernel<true, true><<<blocks, THREADS, 0, st>>>(
+        o, slot0, nslots, n, sm, rstride, tv, sq, ln, W, center, K, ro, so);
   else
-    take_kernel<false><<<blocks, THREADS, 0, st>>>(
-        (const int*)order, slot0, nslots, n, (const uint8_t*)small13,
-        (const int8_t*)tvec, (const int8_t*)seqs, (const long long*)lens, W,
-        center, K, (uint8_t*)rows_out, (uint8_t*)subs_out);
+    take_kernel<false, true><<<blocks, THREADS, 0, st>>>(
+        o, slot0, nslots, n, sm, rstride, tv, sq, ln, W, center, K, ro, so);
+  return (int)cudaGetLastError();
+}
+
+// B5's full mode: the full compare's buffer (layout
+// ops/store_screen.py::fullbuf_layout; o1..o3 are its offsets) and the
+// compaction order, in one cooperative launch. counts is a workspace of
+// counts_cap int4.
+extern "C" int store_screen_full(const void* small, const void* tvec,
+                                 const void* seqs, const void* lens,
+                                 const void* eth2, void* order, void* buf,
+                                 int n, int nd, int W, int rstride,
+                                 int center, int screened, int M0, int K,
+                                 int o1, int o2, int o3, float c5L,
+                                 float cL5, void* counts, int counts_cap,
+                                 void* stream) {
+  const void* fn = screened ? (const void*)full_kernel<true>
+                            : (const void*)full_kernel<false>;
+  int G = 0, chunk = 0, smem = 0;
+  int rc = coop_grid(fn, nd, counts_cap, 0, &G, &chunk, &smem);
+  if (rc) return rc;
+  FullArgs a{(const uint8_t*)small, (const int8_t*)tvec,
+             (const int8_t*)seqs,   (const long long*)lens,
+             (const uint8_t*)eth2,  (int*)order,
+             (uint8_t*)buf,         (int4*)counts,
+             n, nd, W, rstride, center, M0, K, o1, o2, o3, chunk, c5L, cL5};
+  void* params[] = {&a};
+  rc = (int)cudaLaunchCooperativeKernel(fn, dim3(G), dim3(THREADS), params,
+                                        (size_t)smem, (cudaStream_t)stream);
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }

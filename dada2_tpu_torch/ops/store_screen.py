@@ -31,12 +31,29 @@ The small pack's f32 sums are taken in the kernel's order, defined by
 butterfly), not XLA's: they are a screen, and its margin covers any
 order. Every byte after them is the JAX package's.
 
+`full_pack` is the full compare's one-fetch transport (the JAX
+package's `_full_fused`, :578): every row's 5-byte small row, the need
+bitmap of its optional store screen, and the substitution tiles of the
+first M0 rows that need an exact lambda and are not gapless, compacted in
+ascending row order (`fullbuf_layout`):
+
+    [16 B header: m, 0, 0, 0 | nd x 5 B rows | nd/8 need bitmap |
+     M0 x i32 row indices | M0 x 2K B substitution tiles]
+
+`gather_subs` is the tile pack over an explicit row list (`_gather_subs`,
+:659), and `gather_tvec_packed` the 4-bit dense row fetch
+(`_gather_tvec_packed`, :886; torch ops, no kernel of its own).
+
 On CUDA tensors the wrappers launch the kernels (one cooperative launch
-for `budded_pack`, one for `take_subs`, one for the full route's
-`small_pack`) and count one launch per call in `launches`; on CPU
-tensors they run the plain versions below (`small_pack_ref`,
-`budded_pack_ref`, `take_subs_ref`), the JAX functions written in torch
-ops. There is no fallback between the two.
+for `budded_pack` and one for `full_pack`, one for `take_subs`, one for
+`gather_subs`, one for the full route's `small_pack`) and count one
+launch per call in `launches`; on CPU tensors they run the plain versions
+below (`small_pack_ref`, `budded_pack_ref`, `take_subs_ref`,
+`full_pack_ref`, `gather_subs_ref`), the JAX functions written in torch
+ops. There is no fallback between the two. The small rows the follow-up,
+the full mode and the gather mode read are small13 or small5 (an
+unscreened full compare never sums a small pack): 5 bytes a row are its
+ham, ham_gapless and, last, its flags.
 """
 from __future__ import annotations
 
@@ -328,9 +345,12 @@ def shortlist_screen(small13, eth2, reads, center: int, *, nd: int, L: int,
     return header, order, _pack(shroud), need
 
 
-def _rows5(small13, src):
-    """The 5-byte small rows (ham, ham_gapless, flags) of rows src."""
-    sm = small13[src].view(torch.uint8)
+def _rows5(small, src):
+    """The 5-byte small rows (ham, ham_gapless, flags) of rows src, from
+    small13 or small5 rows."""
+    sm = small[src].view(torch.uint8)
+    if small.shape[1] == 5:
+        return sm
     return torch.cat([sm[:, :4], sm[:, 12:13]], dim=1)
 
 
@@ -370,16 +390,106 @@ def budded_pack_ref(small13, tvec, seqs, lens, reads, center: int, eth2,
     return buf, order, order_u, small13
 
 
-def take_subs_ref(small13, tvec, seqs, lens, center: int, order, *,
+def take_subs_ref(small, tvec, seqs, lens, center: int, order, *,
                   M0: int, M: int, K: int, kind: str = "tiles"):
     """Plain version of the follow-up (backend_tpu._take_subs): the 5 B
     rows, then the substitution records, of compacted rows
-    [M0, M0 + M)."""
-    n = small13.shape[0]
+    [M0, M0 + M). small is small13 or small5."""
+    n = small.shape[0]
     src = _src(order[M0: M0 + M].to(torch.int64), n)
-    subs = _subs_bytes(tvec, seqs, lens, center, small13[:, 12], src, K,
+    subs = _subs_bytes(tvec, seqs, lens, center, small[:, -1], src, K,
                        kind)
-    return torch.cat([_rows5(small13, src).reshape(-1), subs.reshape(-1)])
+    return torch.cat([_rows5(small, src).reshape(-1), subs.reshape(-1)])
+
+
+def fullbuf_layout(nd: int, M0: int, K: int):
+    """Offsets inside one full_pack buffer: (end of the 5 B rows, end of
+    the need bitmap, end of the row indices, total length)
+    (backend_tpu._full_finish's o1..o4)."""
+    o1 = 16 + 5 * nd
+    o2 = o1 + nd // 8
+    o3 = o2 + 4 * M0
+    return o1, o2, o3, o3 + 2 * K * M0
+
+
+def full_screen(small13, eth2, *, nd: int, L: int):
+    """The full compare's store screen over all nd rows (the screen of
+    backend_tpu._full_fused): a row is needed iff loglam + margin >=
+    log(e_thresh) or its loglam is not finite, the margin 1e-3 + eps (5 L
+    + (L + 5) abssum) + 4 eps |logthr|; e_thresh <= 0 keeps the row. No
+    skip, shroud or underflow rule: the host applies the caller's. eth2
+    is uint8 [2 nd + nd/8]: e_thresh as bf16, then the pad bitmap. The
+    f32 arithmetic is the JAX package's, subnormals read as zero.
+    Returns need bool [nd]."""
+    n = small13.shape[0]
+    dev = small13.device
+    sm = small13[_src(torch.arange(nd, device=dev), n)]
+    e_thresh = _flush(eth2[: 2 * nd].view(torch.bfloat16).to(torch.float32))
+    f32 = sm[:, 4:12].contiguous().view(torch.float32)
+    loglam, abssum = _flush(f32[:, 0]), _flush(f32[:, 1])
+    pos = e_thresh > 0
+    logthr = torch.where(
+        pos, torch.log(torch.where(pos, e_thresh, _f32(1.0, dev))),
+        _f32(-np.inf, dev))
+    margin = ((_f32(1e-3, dev) + _f32(EPS, dev) * (
+        _f32(5.0 * L, dev) + _f32(L + 5.0, dev) * abssum))
+        + _f32(4.0 * EPS, dev) * torch.where(pos, logthr.abs(),
+                                             _f32(0.0, dev)))
+    return ((_flush(loglam + margin) >= logthr)
+            | ~torch.isfinite(loglam))
+
+
+def full_pack_ref(small, tvec, seqs, lens, center: int, eth2, *, nd: int,
+                  L: int, M0: int, K: int, screened: bool):
+    """Plain version of B5's full mode (backend_tpu._full_fused): over nd
+    rows (rows n.. read row 0), need = the store screen (screened: small
+    is small13 and eth2 uint8 [2 nd + nd/8], e_thresh as bf16 then the
+    pad bitmap) or every row (eth2 the pad bitmap, uint8 [nd/8]; small is
+    small5 or small13); sel = need & ~gapless & ~pad; the stable
+    ascending compaction order (selected rows first, then the others,
+    both ascending) and the buffer of fullbuf_layout: header [m = |sel|,
+    0, 0, 0], every row's 5 B row, the need bitmap, order[:M0] as int32
+    and the substitution tiles (K entries) of those rows, unselected ones
+    included where m < M0. Returns (buf uint8, order int32 [nd])."""
+    n = seqs.shape[0]
+    dev = seqs.device
+    src = _src(torch.arange(nd, device=dev), n)
+    gl = (small[src, -1] & 2) != 0
+    pad = _unpack(eth2[2 * nd:] if screened else eth2, nd)
+    need = (full_screen(small, eth2, nd=nd, L=L) if screened
+            else torch.ones(nd, dtype=torch.bool, device=dev))
+    sel = need & ~gl & ~pad
+    order = torch.argsort((~sel).to(torch.uint8), stable=True).to(
+        torch.int32)
+    idx = order[:M0]
+    subs = _subs_bytes(tvec, seqs, lens, center, small[:, -1],
+                       _src(idx.to(torch.int64), n), K, "tiles")
+    header = torch.zeros(4, dtype=torch.int32, device=dev)
+    header[0] = sel.sum().to(torch.int32)
+    buf = torch.cat([header.view(torch.uint8),
+                     _rows5(small, src).reshape(-1), _pack(need),
+                     idx.contiguous().view(torch.uint8), subs.reshape(-1)])
+    return buf, order
+
+
+def gather_subs_ref(tvec, seqs, lens, center: int, flags, idx, *, K: int):
+    """Plain version of B5's gather mode (backend_tpu._gather_subs): the
+    substitution tiles of rows idx (int [M] into the n rows) as bytes
+    uint8 [M, 2K], K uint16 entries a row (pos | nt0 << 14 ascending,
+    0xFFFF after the row's substitutions)."""
+    return _subs_bytes(tvec, seqs, lens, center, flags,
+                       _src(idx.to(torch.int64), seqs.shape[0]), K, "tiles")
+
+
+def gather_tvec_packed(tvec, idx):
+    """Rows idx of tvec, 4-bit packed: two transition codes a byte, the
+    even position in the low nibble (backend_tpu._gather_tvec_packed);
+    the pad code 16 becomes 0, so the host masks by length. Torch ops on
+    either device. Returns uint8 [M, ceil(W/2)]."""
+    rows = tvec[idx.to(torch.int64)].to(torch.uint8) & 15
+    if rows.shape[1] % 2:
+        rows = torch.nn.functional.pad(rows, (0, 1))
+    return rows[:, 0::2] | (rows[:, 1::2] << 4)
 
 
 # ---- build, load and launch --------------------------------------------------
@@ -404,7 +514,10 @@ def _load():
             lib.store_screen_small.restype = I
             lib.store_screen_small.argtypes = [V] * 7 + [I] * 4 + [V]
             lib.store_screen_take.restype = I
-            lib.store_screen_take.argtypes = [V] * 5 + [I] * 7 + [V] * 2 + [V]
+            lib.store_screen_take.argtypes = [V] * 5 + [I] * 8 + [V] * 2 + [V]
+            lib.store_screen_full.restype = I
+            lib.store_screen_full.argtypes = (
+                [V] * 7 + [I] * 11 + [F] * 2 + [V, I, V])
             _lib = lib
     return _lib
 
@@ -443,14 +556,20 @@ def _want(**named):
             raise ValueError(f"{name} must be contiguous on {dev}")
 
 
-def _check(small13, tvec, seqs, lens, center, K, kind):
+def _check(small13, tvec, seqs, lens, center, K, kind, widths=(13,)):
+    """The inputs every mode reads; small13's row width one of widths
+    (13, or 5 where small5 rows are taken)."""
     n, W = seqs.shape
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if small13 is not None and (small13.dim() != 2
+                                or small13.shape[1] not in widths):
+        raise ValueError(f"small rows of width {tuple(small13.shape)[1:]}, "
+                         f"expected one of {widths}")
     _want(seqs=(seqs, (n, W), torch.int8), tvec=(tvec, (n, W), torch.int8),
           lens=(lens, (n,), torch.int64),
           **({} if small13 is None else
-             {"small13": (small13, (n, 13), torch.int8)}))
+             {"small13": (small13, (n, small13.shape[1]), torch.int8)}))
     if not 0 <= center < n:
         raise ValueError(f"center {center} outside [0, {n})")
     if kind == "tiles" and not 0 < K <= W:
@@ -579,10 +698,11 @@ def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
 
 def take_subs(small13, tvec, seqs, lens, center: int, order, *, M0: int,
               M: int, K: int, kind: str = "tiles"):
-    """Kernel B5's follow-up (see take_subs_ref): one launch of its pack
-    over compacted rows [M0, M0 + M) on CUDA tensors (one count in
-    launches["take"]); CPU tensors run take_subs_ref."""
-    _check(small13, tvec, seqs, lens, center, K, kind)
+    """Kernel B5's follow-up (see take_subs_ref; small13 may be small5):
+    one launch of its pack over compacted rows [M0, M0 + M) on CUDA
+    tensors (one count in launches["take"]); CPU tensors run
+    take_subs_ref."""
+    _check(small13, tvec, seqs, lens, center, K, kind, (13, 5))
     n, W = seqs.shape
     if M0 < 0 or M <= 0 or M0 + M > order.shape[0]:
         raise ValueError(f"rows [{M0}, {M0 + M}) outside the order's "
@@ -600,10 +720,76 @@ def take_subs(small13, tvec, seqs, lens, center: int, order, *, M0: int,
     _launch(dev, _load().store_screen_take,
             order.data_ptr(), small13.data_ptr(), tvec.data_ptr(),
             seqs.data_ptr(), lens.data_ptr(),
-            M0, M, n, W, int(center), K, int(kind == "bits"),
-            out.data_ptr(), out.data_ptr() + 5 * M)
+            M0, M, n, W, small13.shape[1], int(center), K,
+            int(kind == "bits"), out.data_ptr(), out.data_ptr() + 5 * M)
     _count("take")
     return out
 
 
-launches = {"pack": 0, "take": 0, "small": 0}
+def full_pack(small, tvec, seqs, lens, center: int, eth2, *, nd: int,
+              L: int, M0: int, K: int, screened: bool):
+    """Kernel B5's full mode: see full_pack_ref for what it computes (small
+    is small13 when screened, else small5 or small13). CUDA tensors
+    launch one cooperative kernel on the current stream (one count in
+    launches["full"]); CPU tensors run full_pack_ref. Returns (buf,
+    order)."""
+    _check(small, tvec, seqs, lens, center, K, "tiles",
+           (13,) if screened else (13, 5))
+    n, W = seqs.shape
+    if nd % 8 or nd < n or not 0 <= M0 <= nd:
+        raise ValueError(f"nd={nd}, n={n}, M0={M0}")
+    ne = (2 * nd if screened else 0) + nd // 8
+    if eth2.dtype != torch.uint8 or tuple(eth2.shape) != (ne,):
+        raise ValueError(f"eth2 must be uint8 [{ne}] (bf16 thresholds when "
+                         f"screened, then the pad bitmap)")
+    dev = seqs.device
+    if dev.type == "cpu":
+        return full_pack_ref(small, tvec, seqs, lens, center, eth2, nd=nd,
+                             L=L, M0=M0, K=K, screened=screened)
+    if dev.type != "cuda":
+        raise ValueError(f"full_pack runs on cuda or cpu, not {dev}")
+    if eth2.device != dev or not eth2.is_contiguous():
+        raise ValueError(f"eth2 must be contiguous on {dev}")
+    o1, o2, o3, total = fullbuf_layout(nd, M0, K)
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    order = torch.empty(nd, dtype=torch.int32, device=dev)
+    _launch(dev, _load().store_screen_full,
+            small.data_ptr(), tvec.data_ptr(), seqs.data_ptr(),
+            lens.data_ptr(), eth2.data_ptr(), order.data_ptr(),
+            buf.data_ptr(), n, nd, W, small.shape[1], int(center),
+            int(bool(screened)), M0, K, o1, o2, o3,
+            float(np.float32(5.0 * L)), float(np.float32(L + 5.0)),
+            workspace=True)
+    _count("full")
+    return buf, order
+
+
+def gather_subs(tvec, seqs, lens, center: int, small, idx, *, K: int):
+    """Kernel B5's gather mode (the follow-up's tile pack over an explicit
+    row list, tiles only): substitution tiles uint8 [M, 2K] of rows idx
+    (int32 [M]); small is small13 or small5 (its flags column). One
+    launch on CUDA tensors (one count in launches["gather"]); CPU tensors
+    run gather_subs_ref."""
+    _check(small, tvec, seqs, lens, center, K, "tiles", (13, 5))
+    n, W = seqs.shape
+    M = idx.shape[0]
+    dev = seqs.device
+    if dev.type == "cpu":
+        return gather_subs_ref(tvec, seqs, lens, center, small[:, -1], idx,
+                               K=K)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_subs runs on cuda or cpu, not {dev}")
+    if (idx.dtype != torch.int32 or idx.dim() != 1 or M <= 0
+            or idx.device != dev or not idx.is_contiguous()):
+        raise ValueError("idx must be a non-empty contiguous int32 vector "
+                         "on the card")
+    out = torch.empty((M, 2 * K), dtype=torch.uint8, device=dev)
+    _launch(dev, _load().store_screen_take,
+            idx.data_ptr(), small.data_ptr(), tvec.data_ptr(),
+            seqs.data_ptr(), lens.data_ptr(), 0, M, n, W, small.shape[1],
+            int(center), K, 0, None, out.data_ptr())
+    _count("gather")
+    return out
+
+
+launches = {"pack": 0, "take": 0, "small": 0, "full": 0, "gather": 0}

@@ -101,25 +101,35 @@ def test_compare_parity_e_thresh(sample, monkeypatch):
 
 
 def test_compare_parity_e_thresh_host_screen(sample):
-    """At another cutoff than the engine's (not budded) the port screens
-    on the host (_screen_need): ham stays bit-identical, lam is
-    bit-identical on every row it keeps, every row the engine would store
-    is kept, and a zeroed row is provably below the store threshold."""
+    """At another cutoff than the engine's (not budded) the compare is a
+    screened full compare, as in dada2_tpu (kernel B5's full mode screens
+    on the card, the JAX package's f32 rule): ham stays bit-identical, lam
+    is bit-identical on every row it keeps, every row the engine would
+    store is kept, and a zeroed row is provably below the store
+    threshold. At half the median lambda (about 1.3e-40, subnormal in
+    float32, which the screen reads as 0) every row is kept; at the 90th
+    percentile of the lambdas the screen drops some."""
     (rs, err, opts), (rs_t, err_t, opts_t) = _states(sample)
     skip = np.zeros(rs.n, dtype=bool)
     lam_j, ham_j = TpuBackend(rs).compare(0, skip, opts, err, True, 1.0)
     total = int(rs.reads.sum())
-    e_minmax = np.full(rs.n, np.median(lam_j[lam_j > 0]) * total / 2)
-    be_t = CudaBackend(rs_t, device="cpu")
-    lam_t, ham_t = be_t.compare(0, skip, opts_t, err_t, True, 1.0,
-                                e_minmax / total)
-    assert be_t.last_stats is None                 # not the budded route
-    np.testing.assert_array_equal(ham_j, ham_t)
-    kept = lam_t != 0
-    assert 0 < kept.sum() < (lam_j != 0).sum()     # the screen screened
-    np.testing.assert_array_equal(lam_t[kept], lam_j[kept])
-    assert kept[lam_j * total > e_minmax].all()
-    assert (lam_j[~kept] * total <= e_minmax[~kept]).all()
+    live = lam_j[lam_j > 0]
+    for e_one, screens in ((np.median(live) / 2, False),
+                           (np.quantile(live, 0.9), True)):
+        e_minmax = np.full(rs.n, e_one * total)
+        be_t = CudaBackend(rs_t, device="cpu")
+        lam_t, ham_t = be_t.compare(0, skip, opts_t, err_t, True, 1.0,
+                                    e_minmax / total)
+        assert be_t.last_stats is None             # not the budded route
+        np.testing.assert_array_equal(ham_j, ham_t)
+        kept = lam_t != 0
+        if screens:
+            assert 0 < kept.sum() < (lam_j != 0).sum()
+        else:
+            assert kept.sum() == (lam_j != 0).sum()
+        np.testing.assert_array_equal(lam_t[kept], lam_j[kept])
+        assert kept[lam_j * total > e_minmax].all()
+        assert (lam_j[~kept] * total <= e_minmax[~kept]).all()
 
 
 def test_full_run_parity(sample):
