@@ -2315,7 +2315,8 @@ def full_phase(dt, dev, card, p5, st17):
     (18b), phase 5's transport bytes against the parent's from 17b's
     instrumented run and the construction upload's bytes (18c),
     compare_many against k compare() calls (18d), and the full and gather
-    modes' device and call times against their bounds (18e). Fails on any
+    modes' device and call times against their bounds at the main path's
+    shapes, held there bitwise against the plain versions (18e). Fails on any
     difference; returns B5's full-mode entries for the kernels line."""
     import numpy as np
     import torch
@@ -2468,14 +2469,24 @@ def full_phase(dt, dev, card, p5, st17):
                                                    x[5], **k)))
         ms = cuda_ms(lambda: call(*a, **kw), 50)
         plain = cuda_ms(lambda: ref(*a, **kw), 5)
-        r = call(*a, **kw)
+        # the main path's shapes (sam1F's init K 64, phase 5's screened
+        # K 48 and its init tiles at K 32 over the rows with ham <= 32),
+        # which 18a does not run, bitwise against the plain version
+        r, want = call(*a, **kw), ref(*a, **kw)
+        e = (max_abs_diff(r, want) if fn == "full_pack"
+             else max_abs_diff([r], [want]))
+        if e != 0:
+            fail(f"18e: {fn} at {label} disagrees with its plain version "
+                 f"(max |kernel - plain| = {e})")
+        err18 = max(err18, e)
         inp = inps["sam1F" if label.startswith("sam1F") else "phase 5"]
         b_ms, det = (full_bound(inp, a, kw, len(r[0])) if fn == "full_pack"
                      else gather_bound(inp, a, kw))
         out.append(dict(shape=label, mode=fn, ms=ms, device_ms=d_ms,
                         plain_ms=plain, bound_ms=b_ms, bound_by="bytes",
                         **{k: v for k, v in kw.items() if k != "nd"}))
-        log(f"[full] 18e {fn} at {label} ({json.dumps(kw)}): device {d_ms} "
+        log(f"[full] 18e {fn} at {label} ({json.dumps(kw)}): kernel == "
+            f"plain bitwise; device {d_ms} "
             f"ms per call (one kernel: {list(names)}), call {ms:.4f} ms "
             f"(CUDA events over 50 calls), plain version {plain:.4f} ms, "
             f"bound {b_ms:.6f} ms by bytes ({det}); card {card}")

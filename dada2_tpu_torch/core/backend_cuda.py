@@ -857,8 +857,9 @@ class CudaBackend(CompareBackend):
         5*nt1 (the self transition) at every query position except the
         records' (pos, nt0) entries, 4*nt0+nt1 (reference:
         src/pval.cpp:104-130); positions past a row's length are masked
-        by _lambdas."""
-        s1 = self.rs.seqs[rows].astype(np.int64)
+        by _lambdas. int8 (codes -5..15): the init compare rebuilds
+        ~13,000 rows a call, and int64 rows cost the host 4x the time."""
+        s1 = self.rs.seqs[rows].astype(np.int8)      # pad 255 -> -1
         t = 5 * s1
         K = subs.shape[1]
         vm = np.arange(K)[None, :] < counts[:, None]
@@ -866,7 +867,7 @@ class CudaBackend(CompareBackend):
             pos = (subs & 0x3FFF).astype(np.int64)
             r = np.broadcast_to(np.arange(len(rows))[:, None], subs.shape)
             rv, pv = r[vm], pos[vm]
-            t[rv, pv] = 4 * (subs[vm] >> 14).astype(np.int64) + s1[rv, pv]
+            t[rv, pv] = 4 * (subs[vm] >> 14).astype(np.int8) + s1[rv, pv]
         return t
 
     # ---- the budded compare's transport sizing (TpuBackend's, verbatim:
@@ -1296,46 +1297,43 @@ class CudaBackend(CompareBackend):
         return out[:, : d_tvec.shape[1]]
 
     def _tvec_rows_cached(self, d_tvec, center: int, opts: DadaOptions,
-                          rows: np.ndarray, hams: Optional[np.ndarray] = None,
-                          d_small=None) -> np.ndarray:
+                          rows: np.ndarray, hams: np.ndarray,
+                          d_small) -> np.ndarray:
         """The classic full compare's tvec rows through a host cache
         (TpuBackend._tvec_rows_cached): the selfConsist loop's init
         compare asks for the same (center, rows) every round, so later
-        rounds fetch nothing (LRU of 2). Given the rows' substitution
-        counts (hams), rows travel as substitution tiles (kernel B5's
-        gather mode) with K chosen from the count histogram to minimize
-        bytes; rows over every menu K, as 4-bit dense rows."""
+        rounds fetch nothing (LRU of 2). Rows travel as substitution
+        tiles (kernel B5's gather mode) with K chosen from the rows'
+        substitution counts (hams) to minimize bytes; rows over every
+        menu K, as 4-bit dense rows."""
         key = (center, opts.BAND_SIZE, opts.MATCH, opts.MISMATCH,
                opts.GAP_PENALTY, len(rows), hash(rows.tobytes()))
         hit = self._tvec_host_cache.pop(key, None)
         if hit is not None:
             self._tvec_host_cache[key] = hit        # refresh LRU order
             return hit
-        if hams is None:
-            out = self._fetch_tvec_rows(d_tvec, rows)
-        else:
-            W = self.rs.seqs.shape[1]
-            dense_cost = (W + 1) // 2
-            best_k, best_cost = None, int(len(rows)) * dense_cost
-            for k in (8, 16, 32, 64, 128):
-                if 2 * k >= dense_cost:
-                    continue
-                fit = int((hams <= k).sum())
-                cost = 2 * k * fit + (len(rows) - fit) * dense_cost
-                if cost < best_cost:
-                    best_k, best_cost = k, cost
-            out = np.empty((len(rows), W), np.int64)
-            sparse = (hams <= best_k if best_k is not None
-                      else np.zeros(len(rows), bool))
-            if sparse.any():
-                rs_idx = rows[sparse]
-                subs = _fetch(ss.gather_subs(
-                    d_tvec, self.d_seqs, self.d_lens, int(center), d_small,
-                    self._bucketed(rs_idx), K=best_k))[: len(rs_idx)]
-                out[sparse] = self._tvec_from_subs(
-                    rs_idx, subs.view(np.uint16), hams[sparse])
-            if (~sparse).any():
-                out[~sparse] = self._fetch_tvec_rows(d_tvec, rows[~sparse])
+        W = self.rs.seqs.shape[1]
+        dense_cost = (W + 1) // 2
+        best_k, best_cost = None, int(len(rows)) * dense_cost
+        for k in (8, 16, 32, 64, 128):
+            if 2 * k >= dense_cost:
+                continue
+            fit = int((hams <= k).sum())
+            cost = 2 * k * fit + (len(rows) - fit) * dense_cost
+            if cost < best_cost:
+                best_k, best_cost = k, cost
+        out = np.empty((len(rows), W), np.int8)
+        sparse = (hams <= best_k if best_k is not None
+                  else np.zeros(len(rows), bool))
+        if sparse.any():
+            rs_idx = rows[sparse]
+            subs = _fetch(ss.gather_subs(
+                d_tvec, self.d_seqs, self.d_lens, int(center), d_small,
+                self._bucketed(rs_idx), K=best_k))[: len(rs_idx)]
+            out[sparse] = self._tvec_from_subs(
+                rs_idx, subs.view(np.uint16), hams[sparse])
+        if (~sparse).any():
+            out[~sparse] = self._fetch_tvec_rows(d_tvec, rows[~sparse])
         self._tvec_cache_put(key, out)
         return out
 
@@ -1549,7 +1547,7 @@ class CudaBackend(CompareBackend):
                         lam[over] = self._lambdas(over, tvd, err)
             else:
                 tvec_na = np.empty((len(na), self.rs.seqs.shape[1]),
-                                   np.int64)
+                                   np.int8)
                 if fits.any():
                     tvec_na[fits] = self._tvec_from_subs(
                         na[fits], subs[tp[fits]], ham_all_v[na[fits]])

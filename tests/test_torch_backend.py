@@ -100,7 +100,39 @@ def test_compare_parity_e_thresh(sample, monkeypatch):
     assert (lam_j[~kept] * total <= e_minmax[~kept]).all()
 
 
-def test_compare_parity_e_thresh_host_screen(sample):
+def test_compare_parity_e_thresh_host_screen(sample, monkeypatch):
+    """The classic path's host screen (_screen_need), which a screened
+    compare reaches only under the all-ones error matrix of selfConsist's
+    first round (any real matrix takes kernel B5's full mode), as in
+    dada2_tpu: at another cutoff than the engine's (not budded), lam and
+    ham bit-identical to TpuBackend's, every lambda exactly 1.0 or 0.0,
+    and a row zeroed exactly where its threshold lies above 1.0 by more
+    than the screen's margin (thresholds over 1.0 are synthetic: the
+    engine's are at most 1.0 in that round, so it keeps every row)."""
+    (rs, err, opts), (rs_t, err_t, opts_t) = _states(sample)
+    ones = np.ones_like(err)
+    skip = np.zeros(rs.n, dtype=bool)
+    skip[[3, 17]] = True
+    e_thresh = np.where(np.arange(rs.n) % 3 == 0, 2.0, 0.5)
+    e_thresh[1::7] = 0.0
+    monkeypatch.setenv("DADA2_TPU_PALLAS", "1")
+    be_j = TpuBackend(rs)
+    be_j.SPEC_K = 0
+    lam_j, ham_j = be_j.compare(0, skip, opts, ones, True, 1.0, e_thresh)
+    be_t = CudaBackend(rs_t, device="cpu")
+    lam_t, ham_t = be_t.compare(0, skip, opts_t, np.ones_like(err_t), True,
+                                1.0, e_thresh)
+    assert be_t.last_stats is None                 # not the budded route
+    assert not be_t._m_full                        # not the full mode
+    np.testing.assert_array_equal(ham_j, ham_t)
+    np.testing.assert_array_equal(lam_j, lam_t)
+    aligned = ham_t >= 0
+    assert set(np.unique(lam_t[aligned])) == {0.0, 1.0}
+    np.testing.assert_array_equal(lam_t[aligned] == 0.0,
+                                  e_thresh[aligned] > 1.0)
+
+
+def test_compare_parity_e_thresh_full_screen(sample):
     """At another cutoff than the engine's (not budded) the compare is a
     screened full compare, as in dada2_tpu (kernel B5's full mode screens
     on the card, the JAX package's f32 rule): ham stays bit-identical, lam
