@@ -84,7 +84,8 @@ Phases (any failure exits non-zero and prints no result line):
                card and on the CPU, identical (the forward dada results are
                phase 7's); then dada(sam1F) with HOMOPOLYMER_GAP_PENALTY=-1,
                BAND_SIZE=32 (B4 must launch, B1 must not) and with
-               BAND_SIZE=-1, card == CPU; kernel launches printed for
+               BAND_SIZE=-1 (sam1F's 250 most abundant uniques), card ==
+               CPU; kernel launches printed for
                each, B4's by body (the register body must serve them
                all);
  14. B4 size — phase 5's sample through dada(selfConsist=True,
@@ -170,9 +171,10 @@ Phases (any failure exits non-zero and prints no result line):
                (c) B5's device time (torch.profiler's kernel durations,
                one call after a sync, and the kernels per call) and call
                time (CUDA events over back-to-back calls) at the run's
-               median and largest M0, the follow-up's and the small-only
-               launch's, beside the plain versions (torch-ops chains) and
-               the bound (the small pack's bytes included).
+               median and largest M0 (speculative segments included), the
+               follow-up's and the small-only launch's, beside the plain
+               versions (torch-ops chains) and the bound (the small pack's
+               bytes included).
  18. full    — the full compare's one-fetch transport (B5's full mode), the
                classic path's tile gather (its gather mode) and host tvec
                cache, compare_many and the packed construction upload:
@@ -195,14 +197,36 @@ Phases (any failure exits non-zero and prints no result line):
                versions and the bound by bytes; the 4-bit tvec row gather
                and the construction unpack (torch ops) timed on the card
                against the CPU and their bounds.
+ 19. spec    — speculation, the multi-bud prefetch (every earlier phase
+               already runs at the default SPEC_K = 8): (a) B5's projection
+               operand and fold against the plain versions, bitwise
+               (buffer, order, order_u, small13, proj_out; small13
+               computed and given; the buffer written into a slice of a
+               larger one, the bytes around it untouched) at three buds of
+               17b's run: the fold alone, an all -inf projection, a mixed
+               one (finite on the center's row, which the screen exempts),
+               greedy flipped, cache mode, and without the fold; (b) phase
+               5's sample at SPEC_K 8, 0, 0, 8, each equal to phase 5's
+               result: spec hits, misses and wasted segments, budded
+               compares that fetched and their bytes per fetch (segments
+               included), B5 and B1 launches, be.* phases (be.spec_consume
+               included) and walls; the first run under
+               torch.cuda.set_sync_debug_mode("error") from each dispatch's
+               first B5 launch to its fetch (a host sync there raises);
+               (c) 18b's sam1F and sam2F selfConsist runs, card == CPU at
+               SPEC_K 8: their spec hits; (d) B5's device time at 17c's
+               shapes without the projection operand and with it and the
+               fold (17c's fresh-process child).
 It prints one {"device_stages": [...]} line (the taxonomy scorer, the
 4-bit tvec row gather and the construction unpack: torch ops, not
-hand-written kernels), one {"kernels": [...]} line (B1 to B5)
-and, last, {"ok": true, ...}.
+hand-written kernels), one {"kernels": [...]} line (B1 to B5; B5's
+entry carries the projection's launches and phase 19's numbers) and,
+last, {"ok": true, ...}.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -1666,9 +1690,11 @@ def transport_run(run, per_compare=True):
     engine's own cutoff, some e_thresh > 0) and, with per_compare (one
     sample at a time: the counters are process-wide), the bytes it
     fetched; the rows whose exact lambda the host multiplied; and, where
-    the checkout has kernel B5, the arguments of every budded_pack call.
-    Works on a checkout without B5 too (ab_bud.py's parent). Returns
-    (run's result, stats, B5 calls)."""
+    the checkout has kernel B5, the arguments of every budded_pack call
+    (without its outputs: the shared buffer `out` and the fold's
+    `proj_out`; a projection operand is copied). Works on a checkout
+    without B5 or speculation too (ab_bud.py's parent). Returns (run's
+    result, stats, B5 calls)."""
     import importlib
 
     import numpy as np
@@ -1713,10 +1739,16 @@ def transport_run(run, per_compare=True):
         pack = ss.budded_pack
 
         def budded_pack(*a, **kw):
-            calls.append((a, kw))
+            rec = {k: v for k, v in kw.items()
+                   if k not in ("out", "proj_out", "logtotal")}
+            if rec.get("proj") is not None:
+                rec["proj"] = rec["proj"].clone()
+            calls.append((a, rec))
             return pack(*a, **kw)
         ss.budded_pack = budded_pack
         b5_0 = dict(ss.launches)
+    from dada2_tpu_torch.ops import nw_wavefront as nww
+    b1_0 = nww.nw_wavefront.launches["B1"]
     COUNTERS.reset()
     PHASES.reset()
     try:
@@ -1740,15 +1772,28 @@ def transport_run(run, per_compare=True):
         followup_fetches=getattr(COUNTERS, "followup_fetches", None),
         dense_refetches=getattr(COUNTERS, "dense_refetches", None),
         host_lambda_rows=rows["n"],
+        b1_launches=nww.nw_wavefront.launches["B1"] - b1_0,
+        spec={k: getattr(COUNTERS, k, None) for k in (
+            "spec_hits", "spec_misses", "spec_wasted")},
         phases={k: [tim.get(k, 0.0), nb.get(k, 0)] for k in sorted(
             set(tim) | set(nb)) if k.startswith("be.")})
     if per_compare:
         stats["budded_bytes"] = (
             [int(min(budded)), float(np.median(budded)), int(max(budded))]
             if budded else None)
+        # the budded compares that fetched (a consumed segment fetches
+        # nothing, or its follow-up alone): each fetch's bytes carry the
+        # main buffer and every segment prefetched with it
+        fetched = [b for b in budded if b > 0]
+        stats["budded_fetches"] = len(fetched)
+        stats["bytes_per_budded_fetch"] = (
+            [int(min(fetched)), float(np.median(fetched)),
+             int(max(fetched))] if fetched else None)
     if ss is not None:
         stats["b5_launches"] = {k: ss.launches[k] - b5_0[k]
                                 for k in ss.launches}
+        stats["b5_pack_with"] = len([1 for _, kw in calls
+                                     if kw.get("proj") is not None])
     return out, stats, calls
 
 
@@ -1842,16 +1887,19 @@ def b5_bound(args, kw, buflen):
     """(bound_ms, bound_by, detail) of one budded_pack: the bytes B5 must
     move at the HBM rate — the small pack's (small_bound_bytes), small13
     (written or read), eth2 and reads over every row (and the cached-row
-    bitmap), tvec and seqs rows and lengths of the MU packed slots and the
-    center's row; buf and the order(s) written — against its operations
-    (a few per position of the small pack and a few dozen per row for the
-    screen: negligible at the int32 rate)."""
+    bitmap, the projection operand and the fold's output, f32 a row), tvec
+    and seqs rows and lengths of the MU packed slots and the center's row;
+    buf and the order(s) written — against its operations (a few per
+    position of the small pack and a few dozen per row for the screen and
+    the fold: negligible at the int32 rate)."""
     n, W = args[2].shape
     nd = kw["nd"]
     MU = kw["M0U"] if kw["cache_on"] else kw["M0"]
     small = small_bound_bytes(args, kw)
     nbytes = (small + n * (13 + 4) + 2 * nd + nd // 8
               + (nd // 8 if kw["cache_on"] else 0)
+              + 4 * nd * ((kw.get("proj") is not None)
+                          + (kw.get("proj_out") is not None))
               + MU * (2 * W + 8) + W
               + buflen + 4 * nd * (2 if kw["cache_on"] else 1))
     ops = 40 * nd + 8 * MU * W + (4 * n * W if small else 0)
@@ -1906,10 +1954,12 @@ def b5_device_child(path: str) -> None:
     window this short (the cause is not known), where a fresh process
     records them. Loads the budded_pack calls saved at path ({label: (args,
     kwargs)}, CPU tensors) onto the card and prints one JSON line {label:
-    {"budded" (small13 computed), "given" (small13 given), "take" (the
-    follow-up over the first max(MU, 16) compacted rows), "small" (the
-    small-only launch): [device ms per call, kernels per call, {kernel
-    name: count}]}}."""
+    {"budded" (small13 computed, as called), "given" (small13 given),
+    "take" (the follow-up over the first max(MU, 16) compacted rows),
+    "small" (the small-only launch), "no_proj" (as called without a
+    projection operand) and "proj_fold" (with one, the call's own or all
+    -inf, and the fold into a fresh output, as a chained segment): [device
+    ms per call, kernels per call, {kernel name: count}]}}."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -1931,7 +1981,17 @@ def b5_device_child(path: str) -> None:
                   kind=kw["kind"])
         targs = (got[3], a[1], a[2], a[3], a[5], got[2])
         sa = small_args(a, kw)
+        bare = {k: v for k, v in kw.items() if k != "proj"}
+        proj = kw.get("proj")
+        fold = dict(bare, proj=proj if proj is not None else torch.full(
+            (kw["nd"],), float("-inf"), device=dev),
+            proj_out=torch.empty(kw["nd"], device=dev),
+            logtotal=math.log(max(int(a[4].sum()), 1)))
         out[label] = {
+            "no_proj": device_ms_per_call(
+                lambda: ss.budded_pack(*a, **bare)),
+            "proj_fold": device_ms_per_call(
+                lambda: ss.budded_pack(*a, **fold)),
             "budded": device_ms_per_call(lambda: ss.budded_pack(*a, **kw)),
             "given": device_ms_per_call(lambda: ss.budded_pack(*given,
                                                                **kw)),
@@ -2104,7 +2164,8 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
                 ms=top["ms"], device_ms=top["device_ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], launch_floor_ms=floor_ms,
-                timed=timed, max_abs_err=err17), st_b
+                timed=timed, max_abs_err=err17), dict(
+                    stats=st_b, calls=calls, dev_t=dev_t, picked=picked)
 
 
 # ---- phase 18: the full compare's one-fetch transport (B5's full and ------
@@ -2366,13 +2427,20 @@ def full_phase(dt, dev, card, p5, st17):
 
     # 18b. sam1F and sam2F through selfConsist, card against CPU: the
     # first real-err init compare takes the full mode and seeds the host
-    # tvec cache, every later one fetches no tvec row
+    # tvec cache, every later one fetches no tvec row (at the default
+    # SPEC_K: phase 19c reads the card runs' spec counters)
+    spec18 = {}
     for f in (SAM1F, SAM2F):
         drp = dt.derep_fastq(f)
         label = os.path.basename(f).split(".")[0]
         f0 = ss.launches["full"]
+        s0 = {k: getattr(dt.COUNTERS, k) for k in SPEC_COUNTERS}
+        b0 = ss.launches["pack"]
         res_c, clog = init_compare_log(lambda: dt.dada(
             drp, err=None, selfConsist=True, device="cuda", verbose=False))
+        spec18[label] = dict(
+            {k: getattr(dt.COUNTERS, k) - s0[k] for k in SPEC_COUNTERS},
+            rounds=len(res_c.err_in), pack_launches=ss.launches["pack"] - b0)
         n_full = ss.launches["full"] - f0
         t0 = time.time()
         res_h = dt.dada(dt.derep_fastq(f), err=None, selfConsist=True,
@@ -2493,7 +2561,222 @@ def full_phase(dt, dev, card, p5, st17):
     stages = torch_stages(ss, bc, bes["phase 5"], inps["phase 5"], card,
                           st17["dense_refetches"])
     log(f"[full] phase 18 took {time.time() - t_phase:.1f}s")
-    return dict(timed=out, max_abs_err=err18, stages=stages)
+    return dict(timed=out, max_abs_err=err18, stages=stages, spec18=spec18)
+
+
+# ---- phase 19: speculation, the multi-bud prefetch ---------------------------
+
+SPEC_COUNTERS = ("spec_hits", "spec_misses", "spec_wasted")
+
+
+def proj_cases(call, ss, rng):
+    """The configurations phase 19 holds B5's projection to its plain
+    versions in, from one budded_pack call of the main path that computed
+    its small pack: the fold alone (no proj), an all -inf proj, a mixed
+    proj (each row's own loglam plus noise on half the rows, -inf on the
+    rest, finite on the center's row, which the screen exempts) with the
+    fold, greedy flipped and cache mode (M0U 16) with it, and the mixed
+    proj without the fold. small13 None: computed in the launch. Yields
+    (label, args, kwargs without proj_out)."""
+    import numpy as np
+    import torch
+
+    a, kw = call
+    nd, center = kw["nd"], a[5]
+    dev = a[2].device
+    small13 = ss.budded_pack(*a, **{k: v for k, v in kw.items()
+                                     if k != "proj"})[3]
+    loglam = small13[:, 4:8].contiguous().view(torch.float32)[:, 0].cpu()
+    src = np.minimum(np.arange(nd), small13.shape[0] - 1)
+    src[small13.shape[0]:] = 0
+    mixed = np.where(rng.random(nd) < 0.5, -np.inf,
+                     loglam.numpy()[src] + rng.normal(0.0, 0.5, nd))
+    mixed[center] = 0.0
+    mixed = torch.from_numpy(mixed.astype(np.float32)).to(dev)
+    neginf = torch.full((nd,), float("-inf"), device=dev)
+    cb = torch.from_numpy(rng.integers(0, 256, nd // 8).astype("uint8")).to(
+        dev)
+    args = [None] + list(a[1:7]) + [None]
+    base = {k: v for k, v in kw.items() if k != "proj"}
+    base.update(cache_on=False, M0U=None)
+    lt = math.log(max(int(a[4].sum()), 1))
+    yield "fold, no proj", args, dict(base, logtotal=lt)
+    yield "proj -inf, fold", args, dict(base, proj=neginf, logtotal=lt)
+    yield "proj mixed, fold", args, dict(base, proj=mixed, logtotal=lt)
+    yield "proj mixed, fold, greedy flipped", args, dict(
+        base, proj=mixed, logtotal=lt, greedy=not kw["greedy"])
+    yield "proj mixed, fold, cache M0U=16", args[:7] + [cb], dict(
+        base, proj=mixed, logtotal=lt, cache_on=True, M0U=16)
+    yield "proj mixed, no fold", args, dict(base, proj=mixed)
+
+
+def proj_vs_plain(ss, args, kw):
+    """B5 with the projection against its plain version on the same card
+    tensors, small13 computed in the launch and then given, the buffer
+    written into a slice of a larger one (the dispatch's one buffer) whose
+    other bytes must stay untouched: the largest |difference| over buf,
+    order, order_u, small13 and proj_out. Returns (err, m, buflen)."""
+    import torch
+
+    nd = kw["nd"]
+    fold = "logtotal" in kw
+    err, m, blen = 0, 0, 0
+    for given in (False, True):
+        a = list(args)
+        if given:
+            a[0] = small13
+        outs = []
+        for fn in (ss.budded_pack, ss.budded_pack_ref):
+            po = torch.empty(nd, device=a[2].device) if fold else None
+            res = fn(*a, **kw, proj_out=po)
+            outs.append(list(res) + ([po] if fold else []))
+            if fn is ss.budded_pack:
+                blen = len(res[0])
+                big = torch.full((blen + 64,), 0xA5, dtype=torch.uint8,
+                                 device=a[2].device)
+                res2 = fn(*a, **kw, proj_out=(torch.empty_like(po) if fold
+                                               else None),
+                          out=big[32: 32 + blen])
+                err = max(err, max_abs_diff([res2[0]], [res[0]]))
+                if bool((big[:32] != 0xA5).any()) or bool(
+                        (big[32 + blen:] != 0xA5).any()):
+                    err = max(err, 1)
+        small13 = outs[0][3]
+        err = max(err, max_abs_diff(outs[0], outs[1]))
+        m = int(outs[0][0][:16].view(torch.int32)[0])
+    return err, m, blen
+
+
+def spec_phase(dt, dev, card, p5, p17, spec18):
+    """Phase 19: speculation. (a) B5's projection operand and fold against
+    the plain versions, bitwise, at three buds of 17b's run; (b) phase 5's
+    sample at SPEC_K 8, 0, 0, 8, each equal to phase 5's result, with the
+    spec counters, fetches, bytes per fetch (segments included), B5 and
+    B1 launches, be.* phases and walls, and no host sync between a
+    dispatch's first B5 launch and its fetch (torch's sync debug mode
+    raises on one); (c) 18b's sam1F and sam2F runs, card == CPU at the
+    default SPEC_K 8: spec hits; (d) B5's device time with and without
+    the projection (17c's fresh-process child). Fails on any difference;
+    returns B5's projection entry for the kernels line."""
+    import numpy as np
+    import torch
+
+    from dada2_tpu_torch.core import backend_cuda as bc
+    from dada2_tpu_torch.core.backend_cuda import CudaBackend
+    from dada2_tpu_torch.ops import store_screen as ss
+
+    t_phase = time.time()
+    sim, res5 = p5["sim"], p5["res5"]
+    if CudaBackend.SPEC_K != 8:
+        fail(f"19: the default SPEC_K is {CudaBackend.SPEC_K}, not 8")
+
+    # 19a. the projection operand and the fold, bitwise
+    calls = p17["calls"]
+    computed = [k for k, (a, _) in enumerate(calls) if a[0] is None]
+    picks = sorted({computed[0], computed[len(computed) // 2],
+                    computed[-1]})
+    rng = np.random.default_rng(19)
+    err19 = 0
+    for k in picks:
+        for label, args, kw in proj_cases(calls[k], ss, rng):
+            err, m, blen = proj_vs_plain(ss, args, kw)
+            err19 = max(err19, err)
+            log(f"[spec] 19a bud {k} {label}: M0={kw['M0']} "
+                f"M0U={kw['M0U']} {kw['kind']} K={kw['K']} "
+                f"greedy={kw['greedy']}: m={m}, {blen} bytes; max |kernel - "
+                f"plain| = {err} (buffer, orders, small13, proj_out; small13 "
+                f"computed and given; written into a shared buffer)")
+            if err != 0:
+                fail(f"kernel B5's projection disagrees with its plain "
+                     f"version (bud {k}, {label})")
+    torch.cuda.synchronize()
+
+    # 19b. phase 5's sample at SPEC_K 8, 0, 0, 8; the first run with the
+    # sync debug mode raising between a dispatch's first B5 launch and its
+    # fetch
+    window = {"armed": False, "n": 0}
+    pack, fetch = ss.budded_pack, bc._fetch
+
+    def armed_pack(*a, **kw):
+        out = pack(*a, **kw)
+        if not window["armed"]:
+            torch.cuda.set_sync_debug_mode("error")
+            window["armed"] = True
+        return out
+
+    def disarming_fetch(x):
+        if window["armed"]:
+            torch.cuda.set_sync_debug_mode("default")
+            window["armed"] = False
+            window["n"] += 1
+        return fetch(x)
+
+    def selfconsist():
+        return dt.dada(sim, err=None, selfConsist=True, device=dev,
+                       verbose=False)
+
+    runs = []
+    for i, k in enumerate((8, 0, 0, 8)):
+        CudaBackend.SPEC_K = k
+        if i == 0:
+            ss.budded_pack, bc._fetch = armed_pack, disarming_fetch
+        try:
+            res, st, _ = transport_run(selfconsist)
+        except RuntimeError as e:
+            fail(f"19b: a host sync between a dispatch's B5 launches and "
+                 f"its fetch, or a failed run: {e}")
+        finally:
+            CudaBackend.SPEC_K = 8
+            torch.cuda.set_sync_debug_mode("default")
+            ss.budded_pack, bc._fetch = pack, fetch
+        try:
+            same_sample(res5, res, f"19b SPEC_K={k} vs phase 5")
+        except AssertionError as e:
+            fail(f"19b: phase 5's sample at SPEC_K={k} differs: {e}")
+        st["SPEC_K"] = k
+        runs.append(st)
+        log(f"[spec] 19b phase 5's sample, SPEC_K={k} (run {i + 1}): wall "
+            f"{st['wall_s']:.4f} s; spec {st['spec']}; budded compares "
+            f"{st['budded_compares']}, of them fetching "
+            f"{st['budded_fetches']}; bytes per budded fetch (min, median, "
+            f"max; segments included) {st['bytes_per_budded_fetch']}; "
+            f"fetches {st['device_fetches']} ({st['fetch_bytes']} bytes), "
+            f"follow-ups {st['followup_fetches']}; B5 launches "
+            f"{st['b5_launches']} ({st['b5_pack_with']} with a projection); "
+            f"B1 launches {st['b1_launches']}; be.* (s, bytes) "
+            f"{json.dumps(st['phases'], sort_keys=True)}; == phase 5; card "
+            f"{card}")
+    on = [r for r in runs if r["SPEC_K"] == 8]
+    if not all(r["spec"]["spec_hits"] > 0 for r in on):
+        fail("19b: speculation never hit on phase 5's sample")
+    if window["n"] <= 0:
+        fail("19b: the sync window was never armed")
+    log(f"[spec] 19b: {window['n']} dispatches ran from their first B5 "
+        f"launch to their fetch under torch.cuda.set_sync_debug_mode("
+        f"'error'): no host sync in between")
+
+    # 19c. 18b's sam1F and sam2F runs (card == CPU there) at SPEC_K 8
+    for label, sc in spec18.items():
+        log(f"[spec] 19c {label} dada(selfConsist=True) at SPEC_K 8 (18b, "
+            f"card == CPU): {sc}")
+        if sc["spec_hits"] <= 0:
+            fail(f"19c: speculation never hit in {label}'s selfConsist")
+
+    # 19d. B5's device time with and without the projection (17c's child)
+    dev_t = p17["dev_t"]
+    proj_t = {}
+    for label, d in dev_t.items():
+        a, kw = p17["picked"][label]
+        proj_t[label] = dict(M0=kw["M0"], nd=kw["nd"],
+                             no_proj_device_ms=d["no_proj"][0],
+                             proj_fold_device_ms=d["proj_fold"][0])
+        log(f"[spec] 19d B5 at 17c's {label} (nd={kw['nd']}, M0={kw['M0']}"
+            f", {kw['kind']} K={kw['K']}): device {d['no_proj'][0]} ms per "
+            f"call without the projection operand, {d['proj_fold'][0]} ms "
+            f"with it and the fold (fresh process, torch.profiler); card "
+            f"{card}")
+    log(f"[spec] phase 19 took {time.time() - t_phase:.1f}s")
+    return dict(max_abs_err=err19, runs=runs, device=proj_t, sam=spec18)
 
 
 def host_ms(fn, reps):
@@ -2596,6 +2879,8 @@ def main() -> None:
             by_body[k] = 0
         for k in ss.launches:
             ss.launches[k] = 0
+        for k in ss.launches_with:
+            ss.launches_with[k] = 0
         nwb.nw_batch.launches = 0
 
     def counts():
@@ -2603,6 +2888,18 @@ def main() -> None:
                     B5=sum(ss.launches.values()),
                     **{f"B4 {k}": v for k, v in by_body.items()},
                     **{f"B5 {k}": v for k, v in ss.launches.items()})
+
+    # The CPU references run without speculation: it changes no result
+    # (tests/test_torch_speculation.py; phase 19b on the card), and on the
+    # CPU each prefetched segment costs a sweep of B1's plain version for
+    # a fetch that costs nothing there. Card runs keep the default.
+    backend_init = CudaBackend.__init__
+
+    def cpu_reference_init(self, *a, **kw):
+        backend_init(self, *a, **kw)
+        if self.device.type == "cpu":
+            self.SPEC_K = 0
+    CudaBackend.__init__ = cpu_reference_init
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2838,13 +3135,16 @@ def main() -> None:
     wall = time.time() - t0
     n_b1 = launches["B1"]
     n_b5 = dict(ss.launches)
+    n_b5_with = dict(ss.launches_with)
     peak = torch.cuda.max_memory_allocated()
     rounds = len(res.err_in)
     log(f"[main] dada(selfConsist=True): {len(sim.uniques)} uniques, "
         f"{rounds} rounds, {len(res.denoised)} ASVs, {wall:.2f}s wall")
     log(f"[main] phases: {dt.PHASES.summary()}")
     log(f"[main] counters: {dt.COUNTERS.summary()}")
-    log(f"[main] kernel launches: {dict(launches)}, B5 {n_b5}; "
+    log(f"[main] kernel launches: {dict(launches)}, B5 {n_b5} (of the "
+        f"pack launches {n_b5_with['proj']} screened with a projection, "
+        f"{n_b5_with['fold']} folded one); "
         f"max_memory_allocated: {peak} bytes")
     if n_b1 <= 0:
         fail("the main path never launched kernel B1")
@@ -3371,23 +3671,32 @@ def main() -> None:
     if n_h["B4"] <= 0 or n_h["B1"] != 0 or n_h["B4 block"] != 0:
         fail("the homopolymer configuration must launch B4's register "
              "body and not B1")
+    # unbanded on sam1F's 250 most abundant uniques, as
+    # tests/test_torch_backend.py::test_unserved_configs_raise runs it:
+    # the CPU's unbanded plain B4 took 36-70 s on all 896
+    def top250():
+        d = dt.derep_fastq(SAM1F)
+        return type(d)(uniques=dict(list(d.uniques.items())[:250]),
+                       quals=d.quals[:250], map=np.arange(250), name="top")
+
     reset_launches()
+    drp_u = top250()
     t0 = time.time()
-    res_u = dt.dada(drp, err=err41, device="cuda", verbose=False,
+    res_u = dt.dada(drp_u, err=err41, device="cuda", verbose=False,
                     BAND_SIZE=-1)
     t_gpu = time.time() - t0
     n_u = counts()
     t0 = time.time()
-    res_uc = dt.dada(dt.derep_fastq(SAM1F), err=err41, device="cpu",
-                     verbose=False, BAND_SIZE=-1)
+    res_uc = dt.dada(top250(), err=err41, device="cpu", verbose=False,
+                     BAND_SIZE=-1)
     t_cpu = time.time() - t0
     try:
         same_result(res_u, res_uc, "sam1F BAND_SIZE=-1")
     except AssertionError as e:
         fail(f"dada(BAND_SIZE=-1) on the card differs from the CPU: {e}")
     log(f"[misfit] sam1F BAND_SIZE=-1: {len(res_u.denoised)} ASVs from "
-        f"{len(drp.uniques)} uniques; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; "
-        f"identical; card launches {n_u}")
+        f"{len(drp_u.uniques)} uniques; card {t_gpu:.2f}s, CPU "
+        f"{t_cpu:.2f}s; identical; card launches {n_u}")
     if n_u["B4"] <= 0 or n_u["B1"] != 0 or n_u["B4 block"] != 0:
         fail("dada(BAND_SIZE=-1) must launch B4's register body and not "
              "B1")
@@ -3584,13 +3893,18 @@ def main() -> None:
                                    **p5)
     for k in ("B1", "B4"):
         rows[k]["launches_phase16"] = launches16[k]
-    rows["B5"], st17 = shortlist_phase(dt, dev, card, p5["sim"], p5["res5"],
-                                       n_b5)
+    rows["B5"], p17 = shortlist_phase(dt, dev, card, p5["sim"], p5["res5"],
+                                      n_b5)
     err_b["B5"] = rows["B5"].pop("max_abs_err")
-    full = full_phase(dt, dev, card, p5, st17)
+    full = full_phase(dt, dev, card, p5, p17["stats"])
     err_b["B5"] = max(err_b["B5"], full.pop("max_abs_err"))
     rows["B5"]["full_and_gather"] = full["timed"]
     stages += full["stages"]
+    spec = spec_phase(dt, dev, card, p5, p17, full["spec18"])
+    err_b["B5"] = max(err_b["B5"], spec.pop("max_abs_err"))
+    rows["B5"]["projection"] = dict(
+        launches_with_proj=n_b5_with["proj"],
+        launches_with_fold=n_b5_with["fold"], **spec)
 
     wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",
             "dada2_tpu/ops/nw_pallas.py:452")

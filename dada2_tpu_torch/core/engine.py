@@ -98,6 +98,13 @@ class CompareBackend:
     """
 
     last_stats = None
+    # speculation hint, set by the engine before each budded compare:
+    # raw indices most likely to bud next (ranked). A backend MAY
+    # prefetch their compare sweeps alongside the requested one so later
+    # compares cost zero round-trips; prefetched results are corrected
+    # to the true skip/E_minmax state at consume time, so hints can
+    # never change results. Backends are free to ignore it.
+    spec_hint = ()
 
     def compare(self, center: int, skip: np.ndarray, opts: DadaOptions,
                 err: np.ndarray, use_kmers: bool, kdist_cutoff: float,
@@ -225,6 +232,7 @@ class Engine:
         self.clusters: List[Cluster] = []
         self.nalign = 0
         self.nshroud = 0
+        self.bud_candidates = np.zeros(0, np.int64)
         self._init_clusters()
 
     # ----- container ops (reference: src/containers.cpp) -----
@@ -530,6 +538,28 @@ class Engine:
         cl = np.concatenate(rcl)
         sl = np.concatenate(rslot)
 
+        # ranked next-bud candidates for speculative prefetch (pure
+        # prediction: tie order does not matter here). Raws captured by
+        # the upcoming cluster drop out of contention, so rank by the
+        # CURRENT (p, -reads) — the same key bud() minimizes — and only
+        # raws whose current p could actually pass the OMEGA gates
+        # qualify (a hint that cannot bud is a guaranteed-wasted
+        # prefetch; p-values only rise as E_minmax tightens).
+        if elig.any():
+            pe = self.p[raws[elig]]
+            re_ = reads[elig]
+            # 1e6 slack: shuffle can LOWER a raw's p before the next
+            # bud (its cluster shrinks), so only clearly-hopeless
+            # hints are filtered
+            passable = ((pe * self.n < opts.OMEGA_A * 1e6)
+                        | (self.rs.priors[raws[elig]]
+                           & (pe < opts.OMEGA_P * 1e6)))
+            order = np.lexsort((-re_, pe))
+            order = order[passable[order]][:17]
+            self.bud_candidates = raws[elig][order]
+        else:
+            self.bud_candidates = np.zeros(0, np.int64)
+
         def _at(j):
             return (int(cl[j]), int(sl[j]), int(raws[j]))
 
@@ -585,8 +615,12 @@ class Engine:
                 newi = self.bud()
             if not newi:
                 break
+            budded_raw = self.clusters[newi].center
+            self.backend.spec_hint = tuple(
+                int(r) for r in self.bud_candidates if r != budded_raw)
             with PHASES("engine.compare"):
                 self.compare(newi, opts.USE_KMERS, opts.KDIST_CUTOFF)
+            self.backend.spec_hint = ()
             nshuffle = 0
             with PHASES("engine.shuffle"):
                 while self.shuffle() and nshuffle + 1 < MAX_SHUFFLE:

@@ -33,7 +33,12 @@
 //      with half the reads. The row's 13 bytes go to small13, its sums
 //      to shared memory; then a thread per row screens the rows (a
 //      status byte in shared memory), from the small pack's sums or,
-//      given small13 (a cache hit), from the given row. Then ballots
+//      given small13 (a cache hit), from the given row; a speculative
+//      segment's screen is raised to its projected threshold (proj), and
+//      with a fold the same thread writes its row's projection
+//      (proj_out: _proj_update :465 as an epilogue, every term per-row,
+//      so no extra grid sync; a fresh [nd] f32 output per chain step).
+//      Then ballots
 //      over 32 consecutive rows write the need and shroud
 //      bitmaps, and each block's four counts (need, need_u, cand,
 //      nshroud) go to a global array.
@@ -84,10 +89,12 @@
 // one launch instead of three (and no torch-ops small pack before it) is
 // what this design buys. Vector loads or TMA for phase 1 are later work.
 //
-// Numerics: the screen's f32 arithmetic is the JAX package's, in its
-// order, with no contraction into FMAs (__fmul_rn / __fadd_rn) and the
-// accurate logf (no fast math), and subnormals read as zero, as XLA
-// reads them (flush), so `need` is bitwise the plain version's.
+// Numerics: the screen's and the projection's f32 arithmetic is the JAX
+// package's, in its order, with no contraction into FMAs (__fmul_rn /
+// __fadd_rn), the log XLA's CPU backend evaluates (log_f32, the Cephes
+// polynomial with its fused multiply-adds, not logf), and subnormals read
+// as zero, as XLA reads them (flush), so `need` and the projection are
+// bitwise the plain version's.
 // e_thresh arrives as bf16 bits, the f32's upper half (a truncation, so
 // a lower bound of the threshold); the kernel rebuilds the f32 as
 // bits << 16. The small pack's adds are __fadd_rn, subnormals kept (as
@@ -128,12 +135,14 @@ struct BudArgs {
   const uint8_t* eth2;      // [2 nd + nd/8]: bf16 e_thresh, lock bits
   const int* reads;         // [n]
   const uint8_t* cbits;     // [nd/8] cached rows (cache mode)
+  const float* proj;        // [nd] projected log-threshold, or null
   int* order;               // [nd]
   int* order_u;             // [nd] (cache mode)
   uint8_t* buf;             // budbuf_layout
+  float* proj_out;          // [nd] the fold's output, or null (no fold)
   int4* counts;             // [gridDim.x] per-block counts
   int nd, greedy, cache_on, compute, MU, K, o1, o2, o3, chunk;
-  float c5L, cL5, und;
+  float c5L, cL5, und, logtotal;
 };
 
 __device__ __forceinline__ float load_f32(const uint8_t* p) {
@@ -146,6 +155,38 @@ __device__ __forceinline__ float load_f32(const uint8_t* p) {
 // the TPU flush them); explicit, so that no compiler flag changes it
 __device__ __forceinline__ float flush(float x) {
   return fabsf(x) < 1.17549435e-38f ? 0.f : x;
+}
+
+// The f32 log of the JAX package on XLA's CPU backend, operation for
+// operation (ops/store_screen.py::log_f32, bitwise): Cephes' polynomial of
+// log(1 + x) on [sqrt(1/2) - 1, sqrt(2) - 1] with its multiply-adds fused,
+// subnormal inputs read as zero. The accurate logf rounds about 1% of
+// integers to the other neighbour, and the projection's bits are the JAX
+// package's only with this one.
+__device__ float log_f32(float x) {
+  x = flush(x);
+  if (x == 0.f) return -INFINITY;
+  if (!(x >= 0.f)) return NAN;   // negative or NaN
+  if (isinf(x)) return INFINITY;
+  const uint32_t bits = __float_as_uint(x);
+  float e = __fadd_rn(1.f, (float)((int)(bits >> 23) - 0x7f));
+  const float m = __uint_as_float((bits & 0x807fffffu) | 0x3f000000u);
+  const bool low = m < 0.707106781186547524f;
+  const float xm = __fadd_rn(__fsub_rn(m, 1.f), low ? m : 0.f);
+  e = __fsub_rn(e, low ? 1.f : 0.f);
+  const float x2 = __fmul_rn(xm, xm), x3 = __fmul_rn(x2, xm);
+  float y = __fmaf_rn(__fmaf_rn(xm, 7.0376836292e-2f, -1.1514610310e-1f), xm,
+                      1.1676998740e-1f);
+  const float y1 = __fmaf_rn(
+      __fmaf_rn(xm, -1.2420140846e-1f, 1.4249322787e-1f), xm,
+      -1.6668057665e-1f);
+  const float y2 = __fmaf_rn(
+      __fmaf_rn(xm, 2.0000714765e-1f, -2.4999993993e-1f), xm,
+      3.3333331174e-1f);
+  y = __fmaf_rn(__fmaf_rn(y, x3, y1), x3, y2);
+  y = __fmaf_rn(y, x3, __fmul_rn(-2.12194440e-4f, e));
+  const float r = __fadd_rn(__fsub_rn(xm, __fmul_rn(0.5f, x2)), y);
+  return __fadd_rn(r, __fmul_rn(0.693359375f, e));
 }
 
 // rows n..nd-1 are the JAX package's pad rows: copies of row 0
@@ -239,9 +280,25 @@ __device__ __forceinline__ bool row_nskip(const BudArgs& a, int r, int s) {
   return nskip;
 }
 
-// Row r's f32 store screen from its small pack: its status byte.
+// The projection's lr: log(reads[center] / total) lowered by its margin
+// 2 eps (|lr| + |logtotal|) + eps (backend_tpu._proj_update's order).
+__device__ __forceinline__ float proj_lr(const BudArgs& a) {
+  const float eps = 1.1920928955078125e-7f;   // 2^-23
+  float lr = __fsub_rn(log_f32((float)a.reads[a.sm.center]), a.logtotal);
+  const float m = __fadd_rn(
+      __fmul_rn(2.f * eps, __fadd_rn(fabsf(lr), fabsf(a.logtotal))), eps);
+  return __fsub_rn(lr, m);
+}
+
+// Row r's f32 store screen from its small pack: its status byte. With a
+// projection, logthr is raised to proj[r] (never for the center, whose
+// lock can clear before a segment is consumed); with a fold, the row's
+// term (its loglam lowered by its margin, plus lr; -inf where the compare
+// skips or shrouds the row, or the sum is not finite) maxed into
+// proj_out[r] (backend_tpu._proj_update).
 __device__ uint8_t screen_row(const BudArgs& a, int r, bool nskip,
-                              float loglam, float abssum, uint8_t flags) {
+                              float loglam, float abssum, uint8_t flags,
+                              float lr) {
   const uint32_t eb =
       (uint32_t)a.eth2[2 * r] | ((uint32_t)a.eth2[2 * r + 1] << 8);
   const float e = flush(__uint_as_float(eb << 16));
@@ -250,10 +307,17 @@ __device__ uint8_t screen_row(const BudArgs& a, int r, bool nskip,
   const bool shroud = (flags & 4) != 0;
   const bool cand = !nskip && !shroud;
   const bool pos = e > 0.f;
-  const float logthr = pos ? logf(e) : -INFINITY;
+  float logthr = pos ? log_f32(e) : -INFINITY;
+  if (a.proj && r != a.sm.center) logthr = fmaxf(logthr, a.proj[r]);
   const float eps = 1.1920928955078125e-7f;   // 2^-23
   const float m1 = __fadd_rn(
       1e-3f, __fmul_rn(eps, __fadd_rn(a.c5L, __fmul_rn(a.cL5, abssum))));
+  if (a.proj_out) {
+    const float lower = __fsub_rn(loglam, m1);
+    const float term = isfinite(lower) && cand ? __fadd_rn(lower, lr)
+                                               : -INFINITY;
+    a.proj_out[r] = fmaxf(a.proj ? a.proj[r] : -INFINITY, term);
+  }
   const float margin = __fadd_rn(
       m1, __fmul_rn(4.f * eps, isfinite(logthr) ? fabsf(logthr) : 0.f));
   const float logthr2 = pos ? logthr : (e == 0.f ? a.und : -INFINITY);
@@ -364,8 +428,9 @@ __global__ void __launch_bounds__(THREADS, 2) budded_kernel(BudArgs a) {
   uint8_t* status = dyn + (a.compute ? lerr_bytes(a.sm.Q) : 0);
 
   // 1. small pack and screen, THREADS rows at a time: the small pack a
-  // warp per row, then the screen a thread per row
+  // warp per row, then the screen (and the fold) a thread per row
   const SmallIn& sm = a.sm;
+  const float lr = a.proj_out ? proj_lr(a) : 0.f;
   if (a.compute) load_lerr(sm, lerr_s);
   __syncthreads();
   for (int r0 = lo; r0 < hi; r0 += THREADS) {
@@ -402,7 +467,8 @@ __global__ void __launch_bounds__(THREADS, 2) budded_kernel(BudArgs a) {
         ll = load_f32(row + 4);
         as = load_f32(row + 8);
       }
-      status[r - lo] = screen_row(a, r, row_nskip(a, r, s), ll, as, flags);
+      status[r - lo] =
+          screen_row(a, r, row_nskip(a, r, s), ll, as, flags, lr);
     }
     __syncthreads();   // sums are the next sub-chunk's
   }
@@ -531,7 +597,7 @@ __device__ bool full_need(const FullArgs& a, int r, float loglam,
   loglam = flush(loglam);
   abssum = flush(abssum);
   const bool pos = e > 0.f;
-  const float logthr = pos ? logf(e) : -INFINITY;
+  const float logthr = pos ? log_f32(e) : -INFINITY;
   const float eps = 1.1920928955078125e-7f;   // 2^-23
   const float m1 = __fadd_rn(
       1e-3f, __fmul_rn(eps, __fadd_rn(a.c5L, __fmul_rn(a.cL5, abssum))));
@@ -695,11 +761,11 @@ int coop_grid(const void* fn, int nd, int counts_cap, int lb, int* G_out,
 extern "C" int store_screen_run(
     void* small13, const void* small5, const void* tvec, const void* seqs,
     const void* lens, const void* quals, const void* lerr, const void* eth2,
-    const void* reads, const void* cbits, void* order, void* order_u,
-    void* buf, int n, int nd, int W, int Q, int center, int greedy,
-    int cache_on, int compute, int MU, int K, int bits, int o1, int o2,
-    int o3, float c5L, float cL5, float und, void* counts, int counts_cap,
-    void* stream) {
+    const void* reads, const void* cbits, const void* proj, void* order,
+    void* order_u, void* buf, void* proj_out, int n, int nd, int W, int Q,
+    int center, int greedy, int cache_on, int compute, int MU, int K,
+    int bits, int o1, int o2, int o3, float c5L, float cL5, float und,
+    float logtotal, void* counts, int counts_cap, void* stream) {
   const void* fn = bits ? (const void*)budded_kernel<true>
                         : (const void*)budded_kernel<false>;
   int G = 0, chunk = 0, smem = 0;
@@ -709,9 +775,10 @@ extern "C" int store_screen_run(
   BudArgs a{small_in(small5, tvec, seqs, lens, quals, lerr, small13, n, W, Q,
                      center),
             (const uint8_t*)eth2, (const int*)reads, (const uint8_t*)cbits,
-            (int*)order, (int*)order_u, (uint8_t*)buf, (int4*)counts,
+            (const float*)proj, (int*)order, (int*)order_u, (uint8_t*)buf,
+            (float*)proj_out, (int4*)counts,
             nd, greedy, cache_on, compute, MU, K, o1, o2, o3, chunk,
-            c5L, cL5, und};
+            c5L, cL5, und, logtotal};
   void* params[] = {&a};
   rc = (int)cudaLaunchCooperativeKernel(fn, dim3(G), dim3(THREADS), params,
                                         (size_t)smem, (cudaStream_t)stream);

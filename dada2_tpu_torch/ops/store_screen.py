@@ -31,6 +31,14 @@ The small pack's f32 sums are taken in the kernel's order, defined by
 butterfly), not XLA's: they are a screen, and its margin covers any
 order. Every byte after them is the JAX package's.
 
+A speculative segment's launch takes the projected E_minmax (`proj`, f32
+[nd]; `_shortlist_screen`'s proj branch, :829), and a launch whose
+compare the chain assumes folds itself into it (`proj_out`, `logtotal`:
+`_proj_update`, :465, as an epilogue of the same launch,
+`proj_update_ref`); `out` lets the segments of one dispatch write into
+one buffer. The screen's and the projection's f32 logs are `log_f32`,
+XLA's CPU log, so that their bits are the JAX package's.
+
 `full_pack` is the full compare's one-fetch transport (the JAX
 package's `_full_fused`, :578): every row's 5-byte small row, the need
 bitmap of its optional store screen, and the substitution tiles of the
@@ -159,6 +167,66 @@ def _flush(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < FLT_MIN, torch.zeros_like(x), x)
 
 
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a * b + c with one rounding (the card's __fmaf_rn): the product
+    is exact in float64, the sum is rounded to odd there (TwoSum gives
+    its error; an inexact even result steps one ulp toward it), and
+    53 >= 24 + 2 bits make the final rounding to f32 correct."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.full_like(s, np.inf),
+                         torch.full_like(s, -np.inf))
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+# the Cephes coefficients of log(1 + x) on [sqrt(1/2) - 1, sqrt(2) - 1]
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """The f32 natural log that the JAX package's projection takes on XLA's
+    CPU backend: Cephes' polynomial with its multiply-adds fused, the
+    exponent split at sqrt(1/2), subnormal inputs read as zero; 0 gives
+    -inf, +inf gives +inf, negatives and NaN give NaN. It is not
+    correctly rounded (about 1% of integers come out one ulp off), so
+    this copy keeps the projection's bits the JAX package's; the
+    projection's margin covers either. The kernel's log_f32 evaluates the
+    same operations (store_screen.cu)."""
+    x = _flush(x.to(torch.float32))
+    dev = x.device
+
+    def c(v):
+        return _f32(v, dev)
+
+    one, half = c(1.0), c(0.5)
+    bits = torch.maximum(x, c(FLT_MIN)).view(torch.int32)
+    e = one + ((bits >> 23) - 0x7F).to(torch.float32)
+    m = ((bits & -0x7F800001) | 0x3F000000).view(torch.float32)
+    low = m < c(0.707106781186547524)
+    xm = (m - one) + torch.where(low, m, c(0.0))
+    e = e - torch.where(low, one, c(0.0))
+    x2 = xm * xm
+    x3 = x2 * xm
+    p = [c(v) for v in _LOG_P]
+    y = _fma32(_fma32(xm, p[0], p[1]), xm, p[2])
+    y1 = _fma32(_fma32(xm, p[3], p[4]), xm, p[5])
+    y2 = _fma32(_fma32(xm, p[6], p[7]), xm, p[8])
+    y = _fma32(_fma32(y, x3, y1), x3, y2)
+    y = _fma32(y, x3, c(-2.12194440e-4) * e)
+    r = (xm - half * x2) + y
+    r = r + c(0.693359375) * e
+    r = torch.where(x == 0, c(-np.inf), r)
+    r = torch.where(x == np.inf, c(np.inf), r)
+    return torch.where((x < 0) | torch.isnan(x), c(np.nan), r)
+
+
 def _lane_sum(x: torch.Tensor) -> torch.Tensor:
     """Row sums of x [n, W] f32 in the kernel's order: lane l (of 32)
     adds positions l, l + 32, ... left to right from 0.0, then five xor
@@ -285,11 +353,71 @@ def _subs_bytes(tvec, seqs, lens, center, flags, idx, K, kind):
         v.shape[0], 2 * K)
 
 
+def _nskip(eth2, reads, center: int, *, nd: int, n: int, greedy: bool):
+    """Each of the nd rows' skip: its lock bit (eth2's bitmap after the 2
+    nd threshold bytes) and, under greedy, the abundance skip reads >
+    reads[center], never the center itself."""
+    r = torch.arange(nd, device=eth2.device)
+    nskip = _unpack(eth2[2 * nd:], nd)
+    if greedy:
+        nskip = nskip | (reads[_src(r, n)] > reads[center])
+        nskip = nskip & (r != center)
+    return nskip
+
+
+def _small_f32(small13, nd: int):
+    """(loglam, abssum, flags) of each of the nd rows' small13 row (rows n..
+    read row 0), the f32 sums read with subnormals as zero."""
+    sm = small13[_src(torch.arange(nd, device=small13.device),
+                      small13.shape[0])]
+    f32 = sm[:, 4:12].contiguous().view(torch.float32)
+    return _flush(f32[:, 0]), _flush(f32[:, 1]), sm[:, 12]
+
+
+def _margin(abssum, L: int):
+    """The f32 error bound of a row's loglam: 1e-3 + eps (5 L + (L + 5)
+    abssum), in the JAX package's order."""
+    dev = abssum.device
+    return _f32(1e-3, dev) + _f32(EPS, dev) * (
+        _f32(5.0 * L, dev) + _f32(L + 5.0, dev) * abssum)
+
+
+def proj_update_ref(proj, small13, reads, center: int, logtotal: float,
+                    eth2, *, nd: int, L: int, greedy: bool):
+    """Plain version of B5's projection fold (backend_tpu._proj_update):
+    after the compare of `center`, each row's E_minmax is at least lambda
+    * reads[center] if the compare processes the row (reference:
+    src/cluster.cpp:179-201), so max(proj, log(lambda reads[center] /
+    total)) per row stays a lower bound of log(E_minmax / total), the
+    store threshold a later segment screens with. A row's term is its
+    f32 loglam lowered by its margin plus lr = log(reads[center]) -
+    logtotal lowered by 2 eps (|lr| + |logtotal|) + eps; rows the compare
+    skips (lock bit, under greedy the abundance skip, the center never
+    skipped) or shrouds, and non-finite ones, contribute -inf. Pad rows
+    travel locked, so their term is -inf. The f32 arithmetic is the JAX
+    package's, in its order, with its log (log_f32); subnormal sums read
+    as zero. proj: f32 [nd] or None (-inf); logtotal: the f32 log of the
+    sample's total reads. Returns f32 [nd]."""
+    n = small13.shape[0]
+    dev = small13.device
+    loglam, abssum, flags = _small_f32(small13, nd)
+    nskip = _nskip(eth2, reads, center, nd=nd, n=n, greedy=greedy)
+    shroud = (flags & 4) != 0
+    lower = loglam - _margin(abssum, L)
+    lt = _f32(logtotal, dev)
+    eps = _f32(EPS, dev)
+    lr = log_f32(reads[center].to(torch.float32)) - lt
+    lr = lr - (_f32(2.0 * EPS, dev) * (lr.abs() + lt.abs()) + eps)
+    term = torch.where(torch.isfinite(lower) & ~nskip & ~shroud, lower + lr,
+                       _f32(-np.inf, dev))
+    return term if proj is None else torch.maximum(proj, term)
+
+
 def shortlist_screen(small13, eth2, reads, center: int, *, nd: int, L: int,
-                     greedy: bool):
-    """The store screen over all nd rows (backend_tpu._shortlist_screen,
-    without the speculative projection). small13 [n, 13] int8 (ham i16,
-    ham_gapless i16, loglam f32, abssum f32, flags); eth2 uint8
+                     greedy: bool, proj=None):
+    """The store screen over all nd rows (backend_tpu._shortlist_screen).
+    small13 [n, 13] int8 (ham i16, ham_gapless i16, loglam f32, abssum
+    f32, flags); eth2 uint8
     [2 nd + nd/8]: e_thresh as bf16 (the f32 bits shifted right by 16, a
     lower bound of the threshold) and the skip's lock component,
     bit-packed (pad rows locked); reads int32 [n].
@@ -304,7 +432,10 @@ def shortlist_screen(small13, eth2, reads, center: int, *, nd: int, L: int,
     reads[center]) is rebuilt here, the center itself never skipped. The
     f32 arithmetic is the JAX package's on XLA, in its order, subnormal
     inputs and sums read as zero (a subnormal e_thresh takes the
-    underflow branch).
+    underflow branch). proj (f32 [nd], optional) is the projected
+    log-threshold of a speculative segment (proj_update_ref): every row's
+    logthr is raised to it, except the segment's own center, the one row
+    whose lock can clear before the segment is consumed.
 
     Returns (header int32 [4]: m, naligned, nshroud, 0; order int32 [nd],
     the stable compaction needed rows first; shroud bitmap uint8 [nd/8];
@@ -312,26 +443,22 @@ def shortlist_screen(small13, eth2, reads, center: int, *, nd: int, L: int,
     n = small13.shape[0]
     dev = small13.device
     r = torch.arange(nd, device=dev)
-    src = _src(r, n)
-    sm = small13[src]
     e_thresh = _flush(eth2[: 2 * nd].view(torch.bfloat16).to(torch.float32))
-    nskip = _unpack(eth2[2 * nd:], nd)
-    if greedy:
-        nskip = nskip | (reads[src] > reads[center])
-        nskip = nskip & (r != center)
-    f32 = sm[:, 4:12].contiguous().view(torch.float32)
-    loglam, abssum = _flush(f32[:, 0]), _flush(f32[:, 1])
-    shroud = (sm[:, 12] & 4) != 0
+    nskip = _nskip(eth2, reads, center, nd=nd, n=n, greedy=greedy)
+    loglam, abssum, flags = _small_f32(small13, nd)
+    shroud = (flags & 4) != 0
     cand = ~nskip & ~shroud
     pos = e_thresh > 0
     logthr = torch.where(
-        pos, torch.log(torch.where(pos, e_thresh, _f32(1.0, dev))),
+        pos, log_f32(torch.where(pos, e_thresh, _f32(1.0, dev))),
         _f32(-np.inf, dev))
+    if proj is not None:
+        logthr = torch.maximum(logthr, torch.where(
+            r == center, _f32(-np.inf, dev), proj))
     finthr = torch.isfinite(logthr)
-    margin = ((_f32(1e-3, dev) + _f32(EPS, dev) * (
-        _f32(5.0 * L, dev) + _f32(L + 5.0, dev) * abssum))
-        + _f32(4.0 * EPS, dev) * torch.where(finthr, logthr.abs(),
-                                             _f32(0.0, dev)))
+    margin = (_margin(abssum, L)
+              + _f32(4.0 * EPS, dev) * torch.where(finthr, logthr.abs(),
+                                                   _f32(0.0, dev)))
     und = _f32(-(1074.0 + L) * _LN2 - 1.0, dev)
     logthr2 = torch.where(pos, logthr,
                           torch.where(e_thresh == 0, und, _f32(-np.inf, dev)))
@@ -358,21 +485,27 @@ def budded_pack_ref(small13, tvec, seqs, lens, reads, center: int, eth2,
                     cbits=None, *, nd: int, L: int, M0: int, K: int,
                     greedy: bool, kind: str = "tiles",
                     M0U: Optional[int] = None, cache_on: bool = False,
-                    small5=None, quals=None, lerr=None):
+                    small5=None, quals=None, lerr=None, proj=None,
+                    proj_out=None, logtotal: Optional[float] = None,
+                    out=None):
     """Plain version of kernel B5 (backend_tpu._budded_fused): with
     small13 None the small pack (small_pack_ref of small5, quals, lerr),
-    else the given small13; then the screen, the need bitmap, in cache
-    mode (cbits: the host's cached-row bitmap, uint8 [nd/8]) the
-    compaction of the needed uncached rows with m_u in header[3], and the
-    5 B rows and substitution records of the first MU compacted rows.
+    else the given small13; then the screen (raised to the projection
+    proj, f32 [nd], where given), the need bitmap, in cache mode (cbits:
+    the host's cached-row bitmap, uint8 [nd/8]) the compaction of the
+    needed uncached rows with m_u in header[3], and the 5 B rows and
+    substitution records of the first MU compacted rows. With proj_out
+    (f32 [nd]) and logtotal, this compare is folded into the projection
+    too: proj_out = proj_update_ref(proj, ...). out (uint8, the buffer's
+    length) receives the buffer, so that segments can share one fetch.
     Returns (buf uint8, order int32 [nd], order_u int32 [nd], small13;
-    order_u is order outside cache mode)."""
+    order_u is order outside cache mode; buf is out where given)."""
     n = seqs.shape[0]
     if small13 is None:
         small13 = small_pack_ref(tvec, seqs, lens, quals, center, lerr,
                                  small5)
     header, order, shroud_pk, need = shortlist_screen(
-        small13, eth2, reads, center, nd=nd, L=L, greedy=greedy)
+        small13, eth2, reads, center, nd=nd, L=L, greedy=greedy, proj=proj)
     need_pk = _pack(need)
     if cache_on:
         need_u = need & ~_unpack(cbits, nd)
@@ -387,6 +520,13 @@ def budded_pack_ref(small13, tvec, seqs, lens, reads, center: int, eth2,
     buf = torch.cat([header.view(torch.uint8), need_pk,
                      _rows5(small13, src).reshape(-1), subs.reshape(-1),
                      shroud_pk])
+    if proj_out is not None:
+        proj_out.copy_(proj_update_ref(proj, small13, reads, center,
+                                       logtotal, eth2, nd=nd, L=L,
+                                       greedy=greedy))
+    if out is not None:
+        out.copy_(buf)
+        buf = out
     return buf, order, order_u, small13
 
 
@@ -421,20 +561,16 @@ def full_screen(small13, eth2, *, nd: int, L: int):
     is uint8 [2 nd + nd/8]: e_thresh as bf16, then the pad bitmap. The
     f32 arithmetic is the JAX package's, subnormals read as zero.
     Returns need bool [nd]."""
-    n = small13.shape[0]
     dev = small13.device
-    sm = small13[_src(torch.arange(nd, device=dev), n)]
     e_thresh = _flush(eth2[: 2 * nd].view(torch.bfloat16).to(torch.float32))
-    f32 = sm[:, 4:12].contiguous().view(torch.float32)
-    loglam, abssum = _flush(f32[:, 0]), _flush(f32[:, 1])
+    loglam, abssum, _ = _small_f32(small13, nd)
     pos = e_thresh > 0
     logthr = torch.where(
-        pos, torch.log(torch.where(pos, e_thresh, _f32(1.0, dev))),
+        pos, log_f32(torch.where(pos, e_thresh, _f32(1.0, dev))),
         _f32(-np.inf, dev))
-    margin = ((_f32(1e-3, dev) + _f32(EPS, dev) * (
-        _f32(5.0 * L, dev) + _f32(L + 5.0, dev) * abssum))
-        + _f32(4.0 * EPS, dev) * torch.where(pos, logthr.abs(),
-                                             _f32(0.0, dev)))
+    margin = (_margin(abssum, L)
+              + _f32(4.0 * EPS, dev) * torch.where(pos, logthr.abs(),
+                                                   _f32(0.0, dev)))
     return ((_flush(loglam + margin) >= logthr)
             | ~torch.isfinite(loglam))
 
@@ -510,7 +646,7 @@ def _load():
             V, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.store_screen_run.restype = I
             lib.store_screen_run.argtypes = (
-                [V] * 13 + [I] * 14 + [F] * 3 + [V, I, V])
+                [V] * 15 + [I] * 14 + [F] * 4 + [V, I, V])
             lib.store_screen_small.restype = I
             lib.store_screen_small.argtypes = [V] * 7 + [I] * 4 + [V]
             lib.store_screen_take.restype = I
@@ -644,10 +780,13 @@ def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
                 cbits=None, *, nd: int, L: int, M0: int, K: int,
                 greedy: bool, kind: str = "tiles",
                 M0U: Optional[int] = None, cache_on: bool = False,
-                small5=None, quals=None, lerr=None):
+                small5=None, quals=None, lerr=None, proj=None,
+                proj_out=None, logtotal: Optional[float] = None, out=None):
     """Kernel B5: see budded_pack_ref for what it computes (small13 None:
     the small pack from small5, quals and lerr too; given small13, those
-    are not read). CUDA tensors launch the one cooperative kernel on the
+    are not read; proj raises the screen's threshold; proj_out, with
+    logtotal, receives this compare's projection fold; out receives the
+    buffer). CUDA tensors launch the one cooperative kernel on the
     current stream (one count in launches["pack"]); CPU tensors run
     budded_pack_ref. Returns (buf, order, order_u, small13)."""
     _check(small13, tvec, seqs, lens, center, K, kind)
@@ -655,12 +794,25 @@ def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
     MU = M0U if cache_on else M0
     if nd % 8 or nd < n or not 0 <= MU <= nd or (cache_on and cbits is None):
         raise ValueError(f"nd={nd}, n={n}, MU={MU}, cache_on={cache_on}")
+    if (proj_out is None) != (logtotal is None):
+        raise ValueError("the projection fold needs proj_out and logtotal")
+    o1, o2, o3, total = budbuf_layout(nd, W, M0, K, kind,
+                                      M0U if cache_on else None)
+    for name, x, dtype, size in (("proj", proj, torch.float32, nd),
+                                 ("proj_out", proj_out, torch.float32, nd),
+                                 ("out", out, torch.uint8, total)):
+        if x is not None and (x.dtype != dtype or tuple(x.shape) != (size,)
+                              or not x.is_contiguous()
+                              or x.device != seqs.device):
+            raise ValueError(f"{name} must be contiguous {dtype} [{size}] "
+                             f"on {seqs.device}")
     dev = seqs.device
     if dev.type == "cpu":
         return budded_pack_ref(
             small13, tvec, seqs, lens, reads, center, eth2, cbits, nd=nd,
             L=L, M0=M0, K=K, greedy=greedy, kind=kind, M0U=M0U,
-            cache_on=cache_on, small5=small5, quals=quals, lerr=lerr)
+            cache_on=cache_on, small5=small5, quals=quals, lerr=lerr,
+            proj=proj, proj_out=proj_out, logtotal=logtotal, out=out)
     if dev.type != "cuda":
         raise ValueError(f"budded_pack runs on cuda or cpu, not {dev}")
     nb = nd // 8
@@ -676,9 +828,8 @@ def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
         small13 = torch.empty((n, 13), dtype=torch.int8, device=dev)
     else:
         Q, small5, quals, lerr = 0, None, None, None
-    o1, o2, o3, total = budbuf_layout(nd, W, M0, K, kind,
-                                      M0U if cache_on else None)
-    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    buf = (torch.empty(total, dtype=torch.uint8, device=dev) if out is None
+           else out)
     order = torch.empty(nd, dtype=torch.int32, device=dev)
     order_u = (torch.empty(nd, dtype=torch.int32, device=dev) if cache_on
                else order)
@@ -686,13 +837,19 @@ def budded_pack(small13, tvec, seqs, lens, reads, center: int, eth2,
             small13.data_ptr(), _ptr(small5), tvec.data_ptr(),
             seqs.data_ptr(), lens.data_ptr(), _ptr(quals), _ptr(lerr),
             eth2.data_ptr(), reads.data_ptr(),
-            cbits.data_ptr() if cache_on else None, order.data_ptr(),
-            order_u.data_ptr(), buf.data_ptr(),
-            n, nd, W, Q, int(center), int(bool(greedy)), int(bool(cache_on)),
-            int(compute), MU, K, int(kind == "bits"), o1, o2, o3,
-            float(np.float32(5.0 * L)), float(np.float32(L + 5.0)),
-            float(np.float32(-(1074.0 + L) * _LN2 - 1.0)), workspace=True)
+            cbits.data_ptr() if cache_on else None, _ptr(proj),
+            order.data_ptr(), order_u.data_ptr(), buf.data_ptr(),
+            _ptr(proj_out), n, nd, W, Q, int(center), int(bool(greedy)),
+            int(bool(cache_on)), int(compute), MU, K, int(kind == "bits"),
+            o1, o2, o3, float(np.float32(5.0 * L)),
+            float(np.float32(L + 5.0)),
+            float(np.float32(-(1074.0 + L) * _LN2 - 1.0)),
+            float(np.float32(0.0 if logtotal is None else logtotal)),
+            workspace=True)
     _count("pack")
+    with _count_lock:
+        launches_with["proj"] += proj is not None
+        launches_with["fold"] += proj_out is not None
     return buf, order, order_u, small13
 
 
@@ -793,3 +950,6 @@ def gather_subs(tvec, seqs, lens, center: int, small, idx, *, K: int):
 
 
 launches = {"pack": 0, "take": 0, "small": 0, "full": 0, "gather": 0}
+# of the "pack" launches, those that screened with a projection and those
+# that folded their compare into one
+launches_with = {"proj": 0, "fold": 0}

@@ -27,6 +27,13 @@ class Counters:
     device_fetches: int = 0    # forcing device -> host reads
     put_bytes: int = 0
     fetch_bytes: int = 0
+    # the speculative budded-compare transport (backend_cuda): hits
+    # consume a prefetched segment with no fetch of their own; misses
+    # pay one fetch and refill the stash; wasted counts prefetched
+    # segments dropped unconsumed
+    spec_hits: int = 0
+    spec_misses: int = 0
+    spec_wasted: int = 0
     # budded compares (kernel B5): shortlist buffers that overflowed into
     # a follow-up fetch, and shortlist rows whose substitutions overflowed
     # their records into a dense tvec fetch
@@ -43,6 +50,9 @@ class Counters:
         self.device_fetches = 0
         self.put_bytes = 0
         self.fetch_bytes = 0
+        self.spec_hits = 0
+        self.spec_misses = 0
+        self.spec_wasted = 0
         self.followup_fetches = 0
         self.dense_refetches = 0
 
@@ -59,6 +69,9 @@ class Counters:
             "device_fetches": self.device_fetches,
             "put_bytes": self.put_bytes,
             "fetch_bytes": self.fetch_bytes,
+            "spec_hits": self.spec_hits,
+            "spec_misses": self.spec_misses,
+            "spec_wasted": self.spec_wasted,
             "followup_fetches": self.followup_fetches,
             "dense_refetches": self.dense_refetches,
         }
@@ -71,8 +84,9 @@ class Counters:
                 f"device ops: {self.device_puts} puts "
                 f"({self.put_bytes / 1e6:.1f}MB), "
                 f"{self.device_fetches} fetches "
-                f"({self.fetch_bytes / 1e6:.1f}MB), "
-                f"{self.followup_fetches} follow-ups, "
+                f"({self.fetch_bytes / 1e6:.1f}MB); "
+                f"spec {self.spec_hits}H/{self.spec_misses}M/"
+                f"{self.spec_wasted}W, {self.followup_fetches} follow-ups, "
                 f"{self.dense_refetches} dense re-fetches")
 
 

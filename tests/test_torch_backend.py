@@ -88,7 +88,9 @@ def test_compare_parity_e_thresh(sample, monkeypatch):
     be_j.SPEC_K = 0
     lam_s, ham_s = be_j.compare(0, skip, opts, err, True, cutoff,
                                 e_minmax / total)
-    lam_t, ham_t = CudaBackend(rs_t, device="cpu").compare(
+    be_t = CudaBackend(rs_t, device="cpu")
+    be_t.SPEC_K = 0
+    lam_t, ham_t = be_t.compare(
         0, skip, opts_t, err_t, True, cutoff, e_minmax / total)
     np.testing.assert_array_equal(ham_s, ham_t)
     np.testing.assert_array_equal(lam_s, lam_t)
@@ -120,6 +122,7 @@ def test_compare_parity_e_thresh_host_screen(sample, monkeypatch):
     be_j.SPEC_K = 0
     lam_j, ham_j = be_j.compare(0, skip, opts, ones, True, 1.0, e_thresh)
     be_t = CudaBackend(rs_t, device="cpu")
+    be_t.SPEC_K = 0
     lam_t, ham_t = be_t.compare(0, skip, opts_t, np.ones_like(err_t), True,
                                 1.0, e_thresh)
     assert be_t.last_stats is None                 # not the budded route

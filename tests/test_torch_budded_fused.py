@@ -433,3 +433,50 @@ def test_small_kernel_order_on_card(placing):
                          small5=t["small5"], quals=t["quals"],
                          lerr=t["lerr"])
     assert torch.equal(got[3], small)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_projection_kernel_equals_plain_on_card(case):
+    """B5 with a projection operand (each row's loglam plus noise on half
+    the rows, -inf elsewhere, finite on the center's row) and the fold of
+    its compare into proj_out, writing into a slice of a larger buffer:
+    bitwise equal to its plain version (buf, order, order_u, small13,
+    proj_out), small13 computed and given, the bytes around the slice
+    untouched; the center's reads is 7, where the correctly rounded log
+    and the projection's log_f32 differ."""
+    dev = _card()
+    nd, L, t = _budded_inputs(31 + len(case))
+    t["reads"][3] = 7
+    t = {k: v.to(dev) for k, v in t.items()}
+    rng = np.random.default_rng(len(case))
+    loglam = _small_ref({k: v.cpu() for k, v in t.items()}, 3)[
+        :, 4:8].contiguous().view(torch.float32)[:, 0].numpy()
+    src = np.where(np.arange(nd) < len(loglam), np.arange(nd), 0)
+    proj = np.where(rng.random(nd) < 0.5, -np.inf,
+                    loglam[src] + rng.normal(0.0, 0.5, nd))
+    proj[3] = 0.0
+    args, kw = _pack_args(t, nd, L, case,
+                          proj=torch.from_numpy(proj.astype(np.float32)).to(
+                              dev), logtotal=float(np.log(1e5)))
+    before = dict(ss.launches_with)
+    for small13 in (None, "given"):
+        a = args if small13 is None else [got[3]] + args[1:]
+        outs = []
+        for fn in (ss.budded_pack, ss.budded_pack_ref):
+            po = torch.empty(nd, dtype=torch.float32, device=dev)
+            outs.append(list(fn(*a, **kw, proj_out=po)) + [po])
+        got = outs[0]
+        for g, w in zip(*outs):
+            assert torch.equal(g, w)
+        blen = len(got[0])
+        big = torch.full((blen + 64,), 0xA5, dtype=torch.uint8, device=dev)
+        po = torch.empty(nd, dtype=torch.float32, device=dev)
+        res = ss.budded_pack(*a, **kw, proj_out=po, out=big[32: 32 + blen])
+        assert res[0].data_ptr() == big[32:].data_ptr()
+        assert torch.equal(big[32: 32 + blen], got[0])
+        assert torch.equal(po, got[4])
+        assert bool((big[:32] == 0xA5).all() & (big[32 + blen:] == 0xA5).all())
+    torch.cuda.synchronize()
+    assert ss.launches_with["proj"] - before["proj"] == 4
+    assert ss.launches_with["fold"] - before["fold"] == 4

@@ -267,8 +267,8 @@ def _backends(monkeypatch, rs, rs_t, opts, **attrs):
     monkeypatch.setenv("DADA2_TPU_PALLAS", "1")
     be_j = TpuBackend(rs, use_quals=True)
     assert be_j.use_pallas
-    be_j.SPEC_K = 0
     be_t = CudaBackend(rs_t, device="cpu")
+    be_j.SPEC_K = be_t.SPEC_K = 0
     _share_small(be_j, be_t, opts)
     for be in (be_j, be_t):
         for k, v in attrs.items():

@@ -42,12 +42,13 @@ from dada2_tpu_torch.trace import COUNTERS as COUNTERS_T
 
 # ---- the plain functions against dada2_tpu's traces -------------------------
 
-def _plain_inputs(seed, n=150, W=64, nbad=3):
+def _plain_inputs(seed, n=150, W=64, nbad=3, qlo=-6.0):
     """Seeded compare-sweep state in both packages' layouts: the JAX
     package's padded to nd rows (copies of row 0), the port's at n rows.
     e_thresh mixes the -999 init state, 0 (underflow-pinned), subnormal
     and positive thresholds near each row's lambda; nbad rows get a -inf
-    log factor (a non-finite loglam)."""
+    log factor (a non-finite loglam). Log factors are uniform in [qlo,
+    -0.001): at qlo = -6 most lambdas underflow a float32 threshold."""
     rng = np.random.default_rng(seed)
     nd = ss.pad_rows(n)
     lens = rng.integers(W - 12, W + 1, n).astype(np.int32)
@@ -67,7 +68,7 @@ def _plain_inputs(seed, n=150, W=64, nbad=3):
         np.int16).view(np.int8)
     small5[:, 4] = flags
     reads = rng.integers(1, 1000, n).astype(np.int32)
-    qlerr = rng.uniform(-6.0, -0.001, (17, nd, W)).astype(np.float32)
+    qlerr = rng.uniform(qlo, -0.001, (17, nd, W)).astype(np.float32)
     qlerr[16] = 0.0
     bad = rng.choice(np.arange(1, n), nbad, replace=False)
     qlerr[:, bad, 0] = -np.inf
@@ -233,8 +234,8 @@ def _backends(monkeypatch, rs, rs_t, opts=None, **attrs):
     monkeypatch.setenv("DADA2_TPU_PALLAS", "1")
     be_j = TpuBackend(rs, use_quals=True)
     assert be_j.use_pallas
-    be_j.SPEC_K = 0
     be_t = CudaBackend(rs_t, device="cpu")
+    be_j.SPEC_K = be_t.SPEC_K = 0
     if opts is not None:
         _share_small(be_j, be_t, opts)
     for be, pos in ((be_j, 4), (be_t, 3)):
@@ -423,7 +424,7 @@ def test_cross_round_subs_cache_parity(sample, monkeypatch, m0u):
     be_j.SHORTLIST_FORCE = be_t.SHORTLIST_FORCE = full
     if m0u is not None:
         be_j._predict_m0u = lambda ordinal, M0: m0u
-        be_t._predict_m0u = lambda M0: m0u
+        be_t._predict_m0u = lambda ordinal, M0: m0u
     f0, d0 = COUNTERS_T.followup_fetches, COUNTERS_T.dense_refetches
     res_j, _ = _rounds(be_j, rs, opts, EngineJ, finalize_j, COUNTERS_J)
     res_t, fb = _rounds(be_t, rs_t, opts_t, EngineT, finalize_t, COUNTERS_T)
@@ -443,11 +444,13 @@ def test_cross_round_dense_records_match_oracle(sample):
     rounds equal the oracle's bit for bit. (dada2_tpu's transport caches
     these rows' nt0 as 0 — `(t >> 2) << 14` on uint8 overflows under
     numpy 2 — so with SPEC_K = 0 its later rounds can differ from the
-    oracle; ROADMAP.md records it.)"""
+    oracle; ROADMAP.md records it.) Speculation is off: its segments'
+    widest K leaves no row to re-fetch densely."""
     from dada2_tpu.core.backend_ref import OracleBackend
 
     (rs, opts), (rs_t, opts_t) = _states(*sample)
     be_t = CudaBackend(rs_t, device="cpu")
+    be_t.SPEC_K = 0
     d0 = COUNTERS_T.dense_refetches
     res_t, fb = _rounds(be_t, rs_t, opts_t, EngineT, finalize_t, COUNTERS_T)
     assert COUNTERS_T.dense_refetches > d0
