@@ -2132,6 +2132,14 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
                   kind=kw["kind"])
         targs = (out[3], a[1], a[2], a[3], a[5], out[2])
         t_ms = cuda_ms(lambda: ss.take_subs(*targs, **tk), 50)
+        e = max_abs_diff([ss.take_subs(*targs, **tk)],
+                         [ss.take_subs_ref(*targs, **tk)])
+        err17 = max(err17, e)
+        if e != 0:
+            fail(f"17c: the follow-up at {label} disagrees with "
+                 f"take_subs_ref (max |kernel - plain| = {e})")
+        t_plain = cuda_ms(lambda: ss.take_subs_ref(*targs, **tk), 5)
+        t_bound, t_bytes = take_bound(targs, tk)
         sa = small_args(a, kw)
         s_ms = cuda_ms(lambda: ss.small_pack(*sa), 50)
         s_plain = cuda_ms(lambda: ss.small_pack_ref(*sa), 5)
@@ -2143,7 +2151,10 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
             device_ms=d["budded"][0], plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, buf_bytes=buflen, given_ms=g_ms,
             given_device_ms=d["given"][0], given_bound_ms=g_bound,
-            take=dict(rows=tk["M"], ms=t_ms, device_ms=d["take"][0]),
+            take=dict(rows=tk["M"], K=tk["K"], kind=tk["kind"], ms=t_ms,
+                      device_ms=d["take"][0], plain_ms=t_plain,
+                      bound_ms=t_bound, bound_by="bytes",
+                      launch_floor_ms=floor_ms),
             small=dict(ms=s_ms, device_ms=d["small"][0], plain_ms=s_plain,
                        bound_ms=s_bound)))
         log(f"[shortlist] 17c B5 at {label} (nd={kw['nd']}, M0={kw['M0']}, "
@@ -2158,14 +2169,23 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
             f"launch device {d['small'][0]} ms, call {s_ms:.4f} ms, bound "
             f"{s_bound:.6f} ms by bytes, plain version (small_pack_ref) "
             f"{s_plain:.4f} ms; one launch's floor {floor_ms:.4f} ms (a "
-            f"1-element add_); card {card}")
+            f"1-element add_); the follow-up == take_subs_ref bitwise, "
+            f"bound {t_bound:.6f} ms by bytes ({t_bytes}), plain version "
+            f"{t_plain:.4f} ms; card {card}")
     top = timed[-1]
-    return dict(launches=sum(n_b5.values()), launches_by_wrapper=n_b5,
+    budded = {k: n_b5[k] for k in ("pack", "small")}
+    packer = {k: n_b5[k] for k in ("take", "gather")}
+    take_timed = [dict(shape=f"17c {t['shape']}", mode="take_subs",
+                       **t["take"]) for t in timed]
+    return dict(launches=sum(budded.values()), launches_by_wrapper=budded,
                 ms=top["ms"], device_ms=top["device_ms"],
                 plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                 bound_by=top["bound_by"], launch_floor_ms=floor_ms,
                 timed=timed, max_abs_err=err17), dict(
-                    stats=st_b, calls=calls, dev_t=dev_t, picked=picked)
+                    stats=st_b, calls=calls, dev_t=dev_t, picked=picked,
+                    packer=dict(launches=sum(packer.values()),
+                                launches_by_wrapper=packer,
+                                timed=take_timed))
 
 
 # ---- phase 18: the full compare's one-fetch transport (B5's full and ------
@@ -2176,18 +2196,19 @@ def shortlist_phase(dt, dev, card, sim, res5, n_b5):
 PARENT_PHASE5_BYTES = {"be.tvec": 10_160_750, "be.small_fetch": 432_600}
 
 
-def full_inputs(be, err, center=0):
+def full_inputs(be, err, center=0, opts=None):
     """A full compare's device inputs from backend be at its main-path
-    state: center's align entry (kernel B1's sweep), its small13 under err
-    (B5's small-only launch), e_thresh near each row's lambda mixing the
-    -999 init state, 0 and subnormal values, and the eth operands (bf16
-    thresholds then the pad bitmap; the pad bitmap alone)."""
+    state: center's align entry (kernel B1's sweep under opts, default
+    DEFAULT_OPTIONS), its small13 under err (B5's small-only launch),
+    e_thresh near each row's lambda mixing the -999 init state, 0 and
+    subnormal values, and the eth operands (bf16 thresholds then the pad
+    bitmap; the pad bitmap alone)."""
     import numpy as np
     import torch
 
     from dada2_tpu_torch.options import DEFAULT_OPTIONS
 
-    opts = DEFAULT_OPTIONS.normalized()
+    opts = (opts or DEFAULT_OPTIONS).normalized()
     ent = be._align_ent(center, opts, be._kernel_geom(
         int(be.lens[center]), opts))
     small13 = be._small13(ent, center, err)
@@ -2278,19 +2299,52 @@ def full_bound(inp, a, kw, buflen):
     return nbytes / HBM_BYTES_PER_S * 1e3, f"{nbytes} bytes"
 
 
-def gather_bound(inp, a, kw):
-    """(bound_ms, detail) of one gather_subs by bytes: each listed row's
-    tvec and sequence rows, length, flags and index read, its tile
-    written."""
-    M, W, K = a[5].shape[0], inp["W"], kw["K"]
-    nbytes = M * (2 * W + 8 + 1 + 4 + 2 * K) + W
-    return nbytes / HBM_BYTES_PER_S * 1e3, f"{nbytes} bytes"
+def slot_bytes(small, seqs, lens, center, rows, K, kind, row5):
+    """Bytes the slot packer must move for slots of source rows `rows`
+    (int64, into the n rows): per slot its index (4) and length (8), its
+    small row (5 bytes read, and written again with row5) or its flags
+    byte, and its records written (2K bytes; bits ceil(W/8) + K/4); its
+    tvec row up to its length, a gapless row its sequence up to its length
+    instead, and the center's sequence once if any slot is gapless."""
+    W = seqs.shape[1]
+    ln = lens[rows].clamp(max=W)
+    gl = (small[rows, -1].int() & 2) != 0
+    subw = (W + 7) // 8 + K // 4 if kind == "bits" else 2 * K
+    return (len(rows) * (4 + 8 + (10 if row5 else 1) + subw)
+            + int(ln.sum()) + (W if bool(gl.any()) else 0))
+
+
+def take_bound(a, kw):
+    """(bound_ms, bytes) of one take_subs (the follow-up) by bytes at the
+    HBM rate (slot_bytes over its rows; its operations, a few a position,
+    are negligible at the int32 rate)."""
+    small, tvec, seqs, lens, center, order = a
+    idx = order[kw["M0"]: kw["M0"] + kw["M"]].long()
+    src = torch_where_src(idx, seqs.shape[0])
+    nbytes = slot_bytes(small, seqs, lens, center, src, kw["K"],
+                        kw.get("kind", "tiles"), True)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def gather_bound(a, kw):
+    """(bound_ms, bytes) of one gather_subs by bytes (slot_bytes over its
+    row list, tiles)."""
+    tvec, seqs, lens, center, small, idx = a
+    nbytes = slot_bytes(small, seqs, lens, center,
+                        torch_where_src(idx.long(), seqs.shape[0]),
+                        kw["K"], "tiles", False)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def torch_where_src(idx, n):
+    """Row n.. (a pad row) reads row 0."""
+    return idx.where(idx < n, idx.new_zeros(()))
 
 
 def b5_call_device_child(path: str) -> None:
     """18e's device times in a fresh process (as 17c's): loads {label:
-    (wrapper name in ops/store_screen.py, args, kwargs)} (CPU tensors) onto
-    the card and prints one JSON line {label: [device ms per call,
+    (wrapper name in ops/store_screen.py, args, kwargs)} (CPU tensors)
+    onto the card and prints one JSON line {label: [device ms per call,
     kernels per call, {kernel name: count}]}."""
     import torch
 
@@ -2312,8 +2366,8 @@ def b5_call_device_child(path: str) -> None:
 
 
 def b5_call_device_times(calls):
-    """Run b5_call_device_child on {label: (wrapper, args, kwargs)} in a
-    fresh process; returns its {label: [...]}."""
+    """Run b5_call_device_child on {label: (wrapper, args, kwargs)}
+    in a fresh process; returns its {label: [...]}."""
     import torch
 
     def cpu(x):
@@ -2370,15 +2424,18 @@ def init_compare_log(run):
 
 
 def full_phase(dt, dev, card, p5, st17):
-    """Phase 18: B5's full and gather modes against their plain versions
-    at sam1F's and phase 5's sizes (18a), sam1F and sam2F through
-    dada(selfConsist=True) card against CPU with the host tvec cache
-    (18b), phase 5's transport bytes against the parent's from 17b's
-    instrumented run and the construction upload's bytes (18c),
-    compare_many against k compare() calls (18d), and the full and gather
-    modes' device and call times against their bounds at the main path's
-    shapes, held there bitwise against the plain versions (18e). Fails on any
-    difference; returns B5's full-mode entries for the kernels line."""
+    """Phase 18: B5's full mode and gather mode against
+    their plain versions at sam1F's and phase 5's sizes (18a), sam1F and
+    sam2F through dada(selfConsist=True) card against CPU with the host
+    tvec cache and samPB through it on the card (18b), phase 5's
+    transport bytes against the parent's from 17b's instrumented run and
+    the construction upload's bytes (18c),
+    compare_many against k compare() calls (18d), and the full mode's,
+    the gather mode's and the follow-up's device and call
+    times against their bounds at the main path's shapes and samPB's,
+    held there bitwise against the plain versions (18e). Fails on any
+    difference; returns B5's full-mode and slot-packer entries for the
+    kernels line."""
     import numpy as np
     import torch
 
@@ -2409,9 +2466,9 @@ def full_phase(dt, dev, card, p5, st17):
                     e, m, blen = full_vs_plain(ss, inp, screened, M0, K)
                     err18 = max(err18, e)
                     log(f"[full] 18a {name} (n={inp['n']}, nd={inp['nd']}) "
-                        f"screened={screened} M0={M0} K={K}: m={m}, "
-                        f"{blen} bytes; max |kernel - plain| = {e} (buffer, "
-                        f"order, follow-up)")
+                        f"screened={screened} M0={M0} K={K}: m={m}, {blen} "
+                        f"bytes; max |kernel - plain| = {e} (buffer, order, "
+                        f"follow-up)")
         for K in (8, 48):
             a, kw = gather_args(ss, inp, K)
             for small in (inp["small5"], inp["small13"]):
@@ -2430,6 +2487,7 @@ def full_phase(dt, dev, card, p5, st17):
     # tvec cache, every later one fetches no tvec row (at the default
     # SPEC_K: phase 19c reads the card runs' spec counters)
     spec18 = {}
+    full_by_path = {}
     for f in (SAM1F, SAM2F):
         drp = dt.derep_fastq(f)
         label = os.path.basename(f).split(".")[0]
@@ -2441,7 +2499,7 @@ def full_phase(dt, dev, card, p5, st17):
         spec18[label] = dict(
             {k: getattr(dt.COUNTERS, k) - s0[k] for k in SPEC_COUNTERS},
             rounds=len(res_c.err_in), pack_launches=ss.launches["pack"] - b0)
-        n_full = ss.launches["full"] - f0
+        n_full = full_by_path[label] = ss.launches["full"] - f0
         t0 = time.time()
         res_h = dt.dada(dt.derep_fastq(f), err=None, selfConsist=True,
                         device="cpu", verbose=False)
@@ -2460,6 +2518,31 @@ def full_phase(dt, dev, card, p5, st17):
                 c[1] or c[2] for c in inits[1:]):
             fail(f"18b: {label}: the first real-err init compare must take "
                  f"the full mode and every later one the host tvec cache")
+    # the PacBio full-length 16S path: samPB (259 uniques, W 1,511) through
+    # selfConsist at BAND_SIZE=32 on the card (B1's route, so B5 at W
+    # ~1,500; its init compare takes the full mode over 384 rows). No CPU
+    # reference: B1's plain version at this width is slow
+    drp_pb = dt.derep_fastq(SAMPB)
+    l0 = dict(ss.launches)
+    t0 = time.time()
+    res_pb = dt.dada(drp_pb, err=None, selfConsist=True, BAND_SIZE=32,
+                     device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    wall_pb = time.time() - t0
+    n_pb = {k: ss.launches[k] - l0[k] for k in ss.launches}
+    eo = np.asarray(res_pb.err_out)
+    if (eo.shape[0] != 16 or not np.isfinite(eo).all() or (eo < 0).any()
+            or (eo > 1).any() or len(res_pb.denoised) == 0
+            or res_pb.map.shape != (len(drp_pb.sequences),)):
+        fail("18b: samPB's selfConsist outputs are malformed")
+    full_by_path["samPB"] = n_pb["full"]
+    log(f"[full] 18b samPB (PacBio, {len(drp_pb.sequences)} uniques, W "
+        f"{max(len(x) for x in drp_pb.sequences)}) selfConsist at "
+        f"BAND_SIZE=32 on the card: {len(res_pb.err_in)} rounds, "
+        f"{len(res_pb.denoised)} ASVs, {wall_pb:.2f}s wall, B5 launches "
+        f"{n_pb}")
+    if n_pb["full"] <= 0:
+        fail("18b: samPB's selfConsist never launched B5's full mode")
 
     # 18c. phase 5's transport (17b's instrumented run) against the parent,
     # and the construction upload
@@ -2511,35 +2594,51 @@ def full_phase(dt, dev, card, p5, st17):
             f"({label}) == compare() bit for bit")
 
     # 18e. device time (torch.profiler, fresh process) and call time (CUDA
-    # events) of the full mode at both sizes and of the gather mode at
-    # phase 5's init compare's shape, against the plain versions and the
-    # bound
+    # events) of the full mode at both sizes and of the
+    # gather mode at phase 5's init compare's shape, and of all three at
+    # samPB's (BAND_SIZE 32, W ~1,500, the follow-up in bits at K 128),
+    # against the plain versions, the bound and one launch's floor
     timed = {}
     be5 = bes["phase 5"]
+    be_pb = CudaBackend(make_rawset(drp_pb.sequences, drp_pb.abundances,
+                                    None, drp_pb.quals), device=dev)
+    inps["samPB"] = full_inputs(be_pb, dt.data.tperr1(),
+                                opts=DEFAULT_OPTIONS.replace(BAND_SIZE=32))
     for label, inp, screened, M0, K in (
             ("sam1F init", inps["sam1F"], False,
              full_adaptive_m0(bes["sam1F"], False), 64),
             ("phase 5 screened", inps["phase 5"], True,
-             full_adaptive_m0(be5, True), be5.FULL_SCREENED_K)):
-        a, kw = full_args(inp, screened, M0, K)
-        timed[label] = ("full_pack", a, kw)
+             full_adaptive_m0(be5, True), be5.FULL_SCREENED_K),
+            ("samPB init", inps["samPB"], False,
+             full_adaptive_m0(be_pb, False), 64)):
+        timed[label] = ("full_pack",) + full_args(inp, screened, M0, K)
     a, kw = gather_args(ss, inps["phase 5"], 32, hmax=32)
     timed["phase 5 gather"] = ("gather_subs", a, kw)
+    pb = inps["samPB"]
+    a, kw = full_args(pb, True, 16, 128)
+    targs = (pb["small13"],) + pb["base"] + (ss.full_pack_ref(*a, **kw)[1],)
+    timed["samPB take"] = ("take_subs", targs, dict(
+        M0=0, M=min(256, pb["nd"]), K=128, kind="bits"))
+    timed["samPB gather"] = ("gather_subs",) + gather_args(ss, pb, 32)
     dev_t = b5_call_device_times(timed)
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = cuda_ms(lambda: tiny.add_(1), 200)
     out = []
     for label, (fn, a, kw) in timed.items():
         d_ms, per_call, names = dev_t[label]
         if per_call != 1:
             fail(f"18e: {label} ran {per_call} kernels per call ({names})")
         call = getattr(ss, fn)
-        ref = (ss.full_pack_ref if fn == "full_pack" else
-               (lambda *x, **k: ss.gather_subs_ref(*x[:4], x[4][:, -1],
-                                                   x[5], **k)))
+        ref = {"full_pack": ss.full_pack_ref,
+               "take_subs": ss.take_subs_ref,
+               "gather_subs": lambda *x, **k: ss.gather_subs_ref(
+                   *x[:4], x[4][:, -1], x[5], **k)}[fn]
         ms = cuda_ms(lambda: call(*a, **kw), 50)
         plain = cuda_ms(lambda: ref(*a, **kw), 5)
-        # the main path's shapes (sam1F's init K 64, phase 5's screened
-        # K 48 and its init tiles at K 32 over the rows with ham <= 32),
-        # which 18a does not run, bitwise against the plain version
+        # every timed shape (the main path's: sam1F's init K 64, phase 5's
+        # screened K 48 and its init tiles at K 32 over the rows with ham
+        # <= 32, which 18a does not run; samPB's) bitwise against the plain
+        # version
         r, want = call(*a, **kw), ref(*a, **kw)
         e = (max_abs_diff(r, want) if fn == "full_pack"
              else max_abs_diff([r], [want]))
@@ -2547,21 +2646,30 @@ def full_phase(dt, dev, card, p5, st17):
             fail(f"18e: {fn} at {label} disagrees with its plain version "
                  f"(max |kernel - plain| = {e})")
         err18 = max(err18, e)
-        inp = inps["sam1F" if label.startswith("sam1F") else "phase 5"]
-        b_ms, det = (full_bound(inp, a, kw, len(r[0])) if fn == "full_pack"
-                     else gather_bound(inp, a, kw))
-        out.append(dict(shape=label, mode=fn, ms=ms, device_ms=d_ms,
-                        plain_ms=plain, bound_ms=b_ms, bound_by="bytes",
-                        **{k: v for k, v in kw.items() if k != "nd"}))
-        log(f"[full] 18e {fn} at {label} ({json.dumps(kw)}): kernel == "
-            f"plain bitwise; device {d_ms} "
-            f"ms per call (one kernel: {list(names)}), call {ms:.4f} ms "
-            f"(CUDA events over 50 calls), plain version {plain:.4f} ms, "
-            f"bound {b_ms:.6f} ms by bytes ({det}); card {card}")
+        inp = inps[next(k for k in inps if label.startswith(k))]
+        if fn == "full_pack":
+            b_ms, det = full_bound(inp, a, kw, len(r[0]))
+        else:
+            b_ms, det = (take_bound if fn == "take_subs"
+                         else gather_bound)(a, kw)
+        shape = {k: v for k, v in kw.items() if not torch.is_tensor(v)}
+        out.append(dict(shape=label, mode=fn, ms=ms,
+                        device_ms=d_ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by="bytes", launch_floor_ms=floor_ms,
+                        rows=int(a[1].shape[0]), W=int(a[1].shape[1]),
+                        **{k: v for k, v in shape.items() if k != "nd"}))
+        log(f"[full] 18e {fn} at {label} "
+            f"(n={a[1].shape[0]}, W={a[1].shape[1]}, {json.dumps(shape)}"
+            f"): kernel == plain bitwise; device {d_ms} ms per call (one "
+            f"kernel: {list(names)}), call {ms:.4f} ms (CUDA events over 50 "
+            f"calls), plain version {plain:.4f} ms, bound {b_ms:.6f} ms by "
+            f"bytes ({det}), one launch's floor {floor_ms:.4f} ms; card "
+            f"{card}")
     stages = torch_stages(ss, bc, bes["phase 5"], inps["phase 5"], card,
                           st17["dense_refetches"])
     log(f"[full] phase 18 took {time.time() - t_phase:.1f}s")
-    return dict(timed=out, max_abs_err=err18, stages=stages, spec18=spec18)
+    return dict(timed=out, max_abs_err=err18, stages=stages, spec18=spec18,
+                full_by_path=full_by_path)
 
 
 # ---- phase 19: speculation, the multi-bud prefetch ---------------------------
@@ -2901,6 +3009,13 @@ def main() -> None:
             self.SPEC_K = 0
     CudaBackend.__init__ = cpu_reference_init
 
+    # seconds of each phase, printed on the [phases] line
+    marks = []
+
+    def mark(name):
+        marks.append((name, time.time()))
+
+    mark("1 device")
     # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2918,6 +3033,7 @@ def main() -> None:
         f"{torch.cuda.device_count()} device(s), python "
         f"{sys.version.split()[0]}")
 
+    mark("2 build")
     # 2. build: one nvcc per source, started together
     t0 = time.time()
     reports, build_errors = {}, {}
@@ -2956,10 +3072,10 @@ def main() -> None:
              f"routes), ptxas compiled {entries}")
     entries = reports["store_screen.cu"].count("Compiling entry function")
     if entries != 8:
-        fail(f"expected 8 kernels of B5 (the cooperative budded kernel and "
-             f"the follow-up, tiles and bits each, the gather mode, the "
-             f"small pack alone and the full mode, screened and not), ptxas "
-             f"compiled {entries}")
+        fail(f"expected 8 kernels of B5 (the cooperative budded kernel, "
+             f"tiles and bits; the slot packer's follow-up, tiles and bits, "
+             f"and gather mode; the small pack alone; the full mode, "
+             f"screened and not), ptxas compiled {entries}")
     b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
     if sorted(b1_regs) != [1, 2, 3, 4]:
         fail(f"B1's four instantiations not found in the ptxas report: "
@@ -2976,6 +3092,7 @@ def main() -> None:
         return (f"P={P} pairs/block, {bps} blocks/SM, "
                 f"{b1_regs[geom['WP'] // 32]} registers"), P
 
+    mark("3 B1")
     # 3. kernel B1 against its plain version, bitwise
     rng = np.random.default_rng(2024)
     cases = [  # (len1, candidates, max edits, band, WP, substitutions only)
@@ -3033,6 +3150,7 @@ def main() -> None:
              "geometry fails")
     log(f"[kernel] B1 pairs per block covered: {sorted(b1_ps)}")
 
+    mark("3b B2 B3")
     # 3b. kernels B2, B2 stats and B3 against the plain version, bitwise
     pair_cases = [  # ([(len1, pairs, max edits, subs only) per block], WP)
         ([(250, 128, 12, False), (248, 128, 12, False),
@@ -3077,6 +3195,7 @@ def main() -> None:
         if err != 0 or not ok_tb:
             fail(f"kernel B3 disagrees with its plain version (WP={wp})")
 
+    mark("4 main small")
     # 4. main path, small: card against CPU, identical
     err41 = dt.data.tperr1()
     drp = dt.derep_fastq(SAM1F)
@@ -3116,6 +3235,7 @@ def main() -> None:
     if any(n_band0.values()):
         fail("dada(BAND_SIZE=0) launched a kernel")
 
+    mark("5 main")
     # 5. main path at the tutorial scale
     err = np.hstack([err41] + [err41[:, -1:]] * 10)  # cover q <= 50
     sim = simulate_sample(
@@ -3213,6 +3333,7 @@ def main() -> None:
         if e1 != 0:
             fail(f"kernel B1 disagrees with its plain version at {label}")
 
+    mark("6 profile")
     # 6. where the main path's device time goes (fresh backend, so the
     # kernel runs again); B5 shows one kernel per counted launch
     b5_before = dict(ss.launches)
@@ -3236,6 +3357,7 @@ def main() -> None:
         fail("B5's kernels in the profile do not match its counted calls "
              "one for one")
 
+    mark("7 chimera small")
     # 7. the chimera slice, small: card against CPU, identical
     def small_table(device):
         dereps = {"sam1": dt.derep_fastq(SAM1F),
@@ -3266,6 +3388,7 @@ def main() -> None:
         + f"; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; identical; kernel "
         f"launches {n7}")
 
+    mark("8 B3 path")
     # 8. kernel B3's path: one center against every sam1F unique
     codes, lens = pack_sequences(drp.sequences)
     gkw = dict(match=5, mismatch=-4, gap_p=-8, band=16)
@@ -3304,6 +3427,7 @@ def main() -> None:
     rows["B3"] = dict(launches=n_b3, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by=bound_by)
 
+    mark("9 chimera table")
     # 9. the consensus chimera check at real size
     mat, seqs = chimera_fixture()
     st = pd.DataFrame(mat, index=[f"s{i}" for i in range(mat.shape[0])],
@@ -3389,6 +3513,7 @@ def main() -> None:
     if not same:
         fail("the table's (nflag, nsam) on the card differ from the CPU")
 
+    mark("10 B2 timing")
     # 10. kernel B2 at one full launch of the table: the stats kernel
     # against the class-row kernel plus the torch scans it replaced
     CH = chim.CH_BLOCKS
@@ -3449,6 +3574,7 @@ def main() -> None:
                          with_torch_scans_ms=t_route[0])
     del args, be
 
+    mark("11 table profile")
     # 11. where the table run's device time goes; the route must launch
     # the stats kernel only: no class rows, no torch scans over them
     by_name = profile_device("is_bimera_denovo_table run", lambda:
@@ -3467,6 +3593,7 @@ def main() -> None:
             fail("the table run launched a class-row or scan kernel, or "
                  "not the stats kernel")
 
+    mark("12 B4")
     # 12. kernel B4 against its plain version on the card, bitwise
     rng = np.random.default_rng(2026)
     sc5 = dict(match=5, mismatch=-4, gap_p=-8)
@@ -3602,6 +3729,7 @@ def main() -> None:
             f"L2={args[2].shape[1]} nd={fit['nd']} W={fit['W']}; "
             + "; ".join(said) + " (over kinds, p0, p1, ham, tvec, ok)")
 
+    mark("13 paired")
     # 13. the paired slice and the configurations B1 does not serve: card
     # against CPU, identical
     def paired_slice(device, dadas_f):
@@ -3701,6 +3829,7 @@ def main() -> None:
         fail("dada(BAND_SIZE=-1) must launch B4's register body and not "
              "B1")
 
+    mark("14 B4 size")
     # 14. kernel B4 at real size. (a) B4's path: phase 5's sample in the
     # homopolymer configuration; the calls into B4 are recorded (geometry
     # only) for the bound and the plain version's time at the largest one
@@ -3888,26 +4017,57 @@ def main() -> None:
                       shift_b4_kernels_recorded=shift_dev_n,
                       shift_bound_ms=bound_s)
 
+    mark("15 workflow")
     stages = workflow_ends(dt, dev, card, reset_launches, counts)
+    mark("16 dist")
     launches16 = distributed_phase(dt, dev, card, reset_launches, counts,
                                    **p5)
     for k in ("B1", "B4"):
         rows[k]["launches_phase16"] = launches16[k]
+    mark("17 shortlist")
     rows["B5"], p17 = shortlist_phase(dt, dev, card, p5["sim"], p5["res5"],
                                       n_b5)
     err_b["B5"] = rows["B5"].pop("max_abs_err")
+    mark("18 full")
     full = full_phase(dt, dev, card, p5, p17["stats"])
-    err_b["B5"] = max(err_b["B5"], full.pop("max_abs_err"))
-    rows["B5"]["full_and_gather"] = full["timed"]
+    err_full = full.pop("max_abs_err")
     stages += full["stages"]
+    mark("19 spec")
     spec = spec_phase(dt, dev, card, p5, p17, full["spec18"])
     err_b["B5"] = max(err_b["B5"], spec.pop("max_abs_err"))
     rows["B5"]["projection"] = dict(
         launches_with_proj=n_b5_with["proj"],
         launches_with_fold=n_b5_with["fold"], **spec)
+    mark("end")
+
+    # the slot packer (the follow-up and the gather mode): phase 5's
+    # launches, 17c's follow-ups (the largest M the headline) and 18e's
+    # gathers and samPB's follow-up
+    packer = p17["packer"]
+    ptimed = packer["timed"] + [t for t in full["timed"]
+                                if t["mode"] != "full_pack"]
+    top = packer["timed"][-1]
+    rows["B5take"] = dict(packer, **{k: top[k] for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        launch_floor_ms=top["launch_floor_ms"], timed=ptimed)
+    err_b["B5take"] = max(err_b["B5"], err_full)
+    if packer["launches_by_wrapper"]["take"] <= 0:
+        fail("the main path never launched the slot packer's follow-up")
+    # the full mode: launches in 18b's selfConsist runs, each counted from
+    # zero around its own run, timed at sam1F's init, phase 5's screened
+    # shape (the headline) and samPB's
+    ft = [t for t in full["timed"] if t["mode"] == "full_pack"]
+    top = next(t for t in ft if t["shape"] == "phase 5 screened")
+    rows["B5full"] = dict(
+        launches=sum(full["full_by_path"].values()),
+        launches_by_path=full["full_by_path"],
+        **{k: top[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "launch_floor_ms")}, timed=ft)
+    err_b["B5full"] = err_full
 
     wave = ("dada2_tpu_torch/csrc/nw_wavefront.cu",
             "dada2_tpu/ops/nw_pallas.py:452")
+    b5src = "dada2_tpu_torch/csrc/store_screen.cu"
     kernels = {
         "B1": ("nw_wavefront compare (B1)",) + wave,
         "B2": ("nw_wavefront pairs stats (B2)",) + wave,
@@ -3915,14 +4075,19 @@ def main() -> None:
         "B3": ("nw_wavefront kinds (B3)",) + wave,
         "B4": ("nw_batch (B4)", "dada2_tpu_torch/csrc/nw_batch.cu",
                "dada2_tpu/ops/nw_batch.py:63"),
-        "B5": ("store_screen budded pack, take, full, gather (B5)",
-               "dada2_tpu_torch/csrc/store_screen.cu",
-               "dada2_tpu/core/backend_tpu.py:520")}
+        "B5": ("store_screen budded pack and small pack (B5)", b5src,
+               "dada2_tpu/core/backend_tpu.py:520"),
+        "B5take": ("store_screen slot packer: take and gather (B5)", b5src,
+                   "dada2_tpu/core/backend_tpu.py:640"),
+        "B5full": ("store_screen full mode (B5)", b5src,
+                   "dada2_tpu/core/backend_tpu.py:578")}
     log(json.dumps({"device_stages": stages}))
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         max_abs_err=err_b[k], match=err_b[k] == 0, library_ms=None,
         **rows[k]) for k, (name, src, rep) in kernels.items()]}))
+    log("[phases] " + json.dumps(
+        {a: round(t1 - t0, 1) for (a, t0), (_, t1) in zip(marks, marks[1:])}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -53,24 +53,35 @@
 //      K pos | nt0 << 14 entries in ascending position, 0xFFFF after;
 //      bits: the position bitmap and the 2-bit nt0 stream), positions
 //      compacted with ballots and popc.
-// take_kernel<BITS, true> runs phase 3's device function alone over
-// compacted rows [M0, M0 + M) (the follow-up; its small rows small13 or
-// small5); take_kernel<false, false> is the gather mode, the tiles alone
-// over an explicit row list (_gather_subs :659, the classic full
-// compare's tile fetch); small_kernel runs phase 1's small pack alone (the
-// full route's small13), so the card has one definition of small13's bits.
+// take_kernel<BITS, true> is the follow-up over compacted rows [M0, M0 + M)
+// (its small rows small13 or small5); take_kernel<false, false> is the
+// gather mode, the tiles alone over an explicit row list (_gather_subs
+// :659, the classic full compare's tile fetch); small_kernel runs phase
+// 1's small pack alone (the full route's small13), so the card has one
+// definition of small13's bits. The follow-up, the gather mode and the
+// full mode pack their slots with the slot packer
+// (pack_records, below): a group of 16 or 32 lanes a slot, the slot's two
+// rows in registers from 16-byte loads all issued before their first use,
+// its substitutions marked four bytes at a time, ranked by a prefix over
+// the group's lanes and staged in shared memory, then stored 16 bytes at a
+// time; the take kernel's grid holds every slot at once (4 to 8 slots a
+// block of 128 threads). The budded kernel's phase 3 keeps its warp walk
+// (pack_slot): under its 64-register cap (two blocks an SM) the slot packer
+// there ran 2% slower, 0.0326-0.0328 against 0.0320-0.0321 ms at
+// chip_smoke.py 17c's shapes on an H100 in four alternating runs (PERF.md).
 //
 // full_kernel<SCREENED> is the full mode, the one-fetch transport of a
-// full compare (_full_fused :578), one cooperative launch with the same
-// grid rule: a thread per row writes its 5-byte row into the slab and,
-// screened, runs the full screen (the budded screen's margin without its
-// skip, shroud and underflow rules); ballots write the need bitmap and
-// count sel = need & ~gapless & ~pad; after a grid sync the ascending
-// compaction of sel; after another, a warp per slot of the first M0
-// writes the slot's row index and its substitution tile. An unscreened
-// compare hands it small5, so no small pack is summed for it. Bound by
-// bytes as the budded kernel: the slab is 5 bytes a row, the tiles read
-// two W-byte rows a slot.
+// full compare (_full_fused :578), in one cooperative launch of at most a
+// block an SM (two grid.sync()s). A thread per row writes its 5-byte row
+// into the slab and, screened, runs the full screen (the budded screen's
+// margin without its skip, shroud and underflow rules); ballots write the
+// need bitmap and count sel = need & ~gapless & ~pad; after the counts'
+// exchange each block's warps write its rows' places in the ascending
+// compaction, and after a second sync the grid's groups of lanes pack the
+// first M0 slots (row index and substitution tile), grid-stride. An
+// unscreened compare hands it small5, so no small pack is summed for it.
+// Bound by bytes: the slab is 5 bytes a row, the tiles read two W-byte rows
+// a slot.
 //
 // Grid sync needs no -rdc=true: since CUDA 11 cooperative_groups'
 // grid.sync() compiles in whole-program mode, and build_library's
@@ -104,12 +115,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 16;                 // budded and take kernels
+constexpr int WARPS = 16;                 // budded and full kernels
 constexpr int THREADS = WARPS * 32;
 constexpr int SMALL_WARPS = 8;            // small_kernel: a warp per row
 constexpr int STREAM_WORDS = 64;          // a warp's nt0 stream: K <= 1024
@@ -330,8 +344,9 @@ __device__ uint8_t screen_row(const BudArgs& a, int r, bool nskip,
          (shroud ? ST_SHROUD : 0);
 }
 
-// One shortlist slot (source row s): its 5-byte small row (ROWS) and its
-// substitution records. Small rows are small13 or small5 (rstride 13 or
+// One shortlist slot of the budded kernel's phase 3 (source row s): its
+// 5-byte small row (ROWS) and its substitution records, a warp walking the
+// row 32 positions at a time. Small rows are small13 or small5 (rstride 13 or
 // 5): bytes 0..3 ham and ham_gapless, the last byte the flags. The warp's
 // nt0 stream sits in `stream` (BITS only).
 template <bool BITS, bool ROWS>
@@ -554,23 +569,269 @@ __global__ void __launch_bounds__(THREADS, 2) budded_kernel(BudArgs a) {
                           a.buf + a.o2, stream[warp], lane);
 }
 
+// ---- the slot packer: the follow-up, the gather mode and the full mode ----
+//
+// A slot's records come from two W-byte rows: the row's sequence s1 and,
+// by its gapless flag, its tvec row (kernel B1's) or the center's
+// sequence. A group of G lanes packs one slot: G = 16 where a row is at
+// most 16 chunks of 16 bytes (W <= 256; two slots a warp), else 32. Lane g
+// holds chunks g, g + G, ... of both rows, PACK_ROUNDS chunks a row a
+// pass, loaded as aligned 16-byte words (the word holding the chunk's
+// first byte and, for a row not 16-byte aligned, the next) and realigned
+// in registers (load_chunk); every load of a pass is issued before the
+// first is used, so a row up to 16 G PACK_ROUNDS bytes costs one memory
+// latency (W 250: one chunk a lane; samPB's ~1,450: three, two passes);
+// the tvec row is loaded before the row's gapless flag is known, and a
+// gapless row loads the center's instead. Each lane marks its chunk's
+// substitutions in a 16-bit mask, four bytes at a time (chunk_subs), the
+// group's exclusive prefix of their counts (shuffles) ranks them, and the
+// lane writes its records at their ranks into the group's staging buffer
+// in shared memory, which the group then copies to the output with 16-byte
+// stores (copy_out: the staging copy sits at the output's alignment, so
+// every interior word is one aligned store). Tiles are prefilled with
+// 0xFF (the 0xFFFF past the count); the bits stream's 2-bit codes are
+// or-ed into an aligned scratch of K/4 bytes, then copied behind the
+// bitmap.
+constexpr int PACK_ROUNDS = 2;
+constexpr int TAKE_THREADS = 128;          // take_kernel: 4 to 8 slots a block
+constexpr int STAGE_BUDGET = 16 * 1024;    // a block's staging buffers
+
+__host__ __device__ __forceinline__ int pack_group(int W) {
+  return W <= 256 ? 16 : 32;
+}
+
+// bytes of a group's staging: the records at the output's alignment (+15),
+// room for a 4-byte word around their ends, then the bits stream
+__host__ __device__ __forceinline__ int stage_rec(int subw) {
+  return (subw + 35) & ~15;
+}
+__host__ __device__ __forceinline__ int stage_bytes(int subw, int K,
+                                                    bool bits) {
+  return stage_rec(subw) + (bits ? ((K / 4 + 15) & ~15) : 0);
+}
+
+// bytes [16 c, 16 c + 16) of a row (zero where ok is false; bytes past W
+// are the next row's or padding, masked by the caller)
+__device__ __forceinline__ uint4 load_chunk(const int8_t* row, int c, int W,
+                                            bool ok) {
+  uint4 r = make_uint4(0, 0, 0, 0);
+  if (!ok || 16 * c >= W) return r;
+  const uintptr_t p = (uintptr_t)row + 16 * (uintptr_t)c;
+  const uintptr_t al = p & ~(uintptr_t)15;
+  const int off = (int)(p & 15);
+  const uint4 lo = __ldg((const uint4*)al);
+  uint4 hi = make_uint4(0, 0, 0, 0);
+  // the next word only where it holds bytes of this row (never past the
+  // row's allocation)
+  if (off && al + 16 < (uintptr_t)row + W)
+    hi = __ldg((const uint4*)(al + 16));
+  uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int q = off >> 2;
+  const unsigned sh = 8u * (off & 3);
+#pragma unroll
+  for (int k = 0; k < 7; ++k) w[k] = (q & 1) ? w[k + 1] : w[k];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) w[k] = (q & 2) ? w[k + 2] : w[k];
+  return make_uint4(__funnelshift_r(w[0], w[1], sh),
+                    __funnelshift_r(w[1], w[2], sh),
+                    __funnelshift_r(w[2], w[3], sh),
+                    __funnelshift_r(w[3], w[4], sh));
+}
+
+// 0xff in each of the low n bytes of a word (n clamped to 0..4)
+__device__ __forceinline__ uint32_t low_bytes(int n) {
+  return n >= 4 ? 0xffffffffu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
+}
+
+// the high bits of a word's 4 bytes (0x80 or 0) as 4 bits, byte j at bit j
+__device__ __forceinline__ uint32_t byte_bits(uint32_t x) {
+  return ((((x >> 7) & 0x01010101u) * 0x01020408u) >> 24) & 0xfu;
+}
+
+// a word's 4 bytes' low 2 bits as 8 bits, byte j at bits 2j, 2j + 1
+__device__ __forceinline__ uint32_t byte_codes(uint32_t x) {
+  return (x & 3u) | ((x >> 6) & 0xcu) | ((x >> 12) & 0x30u) |
+         ((x >> 18) & 0xc0u);
+}
+
+// Chunk c's substitutions (bit i: position 16 c + i) and their nt0 codes
+// (2 bits each), four bytes at a time. a: the row's sequence bytes; b: its
+// tvec bytes or, gapless, the center's sequence bytes. The plain version's
+// rule (sub = p < W && p < l2 && tv != 5 a, tv = b, or gapless the
+// pad-to-length construction: sub = p < min(l2, l1) && b != a, code bits 2-3
+// of 4 b + a) is taken per byte with __vcmpne4; a tvec compare holds
+// bitwise only while 5 a fits a byte, so a chunk with a valid sequence byte
+// outside 0..3 (none in real data) takes the rule byte by byte.
+__device__ __forceinline__ void chunk_subs(const uint4& A, const uint4& B,
+                                           bool gl, int c, int W, int l2,
+                                           int mn, uint32_t& m16,
+                                           uint32_t& codes) {
+  const uint32_t av[4] = {A.x, A.y, A.z, A.w}, bv[4] = {B.x, B.y, B.z, B.w};
+  const int base = 16 * c;
+  const int nv = min(l2, W) - base, nm = min(mn, W) - base;
+  bool odd = false;
+  m16 = 0;
+  codes = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t a = av[k], b = bv[k];
+    uint32_t ne, cw;
+    if (gl) {
+      ne = __vcmpne4(a, b) & low_bytes(nm - 4 * k);
+      cw = ((b & 0x03030303u) + ((a >> 2) & 0x03030303u)) & 0x03030303u;
+    } else {
+      const uint32_t vm = low_bytes(nv - 4 * k);
+      odd = odd || (a & vm & 0xfcfcfcfcu) != 0;
+      ne = __vcmpne4(b, a + (a << 2)) & vm;
+      cw = (b >> 2) & 0x03030303u;
+    }
+    m16 |= byte_bits(ne) << (4 * k);
+    codes |= byte_codes(cw) << (8 * k);
+  }
+  if (odd) {
+    m16 = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int a = (int)(int8_t)(av[i >> 2] >> (8 * (i & 3)));
+      const int tv = (int)(int8_t)(bv[i >> 2] >> (8 * (i & 3)));
+      m16 |= (uint32_t)(i < nv && tv != 5 * a) << i;
+    }
+  }
+}
+
+// n bytes from the staging copy src (src = dst mod 16) to dst, by a group
+__device__ __forceinline__ void copy_out(uint8_t* dst, const uint8_t* src,
+                                         int n, int soff, int glane, int G) {
+  const int head = min(n, (16 - soff) & 15);
+  for (int j = glane; j < head; j += G) dst[j] = src[j];
+  const int body = (n - head) >> 4;
+  const uint4* s4 = (const uint4*)(src + head);
+  uint4* d4 = (uint4*)(dst + head);
+  for (int j = glane; j < body; j += G) d4[j] = s4[j];
+  for (int j = head + 16 * body + glane; j < n; j += G) dst[j] = src[j];
+}
+
+// One slot's substitution records (tiles: K entries pos | nt0 << 14 in
+// ascending position, 0xFFFF after; bits: the position bitmap, then the
+// 2-bit nt0 stream of the first K) into dst, by a group of G lanes (glane
+// its lane) through its staging buffer `stage`. s1 is the row's sequence,
+// tv_row its tvec row, s0 the center's sequence (a gapless row's, gl, is
+// built from s1 and s0); l2, l1 the row's and the center's lengths.
+// Every lane of the warp calls it together (the shuffles span the warp);
+// a group that is not `active` loads and writes nothing.
+template <bool BITS>
+__device__ void pack_records(bool active, bool gl, int l2, int l1,
+                             const int8_t* s1, const int8_t* tv_row,
+                             const int8_t* s0, int W, int K, int G,
+                             int glane, uint8_t* stage, uint8_t* dst) {
+  const int bmb = (W + 7) >> 3;
+  const int subw = BITS ? bmb + K / 4 : 2 * K;
+  const int soff = (int)((uintptr_t)dst & 15);
+  uint8_t* rec = stage + soff;
+  uint32_t* stream = (uint32_t*)(stage + stage_rec(subw));
+  if (active) {
+    uint32_t* w = BITS ? stream : (uint32_t*)stage;
+    const int nw = BITS ? (K + 15) / 16 : stage_rec(subw) / 4;
+    for (int j = glane; j < nw; j += G) w[j] = BITS ? 0u : 0xffffffffu;
+  }
+  __syncwarp();
+  const int mn = min(l2, l1);
+  const int nch = (W + 15) >> 4;
+  int count = 0;
+  for (int c0 = 0; c0 < nch; c0 += G * PACK_ROUNDS) {
+    // the tvec row is loaded with the sequence, before the gapless flag
+    // is known; a gapless row then loads the center's instead
+    uint4 A[PACK_ROUNDS], B[PACK_ROUNDS];
+#pragma unroll
+    for (int j = 0; j < PACK_ROUNDS; ++j) {
+      const int c = c0 + j * G + glane;
+      A[j] = load_chunk(s1, c, W, active);
+      B[j] = load_chunk(tv_row, c, W, active);
+    }
+    if (gl) {
+#pragma unroll
+      for (int j = 0; j < PACK_ROUNDS; ++j)
+        B[j] = load_chunk(s0, c0 + j * G + glane, W, active);
+    }
+#pragma unroll
+    for (int j = 0; j < PACK_ROUNDS; ++j) {
+      if (c0 + j * G >= nch) break;   // warp-uniform
+      const int c = c0 + j * G + glane;
+      uint32_t m16 = 0, codes = 0;
+      if (active) chunk_subs(A[j], B[j], gl, c, W, l2, mn, m16, codes);
+      const int cnt = __popc(m16);
+      int incl = cnt;
+      for (int d = 1; d < G; d <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, d, G);
+        if (glane >= d) incl += v;
+      }
+      int k = count + incl - cnt;
+      count += __shfl_sync(FULL, incl, G - 1, G);
+      if (BITS && active && 2 * c < bmb) {
+        rec[2 * c] = m16 & 0xff;
+        if (2 * c + 1 < bmb) rec[2 * c + 1] = m16 >> 8;
+      }
+      for (uint32_t m = m16; m && k < K; m &= m - 1, ++k) {
+        const int i = __ffs(m) - 1;
+        const uint32_t code = (codes >> (2 * i)) & 3;
+        if (BITS) {
+          atomicOr(&stream[k >> 4], code << (2 * (k & 15)));
+        } else {
+          const uint32_t v = (uint32_t)(16 * c + i) | (code << 14);
+          rec[2 * k] = v & 0xff;
+          rec[2 * k + 1] = (v >> 8) & 0xff;
+        }
+      }
+    }
+  }
+  __syncwarp();
+  if (BITS && active)
+    for (int j = glane; j < K / 4; j += G)
+      rec[bmb + j] = (stream[j >> 2] >> (8 * (j & 3))) & 0xff;
+  __syncwarp();
+  if (active) copy_out(dst, rec, subw, soff, glane, G);
+  __syncwarp();   // the staging is the group's next slot's
+}
+
+struct TakeArgs {
+  const int* order;         // [slot0 + nslots] rows (the gather mode: idx)
+  const uint8_t* small;     // [n, rstride]: small13 or small5
+  const int8_t* tvec;       // [n, W]
+  const int8_t* seqs;       // [n, W]
+  const long long* lens;    // [n]
+  uint8_t* rows_out;        // [nslots, 5] (ROWS)
+  uint8_t* subs_out;        // [nslots, subw]
+  int slot0, nslots, n, W, rstride, center, K, G, gpb, sbytes;
+};
+
 // The follow-up (ROWS: 5-byte rows, then records) over compacted rows
 // [slot0, slot0 + nslots) of order; the gather mode (ROWS false, tiles
-// only) over an explicit row list, order = idx and slot0 = 0.
+// only) over an explicit row list, order = idx and slot0 = 0. A group of
+// G lanes a slot, gpb slots a block, one slot a group: the grid covers
+// every slot at once.
 template <bool BITS, bool ROWS>
-__global__ void __launch_bounds__(THREADS)
-take_kernel(const int* order, int slot0, int nslots, int n,
-            const uint8_t* small, int rstride,
-            const int8_t* __restrict__ tvec, const int8_t* __restrict__ seqs,
-            const long long* __restrict__ lens, int W, int center, int K,
-            uint8_t* __restrict__ rows_out, uint8_t* __restrict__ subs_out) {
-  __shared__ uint32_t stream[BITS ? WARPS : 1][STREAM_WORDS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * WARPS + warp;
-  if (slot >= nslots) return;   // warp-uniform
-  pack_slot<BITS, ROWS>(src_row(order[slot0 + slot], n), slot, small,
-                        rstride, tvec, seqs, lens, W, center, K, rows_out,
-                        subs_out, stream[BITS ? warp : 0], lane);
+__global__ void __launch_bounds__(TAKE_THREADS) take_kernel(TakeArgs a) {
+  extern __shared__ __align__(16) uint8_t dyn[];
+  const int G = a.G;
+  const int gid = threadIdx.x / G, glane = threadIdx.x % G;
+  const int slot = blockIdx.x * a.gpb + gid;
+  const bool active = gid < a.gpb && slot < a.nslots;
+  int s = 0;
+  if (active) s = src_row(a.order[a.slot0 + slot], a.n);
+  const uint8_t* sm = a.small + (size_t)s * a.rstride;
+  const uint8_t flags = active ? sm[a.rstride - 1] : 0;
+  if (ROWS && active && glane < 5)
+    a.rows_out[(size_t)slot * 5 + glane] =
+        glane < 4 ? sm[glane] : flags;
+  const bool gl = (flags & 2) != 0;
+  const int W = a.W;
+  const int subw = BITS ? ((W + 7) >> 3) + a.K / 4 : 2 * a.K;
+  pack_records<BITS>(
+      active, gl, active ? (int)a.lens[s] : 0, (int)a.lens[a.center],
+      a.seqs + (size_t)s * W, a.tvec + (size_t)s * W,
+      a.seqs + (size_t)a.center * W, W, a.K, G, glane,
+      dyn + (size_t)min(gid, a.gpb - 1) * a.sbytes,
+      a.subs_out + (size_t)(active ? slot : 0) * subw);
 }
 
 struct FullArgs {
@@ -581,8 +842,9 @@ struct FullArgs {
   const uint8_t* eth2;      // [2 nd] bf16 e_thresh (screened), [nd/8] pad
   int* order;               // [nd]
   uint8_t* buf;             // fullbuf_layout
-  int4* counts;             // [gridDim.x] per-block counts (.x: |sel|)
+  int4* counts;             // [gridDim.x] per-block counts
   int n, nd, W, rstride, center, M0, K, o1, o2, o3, chunk;
+  int G, pack_groups, sbytes;
   float c5L, cL5;
 };
 
@@ -606,21 +868,31 @@ __device__ bool full_need(const FullArgs& a, int r, float loglam,
   return flush(__fadd_rn(loglam, margin)) >= logthr || !isfinite(loglam);
 }
 
-// B5's full mode, one cooperative launch (the grid and the row ranges as
-// budded_kernel's): 1. a thread per row writes its 5-byte row into the
-// slab, screens it (SCREENED) and marks sel = need & ~gapless & ~pad; a
-// warp's ballots write 4 bytes of the need bitmap and count sel;
-// 2. grid sync, the ascending compaction of sel into order (unselected
-// rows after, also ascending) and the header; 3. grid sync, a warp per
-// slot of the first M0: its row index and its substitution tile.
+// B5's full mode, one launch; each block owns `chunk` consecutive rows.
+// 1. a thread per row writes its 5-byte row into the slab, screens it
+// (SCREENED) and marks sel = need & ~gapless & ~pad; a warp per 32 rows
+// writes 4 bytes of the need bitmap and the group's sel count, and warp 0
+// scans the groups' counts. 2. the blocks' counts, in a global workspace
+// after grid.sync. Each block's warps write its rows' places in the stable
+// ascending compaction (selected rows at pn.., the others at m + r - k).
+// 3. after a second grid sync, the grid's groups of lanes pack the slots
+// below M0,
+// grid-stride (the slots' rows lie in the first blocks, so the block that
+// compacted them cannot pack them alone): each slot's row index and
+// substitution tile.
 template <bool SCREENED>
-__global__ void __launch_bounds__(THREADS, 2) full_kernel(FullArgs a) {
-  extern __shared__ __align__(16) uint8_t status[];
+__global__ void __launch_bounds__(THREADS) full_kernel(FullArgs a) {
+  extern __shared__ __align__(16) uint8_t dyn[];
   __shared__ int red[WARPS];
-  cg::grid_group grid = cg::this_grid();
+  __shared__ int blk_sel;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nb = a.nd >> 3;
-  const int lo = blockIdx.x * a.chunk, hi = min(lo + a.chunk, a.nd);
+  const int nb = a.nd >> 3, chunk = a.chunk;
+  const int lo = min((int)blockIdx.x * chunk, a.nd);
+  const int hi = min(lo + chunk, a.nd);
+  const int ngr = (hi - lo + 31) >> 5;
+  uint8_t* stage = dyn;
+  uint8_t* status = dyn + a.pack_groups * a.sbytes;
+  int* gpre = (int*)(status + chunk);
   const uint8_t* padb = a.eth2 + (SCREENED ? 2 * a.nd : 0);
 
   // 1. slab rows, the screen, sel
@@ -638,20 +910,35 @@ __global__ void __launch_bounds__(THREADS, 2) full_kernel(FullArgs a) {
     status[r - lo] = (need ? ST_NEED : 0) | (sel ? ST_SEL : 0);
   }
   __syncthreads();
-  int cs = 0;
-  for (int g0 = lo + 32 * warp; g0 < hi; g0 += 32 * WARPS) {
-    const int r = g0 + lane;
+  for (int g = warp; g < ngr; g += WARPS) {
+    const int r = lo + 32 * g + lane;
     const uint8_t st = r < hi ? status[r - lo] : 0;
     const unsigned bn = __ballot_sync(FULL, st & ST_NEED);
-    const int byte = (g0 >> 3) + lane;
+    const int byte = (r - lane) / 8 + lane;
     if (lane < 4 && byte < nb) a.buf[a.o1 + byte] = (bn >> (8 * lane)) & 0xff;
-    cs += __popc(__ballot_sync(FULL, st & ST_SEL));
+    const int cs = __popc(__ballot_sync(FULL, st & ST_SEL));
+    if (lane == 0) gpre[g] = cs;
   }
-  cs = block_sum(lane == 0 ? cs : 0, red);   // a warp's lanes hold one count
-  if (threadIdx.x == 0) a.counts[blockIdx.x] = make_int4(cs, 0, 0, 0);
-  grid.sync();
+  __syncthreads();
+  if (warp == 0) {   // exclusive prefix of the groups' counts
+    int carry = 0;
+    for (int g0 = 0; g0 < ngr; g0 += 32) {
+      const int v = g0 + lane < ngr ? gpre[g0 + lane] : 0;
+      int incl = v;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(FULL, incl, d);
+        if (lane >= d) incl += u;
+      }
+      if (g0 + lane < ngr) gpre[g0 + lane] = carry + incl - v;
+      carry += __shfl_sync(FULL, incl, 31);
+    }
+    if (lane == 0) blk_sel = carry;
+  }
+  __syncthreads();
 
-  // 2. the compaction and the header
+  // 2. the blocks before this one and the total, then the compaction
+  if (threadIdx.x == 0) a.counts[blockIdx.x] = make_int4(blk_sel, 0, 0, 0);
+  cg::this_grid().sync();
   int pn = 0, tn = 0;
   for (int j = threadIdx.x; j < (int)gridDim.x; j += THREADS) {
     const int c = __ldcg(&a.counts[j].x);
@@ -665,31 +952,41 @@ __global__ void __launch_bounds__(THREADS, 2) full_kernel(FullArgs a) {
     header[0] = m;
     header[1] = header[2] = header[3] = 0;
   }
-  if (warp == 0) {
-    const unsigned lt = (1u << lane) - 1;
-    for (int g0 = lo; g0 < hi; g0 += 32) {
-      const int r = g0 + lane;
-      const bool in = r < hi;
-      const uint8_t st = in ? status[r - lo] : 0;
-      const unsigned bs = __ballot_sync(FULL, st & ST_SEL);
-      const int k = pn + __popc(bs & lt);
-      if (in) {
-        if (st & ST_SEL) a.order[k] = r; else a.order[m + r - k] = r;
-      }
-      pn += __popc(bs);
+  const unsigned lt = (1u << lane) - 1;
+  for (int g = warp; g < ngr; g += WARPS) {
+    const int r = lo + 32 * g + lane;
+    const uint8_t st = r < hi ? status[r - lo] : 0;
+    const unsigned bs = __ballot_sync(FULL, st & ST_SEL);
+    const int k = pn + gpre[g] + __popc(bs & lt);   // selected rows before r
+    if (r < hi) {
+      if (st & ST_SEL) a.order[k] = r; else a.order[m + r - k] = r;
     }
   }
-  grid.sync();
+  cg::this_grid().sync();   // the order is whole past this sync
 
-  // 3. the first M0 slots: row index (unaligned int32, byte by byte) and
-  // substitution tile, a warp per slot
-  for (int slot = blockIdx.x * WARPS + warp; slot < a.M0;
-       slot += gridDim.x * WARPS) {
-    const int r = __ldcg(a.order + slot);
-    if (lane < 4) a.buf[a.o2 + 4 * slot + lane] = (r >> (8 * lane)) & 0xff;
-    pack_slot<false, false>(src_row(r, a.n), slot, a.small, a.rstride,
-                            a.tvec, a.seqs, a.lens, a.W, a.center, a.K,
-                            nullptr, a.buf + a.o3, nullptr, lane);
+  // 3. the first M0 slots, a group of lanes a slot, grid-stride
+  const int G = a.G, gpw = 32 / G;
+  const int sub = lane / G, glane = lane % G;
+  const int pwarps = a.pack_groups / gpw;
+  if (warp >= pwarps) return;   // warp-uniform
+  const int l1 = (int)a.lens[a.center];
+  uint8_t* st_g = stage + (size_t)(warp * gpw + sub) * a.sbytes;
+  const int stride = (int)gridDim.x * pwarps * gpw;
+  for (int s0 = ((int)blockIdx.x * pwarps + warp) * gpw; s0 < a.M0;
+       s0 += stride) {
+    const int slot = s0 + sub;
+    const bool active = slot < a.M0;
+    const int r = active ? __ldcg(a.order + slot) : 0;
+    const int s = src_row(r, a.n);
+    const bool gl = active && (a.small[(size_t)s * a.rstride + a.rstride - 1]
+                               & 2);
+    if (active && glane < 4)
+      a.buf[a.o2 + 4 * (size_t)slot + glane] = (r >> (8 * glane)) & 0xff;
+    pack_records<false>(
+        active, gl, active ? (int)a.lens[s] : 0, l1,
+        a.seqs + (size_t)s * a.W, a.tvec + (size_t)s * a.W,
+        a.seqs + (size_t)a.center * a.W, a.W, a.K, G, glane, st_g,
+        a.buf + a.o3 + 2 * (size_t)a.K * (active ? slot : 0));
   }
 }
 
@@ -718,28 +1015,56 @@ SmallIn small_in(const void* small5, const void* tvec, const void* seqs,
                  (uint8_t*)small13,     n, W, Q, center};
 }
 
+// The runtime's answers that depend only on the device, the kernel and its
+// dynamic shared memory (the SM count, a kernel's blocks per SM), asked
+// once and kept: a launch of a shape seen before makes no query.
+enum Query { Q_SMS, Q_OCC };
+
+int cached_query(Query kind, const void* fn, int smem, int* value) {
+  struct Entry { Query kind; const void* fn; int dev, smem, value; };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc) return rc;
+  std::lock_guard<std::mutex> guard(mu);
+  for (const Entry& e : seen)
+    if (e.kind == kind && e.fn == fn && e.dev == dev && e.smem == smem) {
+      *value = e.value;
+      return 0;
+    }
+  int v = 0;
+  if (kind == Q_SMS)
+    rc = (int)cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+  else
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&v, fn, THREADS,
+                                                           smem);
+  if (rc) return rc;
+  seen.push_back(Entry{kind, fn, dev, smem, v});
+  *value = v;
+  return 0;
+}
+
 // B5's grid rule for a cooperative launch of fn over nd rows: as many
 // blocks as fit on the card at once (occupancy x SMs), at most one per 32
 // rows and one per workspace entry; rows per block (chunk) a multiple of
 // 32, so a warp's ballot covers 4 whole bitmap bytes of one block; lb
-// bytes of dynamic shared memory before the chunk's status bytes.
-int coop_grid(const void* fn, int nd, int counts_cap, int lb, int* G_out,
-              int* chunk_out, int* smem_out) {
-  int dev = 0, sms = 0;
-  int rc = (int)cudaGetDevice(&dev);
-  if (!rc) rc = (int)cudaDeviceGetAttribute(
-      &sms, cudaDevAttrMultiProcessorCount, dev);
+// bytes of dynamic shared memory before the rows', per8 eighths of a byte
+// a row.
+int coop_grid(const void* fn, int nd, int counts_cap, int lb, int per8,
+              int* G_out, int* chunk_out, int* smem_out) {
+  int sms = 0;
+  int rc = cached_query(Q_SMS, nullptr, 0, &sms);
   if (rc) return rc;
   int G = ceil_div(nd, 32) < counts_cap ? ceil_div(nd, 32) : counts_cap;
   int chunk = 0, smem = 0, fits = 0;
   for (int it = 0; it < 16 && !fits; ++it) {
     chunk = ceil_div(ceil_div(nd, G), 32) * 32;
     G = ceil_div(nd, chunk);
-    smem = lb + chunk;
+    smem = lb + (chunk * per8) / 8;
     if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
     int occ = 0;
-    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, THREADS,
-                                                           smem);
+    rc = cached_query(Q_OCC, fn, smem, &occ);
     if (rc) return rc;
     if (occ * sms <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
     fits = G <= occ * sms;
@@ -750,6 +1075,20 @@ int coop_grid(const void* fn, int nd, int counts_cap, int lb, int* G_out,
   *chunk_out = chunk;
   *smem_out = smem;
   return 0;
+}
+
+// groups of a block that can stage their records within STAGE_BUDGET, a
+// multiple of the groups a warp holds, at least one warp's
+int staged_groups(int groups, int gpw, int sbytes) {
+  while (groups > gpw && groups * sbytes > STAGE_BUDGET) groups -= gpw;
+  return groups;
+}
+
+// past 48 KB a kernel's dynamic shared memory needs the opt-in
+int allow_smem(const void* fn, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
@@ -769,7 +1108,7 @@ extern "C" int store_screen_run(
   const void* fn = bits ? (const void*)budded_kernel<true>
                         : (const void*)budded_kernel<false>;
   int G = 0, chunk = 0, smem = 0;
-  int rc = coop_grid(fn, nd, counts_cap, compute ? lerr_bytes(Q) : 0, &G,
+  int rc = coop_grid(fn, nd, counts_cap, compute ? lerr_bytes(Q) : 0, 8, &G,
                      &chunk, &smem);
   if (rc) return rc;
   BudArgs a{small_in(small5, tvec, seqs, lens, quals, lerr, small13, n, W, Q,
@@ -815,50 +1154,64 @@ extern "C" int store_screen_take(const void* order, const void* small,
                                  void* subs_out, void* stream) {
   if (nslots <= 0) return 0;
   if (!rows_out && bits) return (int)cudaErrorInvalidValue;
-  const int blocks = ceil_div(nslots, WARPS);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int* o = (const int*)order;
-  const uint8_t* sm = (const uint8_t*)small;
-  const int8_t *tv = (const int8_t*)tvec, *sq = (const int8_t*)seqs;
-  const long long* ln = (const long long*)lens;
-  uint8_t *ro = (uint8_t*)rows_out, *so = (uint8_t*)subs_out;
-  if (!rows_out)
-    take_kernel<false, false><<<blocks, THREADS, 0, st>>>(
-        o, slot0, nslots, n, sm, rstride, tv, sq, ln, W, center, K, ro, so);
-  else if (bits)
-    take_kernel<true, true><<<blocks, THREADS, 0, st>>>(
-        o, slot0, nslots, n, sm, rstride, tv, sq, ln, W, center, K, ro, so);
-  else
-    take_kernel<false, true><<<blocks, THREADS, 0, st>>>(
-        o, slot0, nslots, n, sm, rstride, tv, sq, ln, W, center, K, ro, so);
+  const int G = pack_group(W), gpw = 32 / G;
+  const int subw = bits ? (W + 7) / 8 + K / 4 : 2 * K;
+  const int sbytes = stage_bytes(subw, K, bits != 0);
+  const int gpb = staged_groups(TAKE_THREADS / G, gpw, sbytes);
+  const int smem = gpb * sbytes;
+  TakeArgs a{(const int*)order,  (const uint8_t*)small, (const int8_t*)tvec,
+             (const int8_t*)seqs, (const long long*)lens, (uint8_t*)rows_out,
+             (uint8_t*)subs_out, slot0, nslots, n, W, rstride, center, K, G,
+             gpb, sbytes};
+  const void* fn = !rows_out ? (const void*)take_kernel<false, false>
+                   : bits    ? (const void*)take_kernel<true, true>
+                             : (const void*)take_kernel<false, true>;
+  int rc = allow_smem(fn, smem);
+  if (rc) return rc;
+  void* params[] = {&a};
+  rc = (int)cudaLaunchKernel(fn, dim3(ceil_div(nslots, gpb)), dim3(gpb * G),
+                             params, (size_t)smem, (cudaStream_t)stream);
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }
 
 // B5's full mode: the full compare's buffer (layout
 // ops/store_screen.py::fullbuf_layout; o1..o3 are its offsets) and the
-// compaction order, in one cooperative launch. counts is a workspace of
-// counts_cap int4.
+// compaction order, in one cooperative launch of at most a block an SM
+// (fewer, fuller blocks sync faster, and a block's rows are a few a
+// thread). counts is a workspace of counts_cap int4.
 extern "C" int store_screen_full(const void* small, const void* tvec,
                                  const void* seqs, const void* lens,
                                  const void* eth2, void* order, void* buf,
                                  int n, int nd, int W, int rstride,
-                                 int center, int screened, int M0, int K,
-                                 int o1, int o2, int o3, float c5L,
-                                 float cL5, void* counts, int counts_cap,
-                                 void* stream) {
+                                 int center, int screened,
+                                 int M0, int K, int o1, int o2, int o3,
+                                 float c5L, float cL5, void* counts,
+                                 int counts_cap, void* stream) {
   const void* fn = screened ? (const void*)full_kernel<true>
                             : (const void*)full_kernel<false>;
-  int G = 0, chunk = 0, smem = 0;
-  int rc = coop_grid(fn, nd, counts_cap, 0, &G, &chunk, &smem);
+  const int G = pack_group(W), gpw = 32 / G;
+  const int sbytes = stage_bytes(2 * K, K, false);
+  const int pg = staged_groups(THREADS / G, gpw, sbytes);
+  const int lb = pg * sbytes;
+  int G_blocks = 0, chunk = 0, smem = 0, sms = 0;
+  int rc = cached_query(Q_SMS, nullptr, 0, &sms);
+  if (rc) return rc;
+  // a row's shared memory: its status byte and an eighth of its 32-row
+  // group's int prefix count
+  rc = coop_grid(fn, nd, min(counts_cap, sms), lb, 9, &G_blocks, &chunk,
+                 &smem);
   if (rc) return rc;
   FullArgs a{(const uint8_t*)small, (const int8_t*)tvec,
              (const int8_t*)seqs,   (const long long*)lens,
              (const uint8_t*)eth2,  (int*)order,
              (uint8_t*)buf,         (int4*)counts,
-             n, nd, W, rstride, center, M0, K, o1, o2, o3, chunk, c5L, cL5};
+             n, nd, W, rstride, center, M0, K, o1, o2, o3, chunk,
+             G, pg, sbytes, c5L, cL5};
   void* params[] = {&a};
-  rc = (int)cudaLaunchCooperativeKernel(fn, dim3(G), dim3(THREADS), params,
-                                        (size_t)smem, (cudaStream_t)stream);
+  rc = (int)cudaLaunchCooperativeKernel(fn, dim3(G_blocks), dim3(THREADS),
+                                        params, (size_t)smem,
+                                        (cudaStream_t)stream);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

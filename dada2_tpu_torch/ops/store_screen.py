@@ -79,8 +79,8 @@ EPS = 2.0 ** -23
 FLT_MIN = float(np.finfo(np.float32).tiny)
 _LN2 = 0.6931471805599453
 KINDS = ("tiles", "bits")
-# the bits transport's nt0 stream sits in shared memory (one warp's
-# stream in 64 words): its widest K
+# the bits transport's widest K (the budded kernel's phase 3 keeps a warp's
+# nt0 stream in 64 words of shared memory)
 BITS_K_MAX = 1024
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

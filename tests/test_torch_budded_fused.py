@@ -367,6 +367,54 @@ def test_self_consist_simulated_equal(monkeypatch):
         np.testing.assert_array_equal(getattr(res_j, k), getattr(res_t, k))
 
 
+# ---- the follow-up at wide rows ---------------------------------------------
+
+# W 250 (16 lanes a slot, one chunk a lane), an odd 1,451 (32 lanes a slot,
+# two passes) and samPB's ~1,500
+WIDE_W = (250, 1451, 1500)
+TAKE_KINDS = (("tiles", 8), ("tiles", 128), ("bits", 256), ("bits", 1024))
+
+
+def _wide_take(W, dev="cpu"):
+    """Seeded rows of width W, their small13 and small5 rows, and an order
+    over the JAX package's nd rows (pad rows included)."""
+    d = _rows(60 + W, n=70, W=W)
+    t = _torch(d, dev)
+    small13 = _small_ref({k: v.cpu() for k, v in t.items()}, 3).to(dev)
+    nd = ss.pad_rows(70)
+    order = np.random.default_rng(W).permutation(nd).astype(np.int32)
+    return d, t, small13, nd, order
+
+
+@pytest.mark.parametrize("W", WIDE_W)
+def test_wide_rows_take_equal(W):
+    """take_subs_ref bitwise equal to _take_subs over 37 compacted rows
+    (not a multiple of the packer's slots a warp) past M0 5, tiles at K 8
+    and 128 and bits at K 256 and 1024, at widths the other B5 tests never
+    reach."""
+    import jax.numpy as jnp
+
+    from dada2_tpu.core import backend_tpu as btj
+
+    d, t, small13, nd, order = _wide_take(W)
+    n = d["seqs"].shape[0]
+
+    def padded(x):
+        return jnp.asarray(np.concatenate([x, np.repeat(x[:1], nd - n, 0)]))
+
+    jx = {k: padded(np.asarray(v)) for k, v in (
+        ("small13", small13.numpy()), ("tvec", d["tvec"]),
+        ("seqs", d["seqs"]), ("lens", d["lens"]))}
+    for kind, K in TAKE_KINDS:
+        want = np.asarray(btj._take_subs(
+            jx["small13"], jx["tvec"], jx["seqs"], jx["lens"], jnp.int32(3),
+            jnp.asarray(order), M0=5, M=37, K=K, kind=kind)).view(np.uint8)
+        got = ss.take_subs_ref(small13, t["tvec"], t["seqs"], t["lens"], 3,
+                               torch.from_numpy(order), M0=5, M=37, K=K,
+                               kind=kind)
+        np.testing.assert_array_equal(want, got.numpy())
+
+
 # ---- on the card ------------------------------------------------------------
 
 def _card():
@@ -480,3 +528,31 @@ def test_projection_kernel_equals_plain_on_card(case):
     torch.cuda.synchronize()
     assert ss.launches_with["proj"] - before["proj"] == 4
     assert ss.launches_with["fold"] - before["fold"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", WIDE_W)
+def test_wide_rows_take_kernel_equals_plain_on_card(W):
+    """The follow-up's slot packer at W 250, 1,451 and 1,500 over 37
+    compacted rows past M0 5 and over all nd from 0, small13 and small5
+    rows, tiles at K 8 and 128 and bits at K 256 and 1024, with tvec at
+    an odd base address: bitwise equal to take_subs_ref, one launch a
+    call."""
+    dev = _card()
+    d, t, small13, nd, order = _wide_take(W, dev)
+    order = torch.from_numpy(order).to(dev)
+    flat = torch.empty(t["tvec"].numel() + 3, dtype=torch.int8, device=dev)
+    tvec = flat[3:].view(t["tvec"].shape)
+    tvec.copy_(t["tvec"])
+    before = ss.launches["take"]
+    calls = 0
+    for small in (small13, t["small5"]):
+        for kind, K in TAKE_KINDS:
+            for M0, M in ((5, 37), (0, nd)):
+                a = (small, tvec, t["seqs"], t["lens"], 3, order)
+                kw = dict(M0=M0, M=M, K=K, kind=kind)
+                assert torch.equal(ss.take_subs(*a, **kw),
+                                   ss.take_subs_ref(*a, **kw))
+                calls += 1
+    torch.cuda.synchronize()
+    assert ss.launches["take"] - before == calls

@@ -218,6 +218,53 @@ def test_wrappers_take_the_plain_version_on_cpu():
                      L=64, M0=32, K=16, screened=True)
 
 
+# ---- rows as wide as the slot packer's passes -------------------------------
+
+# a MiSeq row (16 lanes a slot, one 16-byte chunk a lane), an odd width past
+# 256 (32 lanes a slot, two passes) and samPB's full-length 16S width
+WIDE_W = (250, 1451, 1500)
+
+
+@pytest.mark.parametrize("W", WIDE_W)
+def test_wide_rows_full_and_gather_equal(W):
+    """At widths the other B5 tests never reach: full_pack_ref bitwise
+    equal to _full_fused screened (M0 16, K 128) and unscreened (M0 nd,
+    K 8), buffer and order, and gather_subs_ref to _gather_subs at K 8
+    and 128 over 37 rows (not a multiple of the packer's slots a warp)."""
+    import jax.numpy as jnp
+
+    from dada2_tpu.core import backend_tpu as btj
+
+    d = _inputs(40 + W, n=70, W=W)
+    n = d["seqs"].shape[0]
+    nd = ss.pad_rows(n)
+    L = int(d["lens"].max())
+    jx = _jax_padded(d, nd)
+    t = _torch(d)
+    for screened, M0, K in ((True, 16, 128), (False, nd, 8)):
+        eth = _eth(d["e"], n, nd, screened)
+        buf_j, ord_j = btj._full_fused(
+            jx["tvec"], jx["small13"], jx["seqs"], jx["lens"],
+            jnp.int32(2), jnp.asarray(eth.view(np.int8)), L=L, M0=M0, K=K,
+            screened=screened)
+        small = t["small13"] if screened else t["small5"]
+        buf_t, ord_t = ss.full_pack_ref(
+            small, t["tvec"], t["seqs"], t["lens"], 2, torch.from_numpy(eth),
+            nd=nd, L=L, M0=M0, K=K, screened=screened)
+        np.testing.assert_array_equal(np.asarray(buf_j).view(np.uint8),
+                                      buf_t.numpy())
+        np.testing.assert_array_equal(np.asarray(ord_j), ord_t.numpy())
+    idx = np.random.default_rng(W).integers(0, nd, 37).astype(np.int32)
+    for K in (8, 128):
+        want = np.asarray(btj._gather_subs(
+            jx["tvec"], jx["seqs"], jx["lens"], jnp.int32(4), jx["small13"],
+            jnp.asarray(idx), K=K))
+        got = ss.gather_subs_ref(t["tvec"], t["seqs"], t["lens"], 4,
+                                 t["small13"][:, 12], torch.from_numpy(idx),
+                                 K=K)
+        np.testing.assert_array_equal(want, got.numpy().view(np.uint16))
+
+
 # ---- the backends ----------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -546,3 +593,79 @@ def test_full_and_gather_kernels_equal_plain_on_card(case):
     torch.cuda.synchronize()
     assert {k: ss.launches[k] - before[k] for k in ss.launches} == dict(
         pack=0, take=1, small=0, full=1, gather=1)
+
+
+def _odd_base(x, shift=3):
+    """A copy of x whose data starts `shift` bytes past an aligned address
+    (a contiguous view with a storage offset)."""
+    flat = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    y = flat[shift:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _full_equal(small, base, eth, kw):
+    got = ss.full_pack(small, *base, eth, **kw)
+    want = ss.full_pack_ref(small, *base, eth, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", WIDE_W)
+def test_wide_rows_kernels_equal_plain_on_card(W):
+    """The slot packer at W 250, 1,451 and 1,500, with tvec at an odd base
+    address (its rows and the sequences' realigned apart): the full mode
+    (screened M0 16 K 128, unscreened M0 nd K 8) and the gather mode (K 8
+    and 128 over 37 rows) bitwise equal to their plain versions; one
+    launch a call."""
+    dev = _card()
+    d = _inputs(40 + W, n=70, W=W)
+    t = _torch(d, dev)
+    n = d["seqs"].shape[0]
+    nd = ss.pad_rows(n)
+    L = int(d["lens"].max())
+    base = (_odd_base(t["tvec"]), t["seqs"], t["lens"], 2)
+    before = dict(ss.launches)
+    for screened, M0, K in ((True, 16, 128), (False, nd, 8)):
+        eth = torch.from_numpy(_eth(d["e"], n, nd, screened)).to(dev)
+        small = t["small13"] if screened else t["small5"]
+        _full_equal(small, base, eth, dict(nd=nd, L=L, M0=M0, K=K,
+                                           screened=screened))
+    idx = torch.from_numpy(np.random.default_rng(W).integers(
+        0, nd, 37).astype(np.int32)).to(dev)
+    for K in (8, 128):
+        for small in (t["small5"], t["small13"]):
+            assert torch.equal(ss.gather_subs(*base, small, idx, K=K),
+                               ss.gather_subs_ref(*base, small[:, -1], idx,
+                                                  K=K))
+    torch.cuda.synchronize()
+    assert {k: ss.launches[k] - before[k] for k in ss.launches} == dict(
+        pack=0, take=0, small=0, full=2, gather=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limit", ["sms", "large"])
+@pytest.mark.parametrize("step", [-8, 0, 8], ids=["below", "at", "above"])
+def test_full_mode_at_grid_limits_on_card(limit, step):
+    """The full mode at nd one step (8 rows) below, at and above the
+    points where its cooperative grid changes shape, W 250: 32 rows a
+    block on every SM (past it a block's rows grow to 64) and 32,768 rows
+    (256 rows a block on an H100), at phase 5's screened shape (M0 1,024,
+    K 48) and unscreened (M0 nd, K 8): bitwise equal to full_pack_ref,
+    one launch a call."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nd = (32 * sms if limit == "sms" else 32_768) + step
+    d = _inputs(50 + step, n=nd - 3, W=250)
+    t = _torch(d, dev)
+    n = nd - 3
+    L = int(d["lens"].max())
+    base = (t["tvec"], t["seqs"], t["lens"], 2)
+    for screened, M0, K in ((True, min(1024, nd), 48), (False, nd, 8)):
+        eth = torch.from_numpy(_eth(d["e"], n, nd, screened)).to(dev)
+        small = t["small13"] if screened else t["small5"]
+        before = ss.launches["full"]
+        _full_equal(small, base, eth, dict(nd=nd, L=L, M0=M0, K=K,
+                                           screened=screened))
+        assert ss.launches["full"] == before + 1
