@@ -16,7 +16,19 @@ seeds and in-repo data, the same for every checkout:
   - samPB: tests/extdata/samPB.fastq.gz's most abundant unique against
     each of its 259 uniques (full-length PacBio 16S, ~1,450 nt), scalar
     aligner with homopolymer gaps -1 at BAND_SIZE=32 (dada's 454 / Ion
-    Torrent / PacBio homopolymer configuration).
+    Torrent / PacBio homopolymer configuration);
+  - merge_whole: merge_pairs' alignments of 4,096 whole 2 x 300 read pairs
+    of 460-nt V3-V4 amplicons cut from tests/extdata/ten_16s.100.fa.gz
+    (chip_smoke.py merge_whole_reads), scoring (1, -64, -64), scalar, no
+    band: windows of 301 rows;
+  - shift_v34: the first 4,096-pair chunk of is_shift_denovo on 500 such
+    amplicons (chip_smoke.py shift_v34_uniques), (5, -4, -8), scalar, no
+    band: windows of ~461 rows;
+  - shift_pb: is_shift_denovo's 2,016 pairs of samPB's 64 most abundant
+    uniques (chip_smoke.py shift_pb_uniques), one chunk: windows of
+    ~1,460 rows.
+The last three take the wide body where the checkout has one (windows
+over 256 rows), the one-block-per-pair body in a checkout without it.
 Each is timed two ways, N calls per reading (default 10), two readings
 apart: the call (CUDA events around nw_batch, its host work included) and
 the kernel (the device time of B4's kernels under torch.profiler, per
@@ -45,7 +57,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def shapes(np, pack_sequences, rc, derep_fastq):
     """{name: (s1, len1, s2, len2, keywords)} as numpy arrays."""
     sys.path.insert(0, HERE)
-    from chip_smoke import SAMPB, chimera_fixture
+    import dada2_tpu_torch as dt
+    from chip_smoke import (SAMPB, chimera_fixture, merge_whole_reads,
+                            shift_pairs, shift_pb_uniques, shift_v34_uniques)
 
     _, seqs = chimera_fixture()
     rng = np.random.default_rng(14)
@@ -73,31 +87,20 @@ def shapes(np, pack_sequences, rc, derep_fastq):
     out["samPB"] = (np.repeat(pc[:1], n, 0), np.repeat(pl[:1], n), pc, pl,
                     dict(match=5, mismatch=-4, gap_p=-8, end_gap_p=0,
                          band=32, mode="scalar", homo_gap_p=-1))
+    whole = dict(match=1, mismatch=-64, gap_p=-64, band=-1, mode="scalar")
+    fwd, rrc = merge_whole_reads()
+    w1, wl1 = pack_sequences(fwd)
+    w2, wl2 = pack_sequences(rrc)
+    out["merge_whole"] = (w1, wl1, w2, wl2, whole)
+    shift = dict(match=5, mismatch=-4, gap_p=-8, band=-1, mode="scalar")
+    for name, unqs, npairs in (
+            ("shift_v34", shift_v34_uniques(), 4096),
+            ("shift_pb", shift_pb_uniques(dt), None)):
+        codes, lens = pack_sequences(list(unqs))
+        qi, pi = shift_pairs(unqs)
+        qi, pi = qi[:npairs], pi[:npairs]
+        out[name] = (codes[qi], lens[qi], codes[pi], lens[pi], shift)
     return out
-
-
-def b4_kernel_ms(run, reps, launched):
-    """Kernel B4's device time per call of run() (torch.profiler: the sum of
-    its kernels' events over reps calls, over reps) and its launches per
-    call; (None, launches) if the profiler recorded another number of B4
-    kernels than launched() counted (then the time is not measured)."""
-    import torch
-    from chip_smoke import is_b4_kernel
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    n0 = launched()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    n = launched() - n0
-    ev = [e for e in prof.events() if is_b4_kernel(e.name)]
-    if not ev or len(ev) != n:
-        return None, n // reps
-    us = sum(e.time_range.end - e.time_range.start for e in ev)
-    return us / 1e3 / reps, n // reps
 
 
 def main(argv) -> int:
@@ -114,7 +117,7 @@ def main(argv) -> int:
         print("ab_b4: no CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import b4_launch_ms, cuda_ms
+    from chip_smoke import b4_device_ms, b4_launch_ms, cuda_ms
 
     sys.path.insert(0, root)
     from dada2_tpu_torch import derep_fastq
@@ -151,23 +154,26 @@ def main(argv) -> int:
         row = dict(pairs=n, L1=L1, L2=L2, nd=nd, W=W,
                    sha256_16=hashlib.sha256(blob).hexdigest()[:16],
                    ms=[cuda_ms(lambda: nwb.nw_batch(*args, **kw), reps)],
-                   kernel_ms=[b4_kernel_ms(
+                   kernel_ms=[b4_device_ms(
                        lambda: nwb.nw_batch(*args, **kw), reps,
                        lambda: nwb.nw_batch.launches)[0]])
         if hasattr(nwb, "_launch"):   # a checkout whose launches time alone
             row["launch_ms"] = [b4_launch_ms(nwb, args, kw, reps)]
-        if hasattr(nwb, "register_fit"):   # a checkout with both bodies
+        if hasattr(nwb, "register_fit"):   # a checkout with two bodies
             homo = kw.get("homo_gap_p") is not None
             r = nwb.route(L1, L2, nd, W, homo)
             row["body"] = nwb.body(r)
-            if r == 3:
+            row["route"] = r
+            if r == 3 or (r == 4 and hasattr(nwb, "warps_per_pair")):
                 row["rpt"], row["P"] = nwb.register_fit(
                     L1, L2, nd, W, kw["mode"] == "scalar", homo, n)
+            if hasattr(nwb, "warps_per_pair") and r in (3, 4):
+                row["warps"] = nwb.warps_per_pair(W)
         out[name] = row
     for name, (args, kw) in calls.items():
         out[name]["ms"].append(cuda_ms(lambda: nwb.nw_batch(*args, **kw),
                                        reps))
-        out[name]["kernel_ms"].append(b4_kernel_ms(
+        out[name]["kernel_ms"].append(b4_device_ms(
             lambda: nwb.nw_batch(*args, **kw), reps,
             lambda: nwb.nw_batch.launches)[0])
         if "launch_ms" in out[name]:

@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
                nw_compare_kernel and the B2, B3, B2 stats body x windows of
                32..128 rows, sixteen instantiations) and csrc/nw_batch.cu
                (kernel B4: the register body, 4 row tiers x vec, scalar
-               and homopolymer aligners, and the one-block-per-pair body,
-               the three aligners x pointer slab in shared or device
-               memory: eighteen) and csrc/store_screen.cu (kernel B5: the
+               and homopolymer aligners; the wide body, the three
+               aligners; the one-block-per-pair body, the three aligners
+               x pointer slab in shared or device memory: twenty-one) and
+               csrc/store_screen.cu (kernel B5: the
                one cooperative budded kernel and the follow-up, tiles and
                bits each, the gather mode, the small pack alone and the
                full mode, screened and not: eight);
@@ -65,19 +66,22 @@ Phases (any failure exits non-zero and prints no result line):
                the stats kernel's plain version time and bound;
  11. profile — the table run again under torch.profiler: no class-row
                kernel and no scan kernel may appear;
- 12. batch   — both bodies of kernel B4 (ops/nw_batch.py: the route's
-               body, then the one-block-per-pair body forced) against its
+ 12. batch   — kernel B4's bodies (ops/nw_batch.py: the route's body,
+               the register body up to 256 rows and the wide body above,
+               then the one-block-per-pair body forced) against its
                plain version on the card, on seeded fuzz batches: vec and
                scalar aligners, bands 2, 4, 16, 32 and none, homopolymer
                gap penalty none, -1 and -3, end gaps free and -8, mixed
                lengths, lengths near 250, the merge scorings,
                samPB.fastq.gz's full-length reads at band 32 and some
                unbanded (the device-memory pointer slab), chunked and not,
-               windows of 32/33, 64/65, 128/129 and 256/257 rows, pairs of
-               length 0 and 1, launches of 1, 3, 4 and 5 pairs at 4 pairs
-               per block and of 4,097 pairs at the fit's: all six outputs
-               bitwise equal; each line names the body, its rows per
-               thread (RPT) and pairs per block (P);
+               windows of 32/33, 64/65, 128/129, 256/257, 288, 301, 512
+               and 513 rows, band 140 over 256 rows, mixed wide and
+               narrow windows, pairs of length 0 and 1, launches of 1, 3,
+               4 and 5 pairs at 4 pairs per block and of 4,097 pairs at
+               the fit's: all six outputs bitwise equal; each line names
+               the body, its rows per thread (RPT), pairs per block (P)
+               and warps per pair;
  13. paired  — sam1 and sam2, forward and reverse: dada -> merge_pairs ->
                make_sequence_table -> collapse_no_mismatch ->
                remove_bimera_denovo(consensus) -> is_shift_denovo on the
@@ -217,11 +221,27 @@ Phases (any failure exits non-zero and prints no result line):
                SPEC_K 8: their spec hits; (d) B5's device time at 17c's
                shapes without the projection operand and with it and the
                fold (17c's fresh-process child).
+ 20. wide    — kernel B4's wide body (windows of 257 to 2,048 rows) at
+               the shapes it serves, each held bitwise against the plain
+               version on the card and launched through the wide body
+               alone: merge_whole (merge_pairs' alignments of 4,096 whole
+               2 x 300 read pairs of 460-nt V3-V4 amplicons cut from
+               ten_16s.100.fa.gz, scoring (1, -64, -64), W 301);
+               is_shift_denovo on 500 such ASVs (124,750 pairs, W 461: the
+               call's wall and launches, 40 of the ASVs card == CPU, a
+               64-pair subset and the first 4,096-pair chunk held) and on
+               samPB's 64 most abundant uniques (2,016 pairs, W ~1,500,
+               the pointers in device memory; a 64-pair subset and all
+               pairs held); at each the kernel's ms (CUDA events around
+               its launches alone; device ms from torch.profiler), the
+               call's ms, launches by body, the bound, the plain version's
+               ms and the one-block-per-pair body's kernel ms on the same
+               batch (forced).
 It prints one {"device_stages": [...]} line (the taxonomy scorer, the
 4-bit tvec row gather and the construction unpack: torch ops, not
-hand-written kernels), one {"kernels": [...]} line (B1 to B5; B5's
-entry carries the projection's launches and phase 19's numbers) and,
-last, {"ok": true, ...}.
+hand-written kernels), one {"kernels": [...]} line (B1 to B5, B4's wide
+body as its own entry; B5's entry carries the projection's launches and
+phase 19's numbers) and, last, {"ok": true, ...}.
 """
 from __future__ import annotations
 
@@ -771,6 +791,80 @@ def b4_window_pairs(rng, W, n):
     return out + b4_short_pairs()
 
 
+def v34_amplicons(n, seed=20):
+    """n V3-V4 amplicons of 460 nt (E. coli positions about 340-800):
+    positions 340..800 of the full-length 16S records of
+    ten_16s.100.fa.gz, in record order, bases other than ACGT replaced by
+    seeded ones; past the last record the cuts start again from the
+    first."""
+    import numpy as np
+    from dada2_tpu_torch.taxonomy import read_fasta
+
+    _, recs = read_fasta(TEN16S)
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        s = np.frombuffer(recs[k % len(recs)][340:800].upper().encode(),
+                          np.uint8).copy()
+        bad = ~np.isin(s, np.frombuffer(b"ACGT", np.uint8))
+        s[bad] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4,
+                                                               bad.sum())]
+        out.append(s.tobytes().decode())
+    return out
+
+
+def merge_whole_reads(n=4096, seed=16):
+    """merge_pairs' alignment inputs for n whole 2 x 300 MiSeq read pairs of
+    the V3-V4 amplicons: F = the amplicon's first 300 nt and R = the
+    reverse complement of its last 300 nt, each read with 2 seeded
+    substitutions of its own; merge_pairs aligns F against rc(R) (a
+    140-nt overlap). Returns (F, rc(R)) as lists of strings."""
+    import numpy as np
+    from dada2_tpu_torch.encode import rc
+
+    rng = np.random.default_rng(seed)
+    fwd, rrc = [], []
+    for a in v34_amplicons(n):
+        f, r = list(a[:300]), list(rc(a[160:]))
+        for x in (f, r):
+            for _ in range(2):
+                x[int(rng.integers(0, len(x)))] = "ACGT"[rng.integers(4)]
+        fwd.append("".join(f))
+        rrc.append(rc("".join(r)))
+    return fwd, rrc
+
+
+def shift_v34_uniques(n=500):
+    """is_shift_denovo's input for a V3-V4 study: the first n distinct
+    V3-V4 amplicons of ten_16s.100.fa.gz's records, abundances 1000 - k in
+    that order (so every pair is aligned: n (n - 1) / 2 of them)."""
+    out = {}
+    for s in v34_amplicons(4 * n):
+        if s not in out:
+            out[s] = 1000 - len(out)
+        if len(out) == n:
+            break
+    return out
+
+
+def shift_pb_uniques(dt, n=64):
+    """is_shift_denovo's input for a PacBio full-length 16S study:
+    samPB.fastq.gz's n most abundant uniques, abundances n - k in derep
+    order (every pair aligned: n (n - 1) / 2 = 2,016 at n = 64)."""
+    drp = dt.derep_fastq(SAMPB)
+    return {s: n - k for k, s in enumerate(drp.sequences[:n])}
+
+
+def shift_pairs(uniques):
+    """is_shift_denovo's (query, parent) pairs of uniques whose abundances
+    fall strictly, in its order: (1, 0), (2, 0), (2, 1), ... as index
+    arrays."""
+    import numpy as np
+
+    n = len(uniques)
+    return np.nonzero(np.triu(np.ones((n, n), bool), 1).T)
+
+
 def b4_fit(nwb, args, kw):
     """The body, rows per thread and pairs per block that kernel B4 takes
     for a call (as nw_batch decides them), with the batch's nd and W."""
@@ -783,12 +877,15 @@ def b4_fit(nwb, args, kw):
     homo = (scalar and hg is not None and hg != kw["gap_p"]
             and kw.get("end_gap_p", 0) != kw["gap_p"])
     r = nwb.route(L1, L2, nd, W, homo)
-    if nwb.BODY == "block" and r == 3:
+    if nwb.BODY == "block" and r in (3, 4):
         r = nwb.block_route(L1, L2, nd, W, homo)
-    fit = dict(nd=nd, W=W, body=nwb.body(r), rpt=None, P=None)
-    if r == 3:
+    fit = dict(nd=nd, W=W, body=nwb.body(r), rpt=None, P=None, warps=None,
+               route=r)
+    if r in (3, 4):
         fit["rpt"], fit["P"] = nwb.register_fit(L1, L2, nd, W, scalar, homo,
                                                 n)
+        fit["warps"] = nwb.warps_per_pair(W)
+    if r == 3:
         fit["P"] = nwb.PAIRS_PER_BLOCK or fit["P"]
     return fit
 
@@ -804,9 +901,33 @@ def b4_launch_ms(nwb, args, kw, reps):
     return cuda_ms(lambda: nwb._launch(b), reps)
 
 
+def b4_device_ms(run, reps, launched):
+    """Kernel B4's device time per call of run() (torch.profiler: the sum of
+    its kernels' events over reps calls, over reps) and its launches per
+    call; (None, launches) if the profiler recorded another number of B4
+    kernels than launched() counted (then the time is not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    n0 = launched()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    n = launched() - n0
+    ev = [e for e in prof.events() if is_b4_kernel(e.name)]
+    if not ev or len(ev) != n:
+        return None, n // reps
+    us = sum(e.time_range.end - e.time_range.start for e in ev)
+    return us / 1e3 / reps, n // reps
+
+
 def is_b4_kernel(name):
-    """Whether a profiler event is one of kernel B4's two bodies."""
-    return "nw_batch_kernel" in name or "nw_batch_reg_kernel" in name
+    """Whether a profiler event is one of kernel B4's three bodies."""
+    return ("nw_batch_kernel" in name or "nw_batch_reg_kernel" in name
+            or "nw_batch_wide_kernel" in name)
 
 
 def nbytes_of(tensors):
@@ -2954,6 +3075,182 @@ def torch_stages(ss, bc, be, inp, card, nrows):
                  bound_by="bytes", library_ms=None)]
 
 
+def wide_phase(dt, nwb, dev, card, reset_launches, counts):
+    """20. Kernel B4's wide body (windows of 257 to 2,048 rows) at the three
+    shapes it serves for users, each held bitwise against the plain
+    version on the card: merge_whole (merge_pairs' alignments of 4,096
+    whole 2 x 300 V3-V4 read pairs, W 301), shift_v34 (is_shift_denovo on
+    500 V3-V4 ASVs: 124,750 pairs, W 461; the whole call's wall and
+    launches, its first 4,096-pair chunk and a 64-pair subset held, and 40
+    of the ASVs card == CPU) and shift_pb (is_shift_denovo on samPB's 64
+    most abundant uniques: 2,016 pairs, W ~1,500, pointers in device
+    memory; all pairs and a 64-pair subset held). At each: the kernel's ms
+    (CUDA events around its launches alone, and device time from
+    torch.profiler), the call's ms, launches by body, the bound, the plain
+    version's ms and the one-block-per-pair body's kernel ms on the same
+    batch (forced). Returns the kernels line's row and the largest
+    difference from the plain version."""
+    import numpy as np
+    import torch
+    from dada2_tpu_torch.encode import pack_sequences
+
+    merge_kw = dict(match=1, mismatch=-64, gap_p=-64, band=-1, mode="scalar")
+    shift_kw = dict(match=5, mismatch=-4, gap_p=-8, band=-1, mode="scalar")
+    err = 0
+    by_path = {}
+
+    def on_card(codes1, lens1, codes2, lens2):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+                (codes1, np.asarray(lens1, np.int64), codes2,
+                 np.asarray(lens2, np.int64))]
+
+    def held(label, args, kw):
+        """The kernel == the plain version on args, bitwise, through the
+        wide body alone; returns the plain outputs and the plain ms."""
+        nonlocal err
+        budget = nwb.MAX_BYTES
+        nwb.MAX_BYTES = 16 << 30  # the plain version's tensors in one chunk
+        try:
+            t0 = time.time()
+            want = nwb.nw_batch_ref(*args, **kw)
+            torch.cuda.synchronize()
+            plain = (time.time() - t0) * 1e3
+        finally:
+            nwb.MAX_BYTES = budget
+        reset_launches()
+        got = nwb.nw_batch(*args, **kw)
+        torch.cuda.synchronize()
+        n = counts()
+        e = max_abs_diff(got, want)
+        err = max(err, e)
+        if e != 0 or not bool(got[5].all()):
+            fail(f"kernel B4's wide body disagrees with its plain version "
+                 f"({label})")
+        if n["B4"] <= 0 or n["B4 wide"] != n["B4"]:
+            fail(f"{label}: B4's launches {n} did not all take the wide body")
+        log(f"[wide] {label}: {args[0].shape[0]} pairs held, {n['B4']} wide "
+            f"launch(es), max |kernel - plain| = {e} (kinds, p0, p1, ham, "
+            f"tvec, ok); plain {plain:.1f} ms")
+        return want, plain
+
+    def timed(label, args, kw, reps, outs, plain):
+        fit = b4_fit(nwb, args, kw)
+        call = cuda_ms(lambda: nwb.nw_batch(*args, **kw), reps)
+        kern = b4_launch_ms(nwb, args, kw, reps)
+        n0 = nwb.nw_batch.launches
+        by_name = profile_device(f"wide body, {label}, {reps} calls",
+                                 lambda: [nwb.nw_batch(*args, **kw)
+                                          for _ in range(reps)])
+        per_call = (nwb.nw_batch.launches - n0) // reps
+        b4 = [v for n_, v in by_name.items() if is_b4_kernel(n_)]
+        # this process's profiler may record fewer kernels than were
+        # launched (6 of 10 at merge_whole); the device time a call is
+        # taken over the whole calls it recorded
+        rec = sum(v[1] for v in b4)
+        dms = (sum(v[0] for v in b4) / 1e3 / (rec // per_call)
+               if rec and per_call and rec % per_call == 0 else None)
+        nwb.BODY = "block"
+        try:
+            block = b4_launch_ms(nwb, args, kw, max(1, reps // 3))
+        finally:
+            nwb.BODY = None
+        l1, l2 = args[1].cpu().numpy(), args[3].cpu().numpy()
+        bms, by, det = b4_bound(nbytes_of(args) + nbytes_of(outs),
+                                pair_cells(l1, l2, -1), False)
+        row = dict(shape=label, pairs=int(args[0].shape[0]), nd=fit["nd"],
+                   W=fit["W"], body=fit["body"], warps=fit["warps"],
+                   route=fit["route"], ms=kern, call_ms=call, device_ms=dms,
+                   device_kernels_recorded=rec,
+                   launches_per_call=per_call, plain_ms=plain, bound_ms=bms,
+                   bound_by=by, block_body_ms=block)
+        log(f"[time] kernel B4 wide body, {label} ({row['pairs']} pairs, "
+            f"nd {fit['nd']}, W {fit['W']}, {fit['warps']} warps a pair, "
+            f"route {fit['route']}): kernel {kern:.4f} ms (CUDA events), "
+            f"device {'not measured' if dms is None else f'{dms:.4f}'} ms "
+            f"(torch.profiler, {rec} of {per_call * reps} launches recorded, "
+            f"{per_call} a call), call "
+            f"{call:.4f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms by {by}"
+            f" ({det}); the one-block-per-pair body on the same batch "
+            f"{block:.4f} ms; card {card}")
+        return row
+
+    timed_rows = []
+    # merge_whole: one nw_batch call, as merge_pairs makes it
+    fwd, rrc = merge_whole_reads()
+    m1, ml1 = pack_sequences(fwd)
+    m2, ml2 = pack_sequences(rrc)
+    margs = on_card(m1, ml1, m2, ml2)
+    reset_launches()
+    nwb.nw_batch(*margs, **merge_kw)
+    torch.cuda.synchronize()
+    by_path["merge_whole"] = counts()["B4 wide"]
+    outs, plain = held("merge_whole", margs, merge_kw)
+    timed_rows.append(timed("merge_whole", margs, merge_kw, 10, outs, plain))
+
+    # shift_v34: is_shift_denovo on 500 V3-V4 ASVs, the whole call
+    unqs = shift_v34_uniques()
+    reset_launches()
+    t0 = time.time()
+    flags = dt.is_shift_denovo(unqs, device="cuda")
+    wall_v34 = time.time() - t0
+    n_v34 = counts()
+    by_path["shift_v34 is_shift_denovo"] = n_v34["B4 wide"]
+    if n_v34["B4"] <= 0 or n_v34["B4 wide"] != n_v34["B4"]:
+        fail(f"is_shift_denovo on V3-V4 ASVs launched {n_v34}, not the wide "
+             "body alone")
+    sub = dict(list(unqs.items())[:40])
+    if not dt.is_shift_denovo(sub, device="cuda").equals(
+            dt.is_shift_denovo(sub, device="cpu")):
+        fail("is_shift_denovo on 40 V3-V4 ASVs: card differs from the CPU")
+    codes, lens = pack_sequences(list(unqs))
+    qi, pi = shift_pairs(unqs)
+    chunk = on_card(codes[qi[:4096]], lens[qi[:4096]], codes[pi[:4096]],
+                    lens[pi[:4096]])
+    held("shift_v34 64 pairs", [x[:64] for x in chunk], shift_kw)
+    outs, plain = held("shift_v34 first chunk", chunk, shift_kw)
+    row = timed("shift_v34 first chunk", chunk, shift_kw, 10, outs, plain)
+    row.update(call_wall_s=wall_v34, call_pairs=len(qi),
+               call_launches=n_v34["B4"], flagged=int(flags.sum()))
+    timed_rows.append(row)
+    log(f"[wide] is_shift_denovo on {len(unqs)} V3-V4 ASVs: {len(qi)} "
+        f"pairs, {wall_v34:.3f} s wall, launches {n_v34}, "
+        f"{int(flags.sum())} flagged; 40 of them card == CPU")
+
+    # shift_pb: is_shift_denovo on samPB's 64 most abundant uniques
+    pb = shift_pb_uniques(dt)
+    reset_launches()
+    t0 = time.time()
+    flags = dt.is_shift_denovo(pb, device="cuda")
+    wall_pb = time.time() - t0
+    n_pb = counts()
+    by_path["shift_pb is_shift_denovo"] = n_pb["B4 wide"]
+    if n_pb["B4"] <= 0 or n_pb["B4 wide"] != n_pb["B4"]:
+        fail(f"is_shift_denovo on samPB launched {n_pb}, not the wide body "
+             "alone")
+    codes, lens = pack_sequences(list(pb))
+    qi, pi = shift_pairs(pb)
+    pargs = on_card(codes[qi], lens[qi], codes[pi], lens[pi])
+    held("shift_pb 64 pairs", [x[:64] for x in pargs], shift_kw)
+    outs, plain = held("shift_pb all pairs", pargs, shift_kw)
+    geo = (pargs[0].shape[1], pargs[2].shape[1],
+           *nwb.batch_geometry(lens[qi], lens[pi], -1), False)
+    if nwb.route(*geo) != 4:
+        fail("samPB's shift pairs did not take the wide body")
+    row = timed("shift_pb", pargs, shift_kw, 5, outs, plain)
+    row.update(call_wall_s=wall_pb, call_pairs=len(qi),
+               call_launches=n_pb["B4"], flagged=int(flags.sum()))
+    timed_rows.append(row)
+    log(f"[wide] is_shift_denovo on samPB's {len(pb)} most abundant "
+        f"uniques: {len(qi)} pairs, {wall_pb:.3f} s wall, launches {n_pb}, "
+        f"{int(flags.sum())} flagged")
+    top = timed_rows[0]
+    return dict(launches=sum(by_path.values()), launches_by_path=by_path,
+                **{k: top[k] for k in ("ms", "call_ms", "device_ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "block_body_ms")},
+                timed=timed_rows), err
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -3065,11 +3362,11 @@ def main() -> None:
         fail(f"expected 16 kernel instantiations (4 windows x B1's kernel "
              f"and three modes of the other body), ptxas compiled {entries}")
     entries = reports["nw_batch.cu"].count("Compiling entry function")
-    if entries != 18:
-        fail(f"expected 18 instantiations of kernel B4 (the register body: "
-             f"4 row tiers x vec, scalar and homopolymer; the "
-             f"one-block-per-pair body: the three aligners x two slab "
-             f"routes), ptxas compiled {entries}")
+    if entries != 21:
+        fail(f"expected 21 instantiations of kernel B4 (the register body: "
+             f"4 row tiers x vec, scalar and homopolymer; the wide body: the "
+             f"three aligners; the one-block-per-pair body: the three "
+             f"aligners x two slab routes), ptxas compiled {entries}")
     entries = reports["store_screen.cu"].count("Compiling entry function")
     if entries != 8:
         fail(f"expected 8 kernels of B5 (the cooperative budded kernel, "
@@ -3648,17 +3945,26 @@ def main() -> None:
     # body's 256-row limit, pairs of length 0 and 1, and launches of 1,
     # P - 1, P and P + 1 pairs at a set pairs per block, and one large
     # launch whose last block is partial at the fit's own P
-    for W in (32, 33, 64, 65, 128, 129, 256, 257):
+    for W in (32, 33, 64, 65, 128, 129, 256, 257, 288, 512, 513):
         b4_cases.append((f"window {W}, merge scoring",
                          b4_window_pairs(rng, W, 60), merge64))
     for W in (33, 129, 257):
         b4_cases.append((f"window {W}, vec, end gaps -8",
                          b4_window_pairs(rng, W, 40),
                          dict(sc5, band=-1, end_gap_p=-8)))
-    for W in (65, 256):
+    for W in (65, 256, 301):
         b4_cases.append((f"window {W}, homopolymer -1",
                          b4_window_pairs(rng, W, 40),
                          dict(sc5, band=-1, mode="scalar", homo_gap_p=-1)))
+    # the wide body at band 140 (windows over 256 rows where the lengths
+    # differ by 300), and a batch of mixed windows, wide and narrow
+    far = [(a, b[: len(b) // 2]) for a, b in b4_pairs(rng, 30, 600, 10)]
+    b4_cases += [
+        ("band 140 over 256 rows, vec", far, dict(sc5, band=140)),
+        ("band 140 over 256 rows, scalar homopolymer -1", far,
+         dict(sc5, band=140, mode="scalar", homo_gap_p=-1)),
+        ("mixed windows, wide and narrow",
+         b4_pairs(rng, 20, 460, 12, lo=20) + b4_short_pairs(), merge64)]
     short = b4_short_pairs() + b4_pairs(rng, 6, 40, 4, lo=2)
     b4_cases += [
         ("short pairs, vec band 4", short, dict(sc5, band=4)),
@@ -3703,8 +4009,9 @@ def main() -> None:
             err = max_abs_diff(got, want)
             err_b["B4"] = max(err_b["B4"], err)
             said.append(f"{fit['body']} body (RPT {fit['rpt']}, P "
-                        f"{fit['P']}): {nl['B4']} launch(es), register "
-                        f"{nl['B4 register']}, block {nl['B4 block']}, "
+                        f"{fit['P']}, warps {fit['warps']}): {nl['B4']} "
+                        f"launch(es), register {nl['B4 register']}, wide "
+                        f"{nl['B4 wide']}, block {nl['B4 block']}, "
                         f"max |kernel - plain| = {err}")
             if err != 0 or not bool(got[5].all()):
                 fail(f"kernel B4's {fit['body']} body disagrees with its "
@@ -3712,19 +4019,20 @@ def main() -> None:
             if nl["B4 " + fit["body"]] != nl["B4"]:
                 fail(f"{label}: the launches went to another body than "
                      f"{fit['body']}")
-            if body is None and (fit["W"] <= 256) != (fit["body"] ==
-                                                      "register"):
+            want_body = ("register" if fit["W"] <= 256 else
+                         "wide" if fit["W"] <= 2048 else "block")
+            if body is None and fit["body"] != want_body:
                 fail(f"{label}: a window of {fit['W']} rows took the "
                      f"{fit['body']} body")
             if one_per_launch and nl["B4"] != len(pairs):
                 fail(f"the chunked B4 call made {nl['B4']} launches for "
                      f"{len(pairs)} pairs")
-        slab_route = nwb.block_route(args[0].shape[1], args[2].shape[1],
-                                     fit["nd"], fit["W"],
-                                     kw.get("homo_gap_p") is not None)
-        if "slab" in label and slab_route != 2:
-            fail("the unbanded samPB pairs did not take the device-memory "
-                 "slab")
+        geo = (args[0].shape[1], args[2].shape[1], fit["nd"], fit["W"],
+               kw.get("homo_gap_p") is not None)
+        if "slab" in label and (nwb.route(*geo) != 4
+                                or nwb.block_route(*geo) != 2):
+            fail("the unbanded samPB pairs did not take the wide and the "
+                 "one-block-per-pair bodies' device-memory slabs")
         log(f"[batch] {label}: {len(pairs)} pairs, L1={args[0].shape[1]} "
             f"L2={args[2].shape[1]} nd={fit['nd']} W={fit['W']}; "
             + "; ".join(said) + " (over kinds, p0, p1, ham, tvec, ok)")
@@ -3774,9 +4082,9 @@ def main() -> None:
         f"{pgpu[3].shape}, shifts flagged {int(pgpu[4].sum())}; reverse "
         f"dada + slice: card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; identical; "
         f"card launches {n_paired}")
-    if n_paired["B4"] <= 0 or n_paired["B4 block"] != 0:
-        fail("the paired slice never launched kernel B4, or launched its "
-             "one-block-per-pair body")
+    if n_paired["B4"] <= 0 or n_paired["B4 register"] != n_paired["B4"]:
+        fail("the paired slice never launched kernel B4, or launched "
+             "another body than its register body")
 
     hp = dict(HOMOPOLYMER_GAP_PENALTY=-1, BAND_SIZE=32)
     reset_launches()
@@ -3796,7 +4104,8 @@ def main() -> None:
     log(f"[misfit] sam1F HOMOPOLYMER_GAP_PENALTY=-1 BAND_SIZE=32: "
         f"{len(res_h.denoised)} ASVs; card {t_gpu:.2f}s, CPU {t_cpu:.2f}s; "
         f"identical; card launches {n_h}")
-    if n_h["B4"] <= 0 or n_h["B1"] != 0 or n_h["B4 block"] != 0:
+    if (n_h["B4"] <= 0 or n_h["B1"] != 0
+            or n_h["B4 register"] != n_h["B4"]):
         fail("the homopolymer configuration must launch B4's register "
              "body and not B1")
     # unbanded on sam1F's 250 most abundant uniques, as
@@ -3825,7 +4134,8 @@ def main() -> None:
     log(f"[misfit] sam1F BAND_SIZE=-1: {len(res_u.denoised)} ASVs from "
         f"{len(drp_u.uniques)} uniques; card {t_gpu:.2f}s, CPU "
         f"{t_cpu:.2f}s; identical; card launches {n_u}")
-    if n_u["B4"] <= 0 or n_u["B1"] != 0 or n_u["B4 block"] != 0:
+    if (n_u["B4"] <= 0 or n_u["B1"] != 0
+            or n_u["B4 register"] != n_u["B4"]):
         fail("dada(BAND_SIZE=-1) must launch B4's register body and not "
              "B1")
 
@@ -3852,9 +4162,9 @@ def main() -> None:
         n14 = counts()
     finally:
         CudaBackend._align_batch = align_batch
-    if n14["B4"] <= 0 or n14["B4 block"] != 0:
+    if n14["B4"] <= 0 or n14["B4 register"] != n14["B4"]:
         fail("the homopolymer selfConsist run never launched kernel B4's "
-             "register body, or launched its one-block-per-pair body")
+             "register body, or launched another body")
     cells14 = sum(pair_cells(np.broadcast_to(b.lens[c], len(i)),
                              b.lens[i], o.BAND_SIZE)
                   for b, c, i, o in b4_calls)
@@ -3997,7 +4307,7 @@ def main() -> None:
         f"bound {bound_s:.4f} ms by {by_s} ({det_s}); "
         f"one 4096-pair chunk: {said(res_s)}; plain {plain_chunk:.2f} ms; "
         f"both bodies equal to the plain version; card {card}")
-    if n_s["B4"] <= 0 or n_s["B4 block"] != 0:
+    if n_s["B4"] <= 0 or n_s["B4 register"] != n_s["B4"]:
         fail("is_shift_denovo did not run through kernel B4's register "
              "body")
     timed = [dict(shape=shape, **{k: r[k] for k in ("body", "rpt", "P",
@@ -4038,6 +4348,9 @@ def main() -> None:
     rows["B5"]["projection"] = dict(
         launches_with_proj=n_b5_with["proj"],
         launches_with_fold=n_b5_with["fold"], **spec)
+    mark("20 wide")
+    rows["B4wide"], err_b["B4wide"] = wide_phase(dt, nwb, dev, card,
+                                                 reset_launches, counts)
     mark("end")
 
     # the slot packer (the follow-up and the gather mode): phase 5's
@@ -4075,6 +4388,9 @@ def main() -> None:
         "B3": ("nw_wavefront kinds (B3)",) + wave,
         "B4": ("nw_batch (B4)", "dada2_tpu_torch/csrc/nw_batch.cu",
                "dada2_tpu/ops/nw_batch.py:63"),
+        "B4wide": ("nw_batch wide body (B4, windows of 257 to 2,048 rows)",
+                   "dada2_tpu_torch/csrc/nw_batch.cu",
+                   "dada2_tpu/ops/nw_batch.py:63"),
         "B5": ("store_screen budded pack and small pack (B5)", b5src,
                "dada2_tpu/core/backend_tpu.py:520"),
         "B5take": ("store_screen slot packer: take and gather (B5)", b5src,

@@ -1,6 +1,8 @@
 // Batched Needleman-Wunsch over per-pair windows for Hopper (kernel B4):
 // a register body (one warp per pair, the window in registers) for windows
-// of up to 256 rows, and a one-block-per-pair body for wider ones.
+// of up to 256 rows, a wide body (several warps per pair, the same cell code)
+// for windows of up to 2,048 rows, and a one-block-per-pair body for wider
+// ones.
 //
 // Replaces the JAX package's XLA aligner dada2_tpu/ops/nw_batch.py:
 // _fill_kernel (the lax.scan over anti-diagonals, vmapped over pairs) and
@@ -76,8 +78,41 @@
 // step rows (positions from ballot prefix counts), ham and tvec with
 // coalesced stores.
 //
-// The one-block-per-pair body (nw_batch_kernel; wider windows, e.g.
-// PacBio's ~1,450-row unbanded windows): 32..256 threads striding over the
+// The wide body (nw_batch_wide_kernel; windows of 257 to 2,048 rows: whole
+// 2 x 300 merges, shift detection on V3-V4 or PacBio ASVs): the register
+// body's fill on G = ceil(W / 256) warps per pair, one pair per block.
+// Thread t of the pair (t = 32 * warp + lane) holds the window rows
+// t * 8 + k, so a warp holds 256 consecutive rows and the cell code is the
+// register body's, RPT = 8. Across a warp boundary the one neighbour row
+// the shuffle cannot bring (lane 31's next row when lo(d) advances, lane
+// 0's previous row when it does not) comes from an exchange buffer in
+// shared memory: after each diagonal a warp's lane 0 and lane 31 write
+// their first and last rows there (two buffers by the diagonal's parity,
+// one slot per warp with an out-of-band slot on each side) and the pair's
+// warps meet at a named barrier (bar.sync 1, 32 * G: the block is the
+// pair); the double buffer makes one barrier per diagonal enough. A warp
+// whose 256 rows are all past the diagonal's last valid row (the window's
+// triangles, or a pair narrower than the batch's window) skips its cells:
+// they would all read the out-of-band value, so it only shifts its pointer
+// words and exchanges its edges. The pointers are packed as in the register
+// body (sixteen diagonals to a word, per group only the rows its diagonals
+// can hold) in a device-memory slab that the wrapper allocates (about 23 KB
+// a pair at a 301-row window, 53 KB at 461, 0.55 MB for an unbanded PacBio
+// pair): in shared memory they capped the SM at four pairs at W 461, where
+// registers (80 a thread) allow twelve; the slab in device memory measured
+// 38% faster there and no slower at W 301.
+// After a last barrier the other warps leave and warp 0 walks the pointers
+// as one warp: on entering a group of sixteen diagonals it takes the 64
+// words around the walk's row from a window loaded when it entered the
+// previous group (the walk moves at most 31 rows in two groups), and loads
+// the next group's window at once, so each step costs a shuffle and a
+// device-memory slab's latency is hidden behind a group's steps; then the
+// warp writes the step rows with the register body's coalesced stores. No
+// block-wide barrier follows the fill, so the SM's other pairs keep
+// filling while a pair walks.
+//
+// The one-block-per-pair body (nw_batch_kernel; windows over 2,048 rows,
+// e.g. unbanded full-length rRNA operons): 32..256 threads striding over the
 // pair's window rows on each diagonal. The scores of diagonals d-1 and d-2
 // and the one being written live in three int32 buffers in shared memory
 // (one barrier per diagonal; the buffer written at d+1 is the one read at
@@ -85,11 +120,10 @@
 // at the out-of-band value. The sequences (and masks) are staged into
 // shared memory once. Pointers are 2 bits per cell, as two bit planes per
 // warp and diagonal (__ballot_sync), in shared memory when nd x W fits one
-// block, else in a device-memory slab that the wrapper allocates (a PacBio
-// read of ~1450 bp without a band needs ~1 MB per pair). After the last
-// barrier thread 0 walks the traceback and writes kinds/p0/p1, ham and the
-// tvec entries of diagonal steps; the other threads initialise tvec before
-// the fill and write the tail of the step rows after the walk.
+// block, else in a device-memory slab that the wrapper allocates. After the
+// last barrier thread 0 walks the traceback and writes kinds/p0/p1, ham and
+// the tvec entries of diagonal steps; the other threads initialise tvec
+// before the fill and write the tail of the step rows after the walk.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -359,15 +393,29 @@ __global__ void __launch_bounds__(THREADS_MAX)
 // window's rows run past the sequences; in the homopolymer aligner each
 // element is the int32 word gap * 256 + code, the gap a step next to that
 // position costs, else an int8 code), the walk's step kinds (one byte per
-// step), the slab's offsets (nq + 1 int32, see group_rows) and the pointer
-// slab: per group of sixteen diagonals q, one word per window row below
-// group_rows(q), diagonal 16q + m in bits 2m.
+// step), the slab's offsets (nq + 1 int32, see group_rows), in the wide
+// body the exchange buffer (two buffers of G + 2 slots of two int32), and
+// the pointer slab: per group of sixteen diagonals q, one word per window
+// row below group_rows(q), diagonal 16q + m in bits 2m (`words` in all; not
+// in shared memory where the wide body keeps it in device memory). `wr` is
+// the rows a pair's threads hold, 32 * RPT * warps, the guard of the staged
+// sequences. The wide body's pair has the same layout, one pair a block,
+// its slab in device memory.
 struct RegLayout {
-  int s2, kb, off, slab, stride, nd, nq;
+  int s2, kb, off, ex, slab, stride, nd, nq, wr, words;
 };
 
 __host__ __device__ static inline int reg_rpt(int W) {
   return W <= 32 ? 1 : W <= 64 ? 2 : W <= 128 ? 4 : 8;
+}
+
+#define WIDE_RPT 8       // rows per thread of the wide body
+#define WIDE_W_MAX 2048  // the widest window of the wide body (8 warps)
+#define WIDE_THREADS (WIDE_W_MAX / WIDE_RPT)
+
+// Warps per pair of the wide body at windows of up to W rows.
+__host__ __device__ static inline int wide_warps(int W) {
+  return (W + 32 * WIDE_RPT - 1) / (32 * WIDE_RPT);
 }
 
 // The rows of the slab kept for diagonals 16q .. 16q + 15 of a batch of nd
@@ -379,43 +427,64 @@ __host__ __device__ static inline int group_rows(int q, int nd, int W) {
   return max(0, min(W, min(16 * q + 16, nd - 16 * q)));
 }
 
+// One pair's layout: the register body's (wide false), or the wide body's,
+// whose slab is in device memory.
 __host__ __device__ static inline RegLayout reg_layout(int L1, int L2, int nd,
-                                                       int W, bool homo) {
+                                                       int W, bool homo,
+                                                       bool wide = false) {
   RegLayout o;
-  const int cs = homo ? 4 : 1, WR = 32 * reg_rpt(W);
+  const int cs = homo ? 4 : 1;
+  const int WR = wide ? 32 * WIDE_RPT * wide_warps(W) : 32 * reg_rpt(W);
+  o.wr = WR;
   o.nd = nd;
   o.nq = (nd + 15) / 16;
   o.s2 = (cs * (L1 + WR) + 15) & ~15;
   o.kb = o.s2 + ((cs * (L2 + WR) + 15) & ~15);
   o.off = o.kb + ((L1 + L2 + 15) & ~15);
-  o.slab = o.off + ((4 * (o.nq + 1) + 15) & ~15);
+  o.ex = o.off + ((4 * (o.nq + 1) + 15) & ~15);
+  o.slab = o.ex + (wide ? 16 * (wide_warps(W) + 2) : 0);
   long long words = 0;
   for (int q = 0; q < o.nq; ++q) words += group_rows(q, nd, W);
-  const long long bytes = o.slab + 4 * words;
+  o.words = words > (1LL << 30) ? (1 << 30) : (int)words;
+  const long long bytes = o.slab + (wide ? 0 : 4 * words);
   o.stride = bytes > SMEM_MAX ? SMEM_MAX + 1 : (int)bytes;
   return o;
+}
+
+// A named barrier among the pair's threads (the wide body's block is one
+// pair; id 0 is left to __syncthreads)
+__device__ __forceinline__ void pair_sync(const int nthreads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
 }
 
 __device__ __forceinline__ int code_of(int8_t c) { return c; }
 __device__ __forceinline__ int code_of(int w) { return (int8_t)(w & 0xff); }
 
 // ---- fill: the per-diagonal step of the register body ----
-// step<EDGE, LATE>(d) computes diagonal d on the pair's warp; EDGE adds the
-// border cells (i == 0, j == 0), LATE the rules of the last row and column
-// (vec: the ends-free recalculations; scalar: the free end gaps), so that
-// the diagonals that hold neither run without their checks.
-template <int RPT, bool SCALAR, bool HOMO>
+// step<EDGE, LATE>(d) computes diagonal d on the pair's warp (WIDE: on
+// this warp of the pair's warps); EDGE adds the border cells (i == 0,
+// j == 0), LATE the rules of the last row and column (vec: the ends-free
+// recalculations; scalar: the free end gaps), so that the diagonals that
+// hold neither run without their checks.
+template <int RPT_, bool SCALAR, bool HOMO, bool WIDE = false>
 struct RegFill {
   using CT = typename std::conditional<HOMO, int, int8_t>::type;
+  static constexpr int RPT = RPT_;
+  static constexpr bool IS_SCALAR = SCALAR;
   static constexpr int WR = RPT * 32;
   const CT* s1s;
   const CT* s2s;
   unsigned* slab;
   const int* off;      // slab offsets of the groups of sixteen diagonals
-  int t, len1, len2, lband, rband, OOB;
+  int t, len1, len2, lband, rband, OOB;  // t: the thread's rows are t*RPT+k
   int match, mismatch, gap_p, bval, egp, dr0, dc0;
-  int srcm, srcp;      // lanes t - 1 and t + 1, mod 32
-  bool wrapm, wrapp;   // t == 0, t == 31
+  int srcm, srcp;      // lanes - 1 and + 1, mod 32
+  bool wrapm, wrapp;   // lane 0, lane 31
+  // WIDE: the rows the pair's threads hold (the staged s2's guard), this
+  // warp's first row, its exchange slot (two int32: its first and last
+  // rows; the next buffer `exs` int32 on), the pair's threads
+  int wr, row0, exs, nthreads;
+  int* exw;
   bool sfree;          // scalar: free end gaps
   int P1[RPT], P2[RPT];
   int xs;              // the previous step's shuffle: row tR - 1 or tR + R
@@ -434,7 +503,11 @@ struct RegFill {
     // holds: row tR + R (lane t + 1's first) when s1w = 1, row tR - 1 (lane
     // t - 1's last) when s1w = 0; outside the registers it reads OOB
     int sh = __shfl_sync(FULL, s1w ? P1[0] : P1[RPT - 1], s1w ? srcp : srcm);
-    if (s1w ? wrapp : wrapm) sh = OOB;
+    // at the warp's edge: OOB, or in the wide body the neighbouring warp's
+    // first or last row of d-1 from the exchange buffer (the slots past
+    // the first and the last warp hold OOB)
+    if (s1w ? wrapp : wrapm)
+      sh = WIDE ? exw[((d - 1) & 1) * exs + (s1w ? 2 : -1)] : OOB;
     // diagonal is row r + e of d-2, e = s1w + s1p - 1: the row itself, or
     // when e != 0 (then s1w == s1p) the next or previous row, whose value
     // across the lane boundary the previous step's shuffle brought (xs)
@@ -447,8 +520,43 @@ struct RegFill {
     const bool i0 = t == 0 && od == 0;
     const bool jl = t == 0 && od == d - len2;
     const CT* c1p = s1s + od + t * RPT;                 // s1[i - 1] at c1p[k]
-    const CT* c2p = s2s + (d - od - t * RPT + WR - 1);  // s2[j - 1] at c2p[-k]
+    const CT* c2p =
+        s2s + (d - od - t * RPT + (WIDE ? wr : WR) - 1);  // s2[j-1] at c2p[-k]
     int E[RPT];
+    if (WIDE && row0 > hid - od) {
+      // no valid row in this warp: every row reads OOB, no pointer is read
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) {
+        acc[k] >>= 2;
+        E[k] = OOB;
+      }
+    } else {
+      cells<EDGE, LATE>(d, od, s1w, sh, dsh, hid, v, ri, i0, jl, c1p, c2p, E);
+    }
+    if (WIDE) {  // this warp's first and last rows of d for its neighbours
+      if (wrapm) exw[(d & 1) * exs] = E[0];
+      if (wrapp) exw[(d & 1) * exs + 1] = E[RPT - 1];
+    }
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      P2[k] = P1[k];
+      P1[k] = E[k];
+    }
+    xs = sh;
+    s1p = s1w;
+    om1 = od;
+    if (WIDE) pair_sync(nthreads);
+  }
+
+  // the cells of diagonal d on this thread's rows
+  template <bool EDGE, bool LATE>
+  __device__ __forceinline__ void cells(const int d, const int od,
+                                        const int s1w, const int sh,
+                                        const bool dsh, const int hid,
+                                        const int v, const int ri,
+                                        const bool i0, const bool jl,
+                                        const CT* c1p, const CT* c2p,
+                                        int* E) {
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       // left (i, j-1) is row r + s1w of d-1, up (i-1, j) row r + s1w - 1
@@ -538,14 +646,6 @@ struct RegFill {
           break;
       }
     }
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      P2[k] = P1[k];
-      P1[k] = E[k];
-    }
-    xs = sh;
-    s1p = s1w;
-    om1 = od;
   }
 
   // register K of this thread holds the border cell (i, 0) = (d, 0):
@@ -584,24 +684,11 @@ struct RegFill {
 };
 // ---- end of fill: the per-diagonal step ----
 
-template <int RPT, bool SCALAR, bool HOMO>
-__global__ void __launch_bounds__(REG_THREADS(RPT))
-    nw_batch_reg_kernel(const BatchArgs a, const RegLayout lay, const int n) {
-  using F = RegFill<RPT, SCALAR, HOMO>;
-  using CT = typename F::CT;
-  constexpr int WR = F::WR;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int p = blockIdx.x * (blockDim.x >> 5) + w;
-  if (p >= n) return;  // the whole warp: the block has no barrier
-  unsigned char* mine = smem + (size_t)w * lay.stride;
-  CT* s1s = (CT*)mine;
-  CT* s2s = (CT*)(mine + lay.s2);
-  unsigned char* kb = mine + lay.kb;
-  int* off = (int*)(mine + lay.off);
-  unsigned* slab = (unsigned*)(mine + lay.slab);
-  const int len1 = a.len1[p], len2 = a.len2[p];
-  int lband, rband;
+// The pair's band: lband = band + max(0, len1 - len2), rband likewise (no
+// band: len1 and len2)
+__device__ __forceinline__ void pair_band(const BatchArgs& a, const int len1,
+                                          const int len2, int& lband,
+                                          int& rband) {
   if (a.band < 0) {
     lband = len1;
     rband = len2;
@@ -609,12 +696,20 @@ __global__ void __launch_bounds__(REG_THREADS(RPT))
     lband = a.band + max(0, len1 - len2);
     rband = a.band + max(0, len2 - len1);
   }
+}
+
+// Stages pair p's s1 and s2 with their guard elements (WR of them, the rows
+// the pair's threads hold) and writes its tvec row tv's self transitions;
+// thread x0 of nx threads.
+template <class CT, bool HOMO>
+__device__ __forceinline__ void stage_pair(const BatchArgs& a, const int p,
+                                           const int len1, const int len2,
+                                           const int WR, CT* s1s, CT* s2s,
+                                           int8_t* tv, const int x0,
+                                           const int nx) {
   const int8_t* g1 = a.s1 + (size_t)p * a.L1;
   const int8_t* g2 = a.s2 + (size_t)p * a.L2;
-  int8_t* tv = a.tvec + (size_t)p * a.L2;
-
-  // ---- staging: s1 and s2 with their guard elements, tvec ----
-  for (int x = t; x < a.L1 + WR; x += 32) {
+  for (int x = x0; x < a.L1 + WR; x += nx) {
     const int q = x - 1;
     const bool in = q >= 0 && q < len1;
     int c = in ? g1[q] : -1;
@@ -623,7 +718,7 @@ __global__ void __launch_bounds__(REG_THREADS(RPT))
           256 * (in && a.h1[(size_t)p * a.L1 + q] ? a.homo_gap_p : a.gap_p);
     s1s[x] = (CT)c;
   }
-  for (int x = t; x < a.L2 + WR; x += 32) {
+  for (int x = x0; x < a.L2 + WR; x += nx) {
     const int q = x - WR;
     const bool in = q >= 0 && q < len2;
     int c = in ? g2[q] : -1;
@@ -632,24 +727,32 @@ __global__ void __launch_bounds__(REG_THREADS(RPT))
           256 * (in && a.h2[(size_t)p * a.L2 + q] ? a.homo_gap_p : a.gap_p);
     s2s[x] = (CT)c;
   }
-  for (int x = t; x < a.L2; x += 32)
+  for (int x = x0; x < a.L2; x += nx)
     tv[x] = x < len2 ? (int8_t)(5 * (int)g2[x]) : (int8_t)16;
-  if (t == 0) {
-    int o = 0;
-    for (int q = 0; q < lay.nq; ++q) {
-      off[q] = o;
-      o += group_rows(q, lay.nd, a.W);
-    }
-    off[lay.nq] = o;
-  }
-  __syncwarp();
+}
 
-  // ---- fill: diagonals 1 .. len1 + len2, in three phases ----
-  F f;
-  f.s1s = s1s;
-  f.s2s = s2s;
-  f.slab = slab;
-  f.off = off;
+// The slab's offsets of the groups of sixteen diagonals (one thread)
+__device__ __forceinline__ void slab_offsets(const RegLayout& lay, const int W,
+                                             int* off) {
+  int o = 0;
+  for (int q = 0; q < lay.nq; ++q) {
+    off[q] = o;
+    o += group_rows(q, lay.nd, W);
+  }
+  off[lay.nq] = o;
+}
+
+// The fill of one pair on f's warp(s), t the thread's index among the
+// pair's threads: diagonals 1 .. len1 + len2, in phases by which border
+// and last-row checks a diagonal can need. Every thread of the pair runs
+// the same diagonals (the wide body's barriers count on it).
+template <class F>
+__device__ __forceinline__ void fill_pair(F& f, const BatchArgs& a,
+                                          const int len1, const int len2,
+                                          const int lband, const int rband,
+                                          const int t, const int lane) {
+  constexpr bool SCALAR = F::IS_SCALAR;
+  constexpr int RPT = F::RPT;
   f.t = t;
   f.len1 = len1;
   f.len2 = len2;
@@ -675,10 +778,10 @@ __global__ void __launch_bounds__(REG_THREADS(RPT))
   // rules change
   const int dl = SCALAR ? (f.sfree ? min(len1, len2) + 1 : NEVER)
                         : min(f.dr0, f.dc0);
-  f.srcm = (t + 31) & 31;
-  f.srcp = (t + 1) & 31;
-  f.wrapm = t == 0;
-  f.wrapp = t == 31;
+  f.srcm = (lane + 31) & 31;
+  f.srcp = (lane + 1) & 31;
+  f.wrapm = lane == 0;
+  f.wrapp = lane == 31;
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {  // diagonal 0: cell (0, 0) = 0
     f.P1[k] = t * RPT + k == 0 ? 0 : f.OOB;
@@ -709,6 +812,92 @@ __global__ void __launch_bounds__(REG_THREADS(RPT))
   // the last diagonals, where the last row's and column's rules apply
   f.template run<false, true>(d, ndl);
   if ((ndl & 15) != 15) f.store(ndl, 2 * (15 - (ndl & 15)));
+}
+
+// The step rows of pair p from the walk's `steps` kinds in kb, 32 steps per
+// pass on one warp (lane t): (i, j) after step k is (len1, len2) less the
+// steps <= k that consume s1 (kinds 1, 3) and s2 (kinds 1, 2), positions
+// from ballot prefix counts; then ham, the tvec entries of the diagonal
+// steps (row tv) and ok. s1 and s2 are staged with a guard of WR elements.
+template <class CT>
+__device__ __forceinline__ void write_steps(const BatchArgs& a, const int p,
+                                            int8_t* tv,
+                                            const unsigned char* kb,
+                                            const int steps, const int len1,
+                                            const int len2, const CT* s1s,
+                                            const CT* s2s, const int WR,
+                                            const int t) {
+  const int nsteps = a.L1 + a.L2;
+  int8_t* kr = a.kinds + (size_t)p * nsteps;
+  int* q0 = a.p0 + (size_t)p * nsteps;
+  int* q1 = a.p1 + (size_t)p * nsteps;
+  const unsigned le = FULL >> (31 - t);  // lanes 0 .. t
+  int ci = 0, cj = 0, h = 0;
+  for (int k0 = 0; k0 < nsteps; k0 += 32) {
+    const int k = k0 + t;
+    const int kind = k < steps ? kb[k] : 0;
+    const unsigned bi = __ballot_sync(FULL, kind == 1 || kind == 3);
+    const unsigned bj = __ballot_sync(FULL, kind == 1 || kind == 2);
+    const int i = len1 - ci - __popc(bi & le);
+    const int j = len2 - cj - __popc(bj & le);
+    if (k < nsteps) {
+      kr[k] = (int8_t)kind;
+      q0[k] = i;
+      q1[k] = j;
+    }
+    if (kind == 1) {  // a diagonal step: (i, j) is the aligned column
+      const int nt0 = code_of(s1s[i + 1]), nt1 = code_of(s2s[j + WR]);
+      h += nt0 != nt1;
+      tv[j] = (int8_t)(4 * nt0 + nt1);
+    }
+    ci += __popc(bi);
+    cj += __popc(bj);
+  }
+  h = __reduce_add_sync(FULL, h);
+  if (t == 0) {
+    a.ham[p] = h;
+    a.ok[p] = len1 == ci && len2 == cj;
+  }
+}
+
+template <int RPT, bool SCALAR, bool HOMO>
+__global__ void __launch_bounds__(REG_THREADS(RPT))
+    nw_batch_reg_kernel(const BatchArgs a, const RegLayout lay, const int n) {
+  using F = RegFill<RPT, SCALAR, HOMO>;
+  using CT = typename F::CT;
+  constexpr int WR = F::WR;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int p = blockIdx.x * (blockDim.x >> 5) + w;
+  if (p >= n) return;  // the whole warp: the block has no barrier
+  unsigned char* mine = smem + (size_t)w * lay.stride;
+  CT* s1s = (CT*)mine;
+  CT* s2s = (CT*)(mine + lay.s2);
+  unsigned char* kb = mine + lay.kb;
+  int* off = (int*)(mine + lay.off);
+  unsigned* slab = (unsigned*)(mine + lay.slab);
+  const int len1 = a.len1[p], len2 = a.len2[p];
+  int lband, rband;
+  pair_band(a, len1, len2, lband, rband);
+  // the tvec row, taken once for the staging and the step rows: with it
+  // live across the fill the scalar RPT 8 instantiation keeps 80 registers
+  // (25 warps an SM); taken again after the fill it had 72 (28 warps) and
+  // ran 4-5% slower at 4,096-pair launches, whose last partial wave then
+  // holds the same latency-bound tail
+  int8_t* tv = a.tvec + (size_t)p * a.L2;
+
+  // ---- staging: s1 and s2 with their guard elements, tvec ----
+  stage_pair<CT, HOMO>(a, p, len1, len2, WR, s1s, s2s, tv, t, 32);
+  if (t == 0) slab_offsets(lay, a.W, off);
+  __syncwarp();
+
+  // ---- fill: diagonals 1 .. len1 + len2, in three phases ----
+  F f;
+  f.s1s = s1s;
+  f.s2s = s2s;
+  f.slab = slab;
+  f.off = off;
+  fill_pair(f, a, len1, len2, lband, rband, t, t);
   __syncwarp();
   // ---- end of fill ----
 
@@ -740,38 +929,103 @@ __global__ void __launch_bounds__(REG_THREADS(RPT))
   }
   __syncwarp();
   steps = __shfl_sync(FULL, steps, 0);
-  // the step rows, 32 steps per pass: (i, j) after step k is (len1, len2)
-  // less the steps <= k that consume s1 (kinds 1, 3) and s2 (kinds 1, 2)
-  int8_t* kr = a.kinds + (size_t)p * nsteps;
-  int* q0 = a.p0 + (size_t)p * nsteps;
-  int* q1 = a.p1 + (size_t)p * nsteps;
-  const unsigned le = FULL >> (31 - t);  // lanes 0 .. t
-  int ci = 0, cj = 0, h = 0;
-  for (int k0 = 0; k0 < nsteps; k0 += 32) {
-    const int k = k0 + t;
-    const int kind = k < steps ? kb[k] : 0;
-    const unsigned bi = __ballot_sync(FULL, kind == 1 || kind == 3);
-    const unsigned bj = __ballot_sync(FULL, kind == 1 || kind == 2);
-    const int i = len1 - ci - __popc(bi & le);
-    const int j = len2 - cj - __popc(bj & le);
-    if (k < nsteps) {
-      kr[k] = (int8_t)kind;
-      q0[k] = i;
-      q1[k] = j;
+  write_steps(a, p, tv, kb, steps, len1, len2, s1s, s2s, WR, t);
+  // ---- end of traceback ----
+}
+
+// ---- the wide body: G warps per pair, one pair per block ----
+template <bool SCALAR, bool HOMO>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    nw_batch_wide_kernel(const BatchArgs a, const RegLayout lay) {
+  using F = RegFill<WIDE_RPT, SCALAR, HOMO, true>;
+  using CT = typename F::CT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, g = tid >> 5, G = T >> 5;
+  const int p = blockIdx.x;
+  CT* s1s = (CT*)smem;
+  CT* s2s = (CT*)(smem + lay.s2);
+  unsigned char* kb = smem + lay.kb;
+  int* off = (int*)(smem + lay.off);
+  int* ex = (int*)(smem + lay.ex);
+  unsigned* slab = a.slab + (size_t)p * a.slab_words;
+  const int len1 = a.len1[p], len2 = a.len2[p];
+  int lband, rband;
+  pair_band(a, len1, len2, lband, rband);
+  const int OOB = (SCALAR && a.band >= 0) ? OOB_SCALAR : NEG;
+
+  // ---- staging: s1 and s2 with their guard elements, tvec, the exchange
+  // buffer at the out-of-band value ----
+  int8_t* tv = a.tvec + (size_t)p * a.L2;
+  stage_pair<CT, HOMO>(a, p, len1, len2, lay.wr, s1s, s2s, tv, tid, T);
+  for (int x = tid; x < 4 * (G + 2); x += T) ex[x] = OOB;
+  if (tid == 0) slab_offsets(lay, a.W, off);
+  pair_sync(T);
+
+  // ---- fill: diagonals 1 .. len1 + len2, one barrier each ----
+  F f;
+  f.s1s = s1s;
+  f.s2s = s2s;
+  f.slab = slab;
+  f.off = off;
+  f.wr = lay.wr;
+  f.row0 = g * 32 * WIDE_RPT;
+  f.exw = ex + 2 * (g + 1);
+  f.exs = 2 * (G + 2);
+  f.nthreads = T;
+  fill_pair(f, a, len1, len2, lband, rband, tid, lane);
+  pair_sync(T);  // every warp's slab words are written
+  // ---- end of fill ----
+  if (g != 0) return;
+
+  // ---- traceback: warp 0 walks the pointers as one warp, then writes the
+  // rows ----
+  // The window of a group of sixteen diagonals: lane l holds its words at
+  // rows c - 31 + l and c + 1 + l (0 outside the group's rows). Entered at
+  // row rr0, a group's cells lie within rr0 +- 15 (at most 16 steps, each
+  // moving the row by at most one), and the next group's within rr0 +- 31,
+  // so the window centred at the entry row of group q serves group q - 1.
+  const int nsteps = a.L1 + a.L2;
+  int i = len1, j = len2, steps = 0, cq = -1, c = 0, nc = 0;
+  unsigned wa = 0u, wb = 0u, na = 0u, nb = 0u;
+  auto window = [&](const int q, const int cen, unsigned& x, unsigned& y) {
+    x = y = 0u;
+    if (q < 0) return;
+    const int base = off[q], rows = off[q + 1] - base;
+    const int r0 = cen - 31 + lane, r1 = cen + 1 + lane;
+    if ((unsigned)r0 < (unsigned)rows) x = slab[base + r0];
+    if ((unsigned)r1 < (unsigned)rows) y = slab[base + r1];
+  };
+  while (steps < nsteps && (i | j)) {
+    const int dd = i + j;
+    const int rr = i - f.lo(dd);
+    if ((dd >> 4) != cq) {  // a new group: its window, and the next one's
+      if (cq < 0) {
+        window(dd >> 4, rr, wa, wb);
+        c = rr;
+      } else {
+        wa = na;
+        wb = nb;
+        c = nc;
+      }
+      cq = dd >> 4;
+      window(cq - 1, rr, na, nb);
+      nc = rr;
     }
-    if (kind == 1) {  // a diagonal step: (i, j) is the aligned column
-      const int nt0 = code_of(s1s[i + 1]), nt1 = code_of(s2s[j + WR]);
-      h += nt0 != nt1;
-      tv[j] = (int8_t)(4 * nt0 + nt1);
-    }
-    ci += __popc(bi);
-    cj += __popc(bj);
+    const int k = rr - c + 31;
+    unsigned wd = __shfl_sync(FULL, k < 32 ? wa : wb, k & 31);
+    // a cell outside the band (i > hi(d); the other limits hold on the
+    // path) or outside the window has no pointer
+    if ((unsigned)k >= 64u || i > ((dd + lband) >> 1)) wd = 0u;
+    const int kind = (wd >> (2 * (dd & 15))) & 3;
+    if (kind == 0) break;  // no pointer here: stuck outside the window
+    if (lane == 0) kb[steps] = (unsigned char)kind;
+    ++steps;
+    i -= kind != 2;
+    j -= kind != 3;
   }
-  h = __reduce_add_sync(FULL, h);
-  if (t == 0) {
-    a.ham[p] = h;
-    a.ok[p] = len1 == ci && len2 == cj;
-  }
+  __syncwarp();
+  write_steps(a, p, tv, kb, steps, len1, len2, s1s, s2s, lay.wr, lane);
   // ---- end of traceback ----
 }
 
@@ -789,17 +1043,36 @@ extern "C" int nw_batch_block_route(int L1, int L2, int nd, int W, int homo) {
 
 // Which body of kernel B4 serves a batch geometry: 3 the register body
 // (windows of up to REG_W_MAX rows whose warp's shared memory fits one
-// block), else the one-block-per-pair body's route (nw_batch_block_route:
-// 1, 2, or 0 where neither fits). This is the one place that decides the
+// block); else, for windows of up to WIDE_W_MAX rows, 4 the wide body (its
+// pointers in a device-memory slab of nw_batch_wide_slab_words words a
+// pair); else the one-block-per-pair body's route (nw_batch_block_route:
+// 1, 2, or 0 where nothing fits). This is the one place that decides the
 // fit.
 extern "C" int nw_batch_route(int L1, int L2, int nd, int W, int homo) {
   if (L1 < 1 || L2 < 1 || nd < 1 || W < 1) return 0;
   if (W <= REG_W_MAX && reg_layout(L1, L2, nd, W, homo).stride <= SMEM_MAX)
     return 3;
+  if (W <= WIDE_W_MAX &&
+      reg_layout(L1, L2, nd, W, homo, true).stride <= SMEM_MAX)
+    return 4;
   return nw_batch_block_route(L1, L2, nd, W, homo);
 }
 
-// Rows per thread of the register body at windows of up to W rows.
+// 32-bit words of one pair's pointer slab in the register and wide bodies
+// (the groups of sixteen diagonals' rows, see group_rows): what the wrapper
+// allocates a pair for route 4.
+extern "C" int nw_batch_wide_slab_words(int nd, int W) {
+  if (nd < 1 || W < 1) return 0;
+  return reg_layout(1, 1, nd, W, false, true).words;
+}
+
+// Warps per pair at windows of up to W rows: 1 in the register body, G in
+// the wide body.
+extern "C" int nw_batch_warps(int W) {
+  return W <= REG_W_MAX ? 1 : wide_warps(W);
+}
+
+// Rows per thread of the register and wide bodies at windows of up to W rows.
 extern "C" int nw_batch_reg_rpt(int W) { return reg_rpt(W); }
 
 template <int RPT>
@@ -849,11 +1122,13 @@ static int reg_blocks_per_sm(int L1, int L2, int nd, int W, int scalar,
 // on a tie the smaller (the warps of a block are independent, but a block
 // holds its resources until its last pair is done); a P is considered
 // only if the grid still gives every SM two blocks (P = 1 always is). 0 if
-// not even one pair fits.
+// not even one pair fits. The wide body's is 1.
 extern "C" int nw_batch_pairs_per_block(int L1, int L2, int nd, int W,
                                         int scalar, int homo, int n) {
   int dev = 0, nsm = 0;
-  if (nw_batch_route(L1, L2, nd, W, homo) != 3 ||
+  const int r = nw_batch_route(L1, L2, nd, W, homo);
+  if (r == 4) return 1;  // the wide body: a block is one pair
+  if (r != 3 ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
@@ -897,6 +1172,32 @@ static int launch_reg_mode(const BatchArgs& a, int n, int nd, int P,
   return launch_reg<RPT, true, false>(a, n, nd, P, s);
 }
 
+template <bool SCALAR, bool HOMO>
+static int launch_wide(const BatchArgs& a, int n, int nd,
+                       cudaStream_t stream) {
+  const RegLayout lay = reg_layout(a.L1, a.L2, nd, a.W, HOMO, true);
+  const int G = wide_warps(a.W);
+  if (lay.stride > SMEM_MAX || a.W > WIDE_W_MAX || !a.slab ||
+      a.slab_words < lay.words)
+    return (int)cudaErrorInvalidValue;
+  if (lay.stride > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        nw_batch_wide_kernel<SCALAR, HOMO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, lay.stride);
+    if (e != cudaSuccess) return (int)e;
+  }
+  nw_batch_wide_kernel<SCALAR, HOMO>
+      <<<n, 32 * G, lay.stride, stream>>>(a, lay);
+  return (int)cudaGetLastError();
+}
+
+static int launch_wide_mode(const BatchArgs& a, int n, int nd, int scalar,
+                            int homo, cudaStream_t s) {
+  if (!scalar) return launch_wide<false, false>(a, n, nd, s);
+  if (homo) return launch_wide<true, true>(a, n, nd, s);
+  return launch_wide<true, false>(a, n, nd, s);
+}
+
 template <bool SCALAR, bool HOMO, bool GSLAB>
 static int launch(const BatchArgs& a, int n, int nd, cudaStream_t stream) {
   const BatchLayout lay = batch_layout(a.L1, a.L2, nd, a.W, HOMO, !GSLAB);
@@ -925,11 +1226,13 @@ static int launch_mode(const BatchArgs& a, int n, int nd, int scalar,
 }
 
 // Launches kernel B4 on `stream` for n pairs: route 3 the register body
-// (`ppb` pairs per block, see nw_batch_pairs_per_block; `slab` unused), 1
-// and 2 the one-block-per-pair body with the pointer slab in shared memory
-// (route 1; `slab` unused) or in `slab` (route 2, slab_words words per
-// pair). Route 3 is taken where nw_batch_route says 3, routes 1 and 2
-// where nw_batch_block_route fits them. Returns cudaGetLastError() after
+// (`ppb` pairs per block, see nw_batch_pairs_per_block; `slab` unused), 4
+// the wide body with the pointer slab in `slab` (slab_words words per
+// pair, at least nw_batch_wide_slab_words), 1 and 2 the one-block-per-pair
+// body with the pointer slab in shared memory (route 1; `slab` unused) or
+// in `slab` (route 2, slab_words words per pair). Routes 3 and 4 are taken
+// where nw_batch_route says so, routes 1 and 2 where nw_batch_block_route
+// fits them. Returns cudaGetLastError() after
 // the launch (0 = launched), or cudaErrorInvalidValue for a route that
 // does not fit, a missing slab, a `ppb` that does not fit one block or
 // homopolymer masks outside the scalar aligner.
@@ -963,6 +1266,11 @@ extern "C" int nw_batch_run(const int8_t* s1, const int* len1,
       default:
         return launch_reg_mode<8>(a, n, nd, ppb, scalar, homo, s);
     }
+  }
+  if (route == 4) {
+    if (nw_batch_route(L1, L2, nd, W, homo) != 4)
+      return (int)cudaErrorInvalidValue;
+    return launch_wide_mode(a, n, nd, scalar, homo, s);
   }
   const int fit = nw_batch_block_route(L1, L2, nd, W, homo);
   if (route < 1 || route > 2 || fit == 0 || (route == 2 && !slab) ||

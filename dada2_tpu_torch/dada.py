@@ -399,32 +399,41 @@ def dada(
 
         if pseudo and nconsist >= 1:
             # prior selection by the prevalence/abundance thresholds the
-            # sequence table would apply (R/dada.R:399-401); only the
-            # set of priors matters downstream. Across processes every
-            # process's per-sample (ASV sequence, abundance) summaries
-            # are allgathered first: identical prior sets everywhere.
-            summaries = [(list(cl["sequence"]), cl["abundance"].to_numpy())
-                         for cl in clustering]
+            # sequence table applies (R/dada.R:399-401)
             if multihost:
+                # across processes: allgather every process's per-sample
+                # (ASV sequence, abundance) summaries, so that every
+                # process selects the same priors in the same order
+                # (first encounter)
                 from .parallel.dist import gather_sample_summaries
 
-                summaries = [
-                    (seqs_g, ab_g) for _, _, seqs_g, ab_g, _ in
-                    gather_sample_summaries(
-                        [((my_rank << 32) + k, f"p{my_rank}s{k}", seqs, ab,
-                          None)
-                         for k, (seqs, ab) in enumerate(summaries)])]
-            tot: dict = {}
-            nsam: dict = {}
-            for seqs_g, ab_g in summaries:
-                for s, a in zip(seqs_g, ab_g):
-                    tot[s] = tot.get(s, 0) + int(a)
-                    if a > 0:
-                        nsam[s] = nsam.get(s, 0) + 1
-            pseudo_priors = [
-                s for s in tot
-                if nsam.get(s, 0) >= opts.PSEUDO_PREVALENCE
-                or tot[s] >= opts.PSEUDO_ABUNDANCE]
+                gathered = gather_sample_summaries(
+                    [((my_rank << 32) + k, f"p{my_rank}s{k}",
+                      list(cl["sequence"]), cl["abundance"].to_numpy(), None)
+                     for k, cl in enumerate(clustering)])
+                tot: dict = {}
+                nsam: dict = {}
+                for _, _, seqs_g, ab_g, _ in gathered:
+                    for s, a in zip(seqs_g, ab_g):
+                        tot[s] = tot.get(s, 0) + int(a)
+                        if a > 0:
+                            nsam[s] = nsam.get(s, 0) + 1
+                pseudo_priors = [
+                    s for s in tot
+                    if nsam.get(s, 0) >= opts.PSEUDO_PREVALENCE
+                    or tot[s] >= opts.PSEUDO_ABUNDANCE]
+            else:
+                # one process: the sequence table's columns, in its order
+                # (decreasing total abundance), as the checkpoint keeps them
+                from .seqtab import make_sequence_table
+
+                st = make_sequence_table({str(k): clustering[k]
+                                          for k in range(len(clustering))})
+                prevalence = (st.values > 0).sum(axis=0)
+                totals = st.values.sum(axis=0)
+                keep = ((prevalence >= opts.PSEUDO_PREVALENCE)
+                        | (totals >= opts.PSEUDO_ABUNDANCE))
+                pseudo_priors = [c for c, k in zip(st.columns, keep) if k]
 
         nconsist += 1
         if checkpoint is not None and selfConsist:

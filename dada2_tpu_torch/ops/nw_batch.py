@@ -24,14 +24,16 @@ lband = band + max(0, len1 - len2), rband = band + max(0, len2 - len1)
 hand-written Hopper kernel in csrc/nw_batch.cu (built with nvcc at first
 use, loaded through ctypes) and counts each launch in nw_batch.launches
 and, by the body that served it, in nw_batch.launches_by_body: "register"
-(one warp per pair, the window in registers; windows of up to 256 rows)
-or "block" (one block per pair; wider windows). The body is chosen from
-the batch's geometry before the launch (`route`). On CPU tensors it runs
-the plain PyTorch version, `nw_batch_ref` (which also runs on the card,
-as the kernel's yardstick for both bodies). There is no fallback between
-the two. Batches are cut into chunks so that the scratch one launch needs
-(the one-block-per-pair body's pointer slab in device memory, or the
-plain version's pointer and score tensors) stays under a byte budget.
+(one warp per pair, the window in registers; windows of up to 256 rows),
+"wide" (the register body's cells on ceil(W / 256) warps per pair;
+windows of 257 to 2,048 rows) or "block" (one block per pair; wider
+windows). The body is chosen from the batch's geometry before the launch
+(`route`). On CPU tensors it runs the plain PyTorch version,
+`nw_batch_ref` (which also runs on the card, as the kernel's yardstick for
+every body). There is no fallback between the two. Batches are cut into
+chunks so that the scratch one launch needs (the wide or one-block-per-pair
+body's pointer slab in device memory, or the plain version's pointer and
+score tensors) stays under a byte budget.
 
 batch_geometry, homo_mask_batch and steps_to_alignment are copies of the
 JAX package's host helpers.
@@ -54,9 +56,10 @@ PTR_NONE, PTR_DIAG, PTR_LEFT, PTR_UP = 0, 1, 2, 3
 OOB_BANDED_SCALAR = -9999   # the reference's band-boundary fill value
 MAX_BYTES = 1 << 30         # scratch budget of one launch (see nw_batch)
 # Checks' overrides, None in use: BODY "block" sends every launch to the
-# one-block-per-pair body wherever it fits (to hold both bodies against the
-# plain version on the same batches); PAIRS_PER_BLOCK sets the register
-# body's pairs per block (1..16; to run partial and full last blocks)
+# one-block-per-pair body wherever it fits (to hold it against the plain
+# version on the batches the other bodies serve); PAIRS_PER_BLOCK sets the
+# register body's pairs per block (1..16; to run partial and full last
+# blocks)
 BODY: Optional[str] = None
 PAIRS_PER_BLOCK: Optional[int] = None
 
@@ -126,9 +129,10 @@ def steps_to_alignment(kinds: np.ndarray, p0: np.ndarray, p1: np.ndarray,
 
 def build_kernel() -> str:
     """Build csrc/nw_batch.cu (the register body: rows per thread 1, 2, 4,
-    8 x vec, scalar and homopolymer aligners; the one-block-per-pair body:
-    the three aligners x pointer slab in shared or device memory) and
-    return its `-Xptxas -v` report."""
+    8 x vec, scalar and homopolymer aligners; the wide body: the three
+    aligners; the one-block-per-pair body: the three aligners x pointer
+    slab in shared or device memory) and return its `-Xptxas -v`
+    report."""
     return nww.build_library(_SRC, _SO, _PTXAS_LOG)
 
 
@@ -143,6 +147,8 @@ def _load():
             V, I = ctypes.c_void_p, ctypes.c_int
             for name, nargs in (("nw_batch_route", 5),
                                 ("nw_batch_block_route", 5),
+                                ("nw_batch_wide_slab_words", 2),
+                                ("nw_batch_warps", 1),
                                 ("nw_batch_reg_rpt", 1),
                                 ("nw_batch_pairs_per_block", 7)):
                 getattr(lib, name).restype = I
@@ -155,10 +161,11 @@ def _load():
 
 def route(L1: int, L2: int, nd: int, W: int, homo: bool) -> int:
     """Which body of kernel B4 serves this geometry: 3 the register body
-    (windows of up to 256 rows), else the one-block-per-pair body with a
-    pair's pointers in shared memory (1) or in a device-memory slab (2); 0
-    if neither fits one block. The fit lives in csrc/nw_batch.cu
-    (nw_batch_route); this asks the built library."""
+    (windows of up to 256 rows); 4 the wide body (windows of up to 2,048
+    rows; a pair's pointers in a device-memory slab); else the
+    one-block-per-pair body with them in shared memory (1) or in a
+    device-memory slab (2); 0 if nothing fits one block. The fit lives in
+    csrc/nw_batch.cu (nw_batch_route); this asks the built library."""
     return int(_load().nw_batch_route(L1, L2, nd, W, int(bool(homo))))
 
 
@@ -170,16 +177,23 @@ def block_route(L1: int, L2: int, nd: int, W: int, homo: bool) -> int:
 
 def body(r: int) -> str:
     """The name of the body that serves route r."""
-    return "register" if r == 3 else "block"
+    return {3: "register", 4: "wide"}.get(r, "block")
+
+
+def warps_per_pair(W: int) -> int:
+    """Warps a pair takes at windows of up to W rows: 1 in the register
+    body, ceil(W / 256) in the wide body (csrc/nw_batch.cu,
+    nw_batch_warps)."""
+    return int(_load().nw_batch_warps(W))
 
 
 def register_fit(L1: int, L2: int, nd: int, W: int, scalar: bool,
                  homo: bool, n: int):
     """(rows per thread, pairs per block) of the register body for a
-    launch of n pairs at this geometry on the current CUDA device; pairs
-    per block 0 if the geometry is not the register body's. The choice
-    lives in csrc/nw_batch.cu (nw_batch_pairs_per_block, from the CUDA
-    occupancy calculator)."""
+    launch of n pairs at this geometry on the current CUDA device, (8, 1)
+    where the wide body serves it (a block is one pair); pairs per block 0
+    if neither does. The choice lives in csrc/nw_batch.cu
+    (nw_batch_pairs_per_block, from the CUDA occupancy calculator)."""
     return _register_fit(torch.cuda.current_device(), L1, L2, nd, W,
                          int(bool(scalar)), int(bool(homo)), n)
 
@@ -193,10 +207,13 @@ def _register_fit(device: int, L1: int, L2: int, nd: int, W: int,
                                              n)))
 
 
-def slab_words(nd: int, W: int) -> int:
-    """32-bit words of one pair's device-memory pointer slab in the
-    one-block-per-pair body: two bit planes per group of 32 window rows,
-    per diagonal."""
+def slab_words(nd: int, W: int, r: int = 2) -> int:
+    """32-bit words of one pair's device-memory pointer slab on route r:
+    the one-block-per-pair body's (2: two bit planes per group of 32 window
+    rows, per diagonal) or the wide body's (4: a word per row a group of
+    sixteen diagonals can hold, nw_batch_wide_slab_words)."""
+    if r == 4:
+        return int(_load().nw_batch_wide_slab_words(nd, W))
     return nd * ((W + 31) // 32) * 2
 
 
@@ -308,9 +325,9 @@ def nw_batch(s1b, len1b, s2b, len2b, *, match, mismatch, gap_p,
     without a card); "cpu" runs the plain version. geometry: the static
     (nd, W) to align under, as dada2_tpu's _nw_batch_jit takes them
     (parallel/dist.py's compare step); by default batch_geometry's. On
-    CUDA the call launches kernel B4: the register body in one launch, or the
-    one-block-per-pair body in one launch per chunk (MAX_BYTES bounds its
-    device-memory pointer slab of one launch)."""
+    CUDA the call launches kernel B4: the register body in one launch, or
+    the wide or the one-block-per-pair body in one launch per chunk
+    (MAX_BYTES bounds their device-memory pointer slab of one launch)."""
     b = _prepare(s1b, len1b, s2b, len2b, match, mismatch, gap_p, end_gap_p,
                  band, mode, homo_gap_p, homo1b, homo2b, device, geometry)
     if b.dev.type == "cpu":
@@ -333,7 +350,7 @@ def _launch(b: _Batch):
         use_homo = h1 is not None
         scalar = b.mode == "scalar"
         r = route(L1, L2, b.nd, b.W, use_homo)
-        if BODY == "block" and r == 3:
+        if BODY == "block" and r in (3, 4):
             r = block_route(L1, L2, b.nd, b.W, use_homo)
         if r == 0:
             raise ValueError(f"window of {b.W} rows (sequences of {L1} and "
@@ -343,10 +360,11 @@ def _launch(b: _Batch):
         if r == 3:
             ppb = PAIRS_PER_BLOCK or register_fit(L1, L2, b.nd, b.W, scalar,
                                                   use_homo, n)[1]
-        words = slab_words(b.nd, b.W) if r == 2 else 0
-        chunk = n if r != 2 else max(1, MAX_BYTES // (4 * words))
+        gslab = r in (2, 4)   # the pointer slab in device memory
+        words = slab_words(b.nd, b.W, r) if gslab else 0
+        chunk = max(1, MAX_BYTES // (4 * words)) if gslab else n
         slab = (torch.empty(min(chunk, n) * words, dtype=torch.int32,
-                            device=b.dev) if r == 2 else None)
+                            device=b.dev) if gslab else None)
         stream = torch.cuda.current_stream(b.dev).cuda_stream
         lib = _load()
         sc = b.scal
@@ -372,7 +390,7 @@ def _launch(b: _Batch):
 
 
 nw_batch.launches = 0
-nw_batch.launches_by_body = {"register": 0, "block": 0}
+nw_batch.launches_by_body = {"register": 0, "wide": 0, "block": 0}
 _count_lock = threading.Lock()
 
 

@@ -22,7 +22,8 @@ every kernel instantiation:
     VIADDMNMX, IMNMX); for a fill loop with shuffles, its instructions
     per diagonal (the wavefront kernel's fill shuffles once per row
     register and diagonal, WP / 32 registers; the batch aligner's register
-    body, nw_batch_reg_kernel, once per diagonal).
+    and wide bodies, nw_batch_reg_kernel and nw_batch_wide_kernel, once
+    per diagonal, the wide body with one BAR per diagonal).
 Needs nvcc and nvdisasm (CUDA toolkit), not a card. The cubin and the
 disassembly are kept in DIR (default build/sass).
 """
@@ -156,8 +157,8 @@ def report(src: str, regions, out_dir: str) -> int:
         ins = funcs[fn]
         rpt = re.search(r"ILi(\d)E", fn)
         rpt = int(rpt.group(1)) if rpt else 1
-        if "nw_batch_reg_kernel" in fn:  # one shuffle per diagonal
-            rpt = 1
+        if "nw_batch_reg_kernel" in fn or "nw_batch_wide_kernel" in fn:
+            rpt = 1  # one shuffle per diagonal
         print(f"{names[fn]}: {len(ins)} instructions; " + ", ".join(
             f"{sum(within(x[2], rng) for x in ins)} on the {name}'s lines"
             for name, rng in regions.items())

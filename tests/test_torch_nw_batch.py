@@ -175,6 +175,57 @@ def _shift_like(rng, n=6):
     return [(seqs[i], seqs[j]) for i in range(n) for j in range(i + 1, n)]
 
 
+def _wide_pairs(rng, L, n=3, nops=12, homo=False):
+    """n pairs of length L against an edited copy (indels and
+    substitutions; homopolymer runs planted if homo): windows of about
+    L + 1 rows, the wide body's above 256."""
+    out = []
+    for _ in range(n):
+        a = rng.integers(0, 4, L).astype(np.uint8)
+        if homo:
+            for _ in range(L // 40):
+                p = int(rng.integers(0, L - 8))
+                a[p: p + int(rng.integers(3, 8))] = int(rng.integers(0, 4))
+        b = a.tolist()
+        for _ in range(nops):
+            p = int(rng.integers(0, len(b)))
+            op = rng.random()
+            if op < 0.5:
+                b[p] = int(rng.integers(0, 4))
+            elif op < 0.75:
+                del b[p]
+            else:
+                b.insert(p, int(rng.integers(0, 4)))
+        out.append((a, np.array(b, np.uint8)))
+    return out
+
+
+def _banded_wide(rng):
+    """Pairs whose lengths differ by 300 or more: at band 140 the window
+    (lband + rband) / 2 + 2 reaches 301 rows, where lo(d) takes the
+    ceiling of (d - rband) / 2 on the wide body's rows."""
+    a = rng.integers(0, 4, 620).astype(np.uint8)
+    return [(rng.integers(0, 4, 600).astype(np.uint8),
+             rng.integers(0, 4, 300).astype(np.uint8)),
+            (a, a[150:450].copy()), (a[100:400].copy(), a)]
+
+
+def _mixed_windows(rng):
+    """One batch whose pairs' windows differ: two over 256 rows (the
+    batch's window), narrow ones and pairs of length 0 and 1."""
+    return (_wide_pairs(rng, 380, n=2) + _wide_pairs(rng, 40, n=2)
+            + _short_pairs())
+
+
+def _long_short(rng):
+    """len1 much longer than len2 (and the reverse): the window is
+    min + 1 rows, while i spans len1 + 1."""
+    a = rng.integers(0, 4, 700).astype(np.uint8)
+    return [(a, a[200:490].copy()), (a[300:600].copy(), a),
+            (rng.integers(0, 4, 650).astype(np.uint8),
+             rng.integers(0, 4, 280).astype(np.uint8))]
+
+
 MERGE_KW = dict(match=1, mismatch=-64, gap_p=-64, band=-1, mode="scalar")
 SHIFT_KW = dict(match=5, mismatch=-4, gap_p=-8, band=-1, mode="scalar")
 SC5 = dict(match=5, mismatch=-4, gap_p=-8)
@@ -197,14 +248,31 @@ BODY_CASES = {
         dict(SC5, band=4, mode="scalar", homo_gap_p=-1)),
     "merge-like": (_merge_like, MERGE_KW),
     "shift-like": (_shift_like, SHIFT_KW),
+    # the wide body's geometries (windows of 257 to 2,048 rows)
+    "W300": (lambda rng: _window_pairs(rng, 300), MERGE_KW),
+    "W513": (lambda rng: _window_pairs(rng, 513), SHIFT_KW),
+    "wide band 140": (_banded_wide, dict(SC5, band=140)),
+    "wide band 140 scalar": (_banded_wide, dict(SC5, band=140,
+                                                mode="scalar")),
+    "wide vec ends-free": (lambda rng: _wide_pairs(rng, 300),
+                           dict(SC5, band=-1)),
+    "wide vec end gaps -8": (lambda rng: _wide_pairs(rng, 300),
+                             dict(SC5, band=-1, end_gap_p=-8)),
+    "wide scalar homopolymer -1": (
+        lambda rng: _wide_pairs(rng, 300, homo=True),
+        dict(SC5, band=-1, mode="scalar", homo_gap_p=-1)),
+    "wide mixed windows": (_mixed_windows, MERGE_KW),
+    "wide len1 >> len2": (_long_short, SHIFT_KW),
 }
 
 
 @pytest.mark.parametrize("case", sorted(BODY_CASES))
 def test_window_tiers_short_pairs_and_slice_shapes(case):
     """The geometries that choose kernel B4's body and its register tier,
-    pairs of length 0 and 1, and small merge- and shift-like unbanded
-    scalar batches: the plain version against the JAX aligner, exact."""
+    pairs of length 0 and 1, small merge- and shift-like unbanded scalar
+    batches, and the wide body's windows (over 256 rows in every aligner,
+    banded, mixed, one sequence much longer): the plain version against
+    the JAX aligner, exact."""
     gen, kw = BODY_CASES[case]
     _assert_equal_to_jax(gen(np.random.default_rng(len(case))), **kw)
 
@@ -272,11 +340,11 @@ def test_wrapper_checks_and_no_launch_on_cpu():
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card(monkeypatch):
     """Kernel B4 against its plain version on the card, bitwise, in every
-    aligner, banded and unbanded, through both bodies (the register body
-    and, forced, the one-block-per-pair body with the pointer slab in
-    shared memory and, for long unbanded pairs, in device memory), chunked
+    aligner, banded and unbanded, through the register body and, forced,
+    the one-block-per-pair body (pointer slab in shared memory), chunked
     and not; windows of 256 and 257 rows take the register body and the
-    one-block-per-pair body."""
+    wide body; long unbanded pairs take the wide body's device-memory
+    slab. tests/test_torch_nw_batch_wide.py holds the wide body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run through chip_smoke.py)")
     rng = np.random.default_rng(17)
@@ -302,7 +370,7 @@ def test_kernel_matches_plain_on_card(monkeypatch):
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (kw, body)
         monkeypatch.undo()
-    for W, route in ((256, 3), (257, 1)):
+    for W, route in ((256, 3), (257, 4)):
         args = [torch.from_numpy(a).cuda()
                 for a in _pack(_window_pairs(rng, W))]
         nd, Wb = tnb.batch_geometry(args[1].cpu().numpy(),
@@ -321,7 +389,7 @@ def test_kernel_matches_plain_on_card(monkeypatch):
     args = [torch.from_numpy(a).cuda() for a in
             (long, np.full(4, 1500), long[::-1].copy(), np.full(4, 1500))]
     nd, W = tnb.batch_geometry(np.full(4, 1500), np.full(4, 1500), -1)
-    assert tnb.route(1500, 1500, nd, W, False) == 2
+    assert tnb.route(1500, 1500, nd, W, False) == 4
     got = tnb.nw_batch(*args, match=1, mismatch=-64, gap_p=-64,
                        mode="scalar")
     want = tnb.nw_batch_ref(*args, match=1, mismatch=-64, gap_p=-64,

@@ -104,3 +104,49 @@ def test_pool_and_pseudo_equal(extdata, pool):
         pd.testing.assert_frame_equal(a.clustering, b.clustering)
         np.testing.assert_array_equal(a.map, b.map)
         pd.testing.assert_frame_equal(a.birth_subs, b.birth_subs)
+
+
+def test_pseudo_checkpoint_equal_and_resumable(extdata, tmp_path):
+    """pool="pseudo" with selfConsist and checkpoint= in one process: both
+    packages write the same .npz, array by array (pseudo_priors in the
+    sequence table's column order, decreasing total abundance), and each
+    package resumes from the other's file to the same result."""
+    def subsets(pkg):
+        out = {}
+        for name in ("sam1F.fastq.gz", "sam2F.fastq.gz"):
+            full = dj.derep_fastq(str(extdata / name))
+            seqs = full.sequences[:120]
+            out[name] = pkg.Derep(
+                uniques={s: int(full.uniques[s]) for s in seqs},
+                quals=full.quals[:120].copy(), map=np.zeros(0, np.int64),
+                name=name)
+        return out
+
+    kw = dict(err=None, selfConsist=True, pool="pseudo", MAX_CONSIST=2,
+              verbose=False)
+    ck_j, ck_t = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    dj.dada(subsets(dj), checkpoint=ck_j, **kw)
+    dt.dada(subsets(dt), checkpoint=ck_t, device="cpu", **kw)
+    a, b = np.load(ck_j, allow_pickle=True), np.load(ck_t, allow_pickle=True)
+    assert sorted(a.files) == sorted(b.files) == [
+        "err", "history", "nconsist", "pseudo_priors"]
+    for name in a.files:
+        assert a[name].dtype == b[name].dtype, name
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+    assert len(a["pseudo_priors"]) > 1
+    # each resumes from the other's file (a resumed run rewrites it)
+    (tmp_path / "for_j.npz").write_bytes((tmp_path / "t.npz").read_bytes())
+    (tmp_path / "for_t.npz").write_bytes((tmp_path / "j.npz").read_bytes())
+    res_j = dj.dada(subsets(dj), checkpoint=str(tmp_path / "for_j.npz"),
+                    **kw)
+    res_t = dt.dada(subsets(dt), checkpoint=str(tmp_path / "for_t.npz"),
+                    device="cpu", **kw)
+    assert list(res_j) == list(res_t)
+    for name in res_j:
+        np.testing.assert_array_equal(res_j[name].err_out,
+                                      res_t[name].err_out)
+        pd.testing.assert_frame_equal(res_j[name].clustering,
+                                      res_t[name].clustering)
+        np.testing.assert_array_equal(res_j[name].map, res_t[name].map)
+        pd.testing.assert_frame_equal(res_j[name].birth_subs,
+                                      res_t[name].birth_subs)
