@@ -6,9 +6,10 @@ Phases (any failure exits non-zero and prints no result line):
   1. device  — a CUDA card must be present; prints its nvidia-smi name and
                power limit;
   2. build   — builds the three kernel sources with nvcc from the checkout,
-               one nvcc each, started together: csrc/nw_wavefront.cu (B1's
-               nw_compare_kernel and the B2, B3, B2 stats body x windows of
-               32..128 rows, sixteen instantiations) and csrc/nw_batch.cu
+               one nvcc each, started together: csrc/nw_wavefront.cu
+               (nw_compare_kernel for B1 and B3, and the B2, B2 stats body
+               x windows of 32..128 rows, sixteen instantiations) and
+               csrc/nw_batch.cu
                (kernel B4: the register body, 4 row tiers x vec, scalar
                and homopolymer aligners; the wide body, the three
                aligners; the one-block-per-pair body, the three aligners
@@ -30,7 +31,10 @@ Phases (any failure exits non-zero and prints no result line):
                32/64/96/128 rows, several blocks of different query
                lengths, lengths near 250, and one PacBio full-length 16S
                set (len ~1450: NDP 3072, L1R 1664); every output bitwise
-               equal;
+               equal; B3 also at every pairs per block P that fits, and
+               on a lane whose geometry fails, a short center against
+               candidates of length 0, 1 and 2, and a window cut below
+               its band's (tracebacks stuck);
   4. small   — derep_fastq(sam1F) -> dada(err=tperr1()) on the card and on
                the CPU: clustering, map, pval, birth_subs, trans identical,
                the init compare through B5's full mode (its launches
@@ -51,7 +55,10 @@ Phases (any failure exits non-zero and prints no result line):
                three methods, on the card and on the CPU: identical;
   8. grouped — nw_wavefront_grouped (kernel B3's path): one sam1F center
                against every unique on the card and on the CPU, identical,
-               with B3's launches counted; then B3's time at those shapes;
+               with B3's launches counted; then B3's time (CUDA events),
+               P, blocks per SM and bound at those shapes (every P that
+               fits timed), at phase 5's B1 shape and at samPB's geometry
+               (BAND_SIZE 32), each bitwise equal to its plain version;
   9. chimera — the consensus chimera check at real size (the JAX package's
                bench_chimera.py fixture: 5000 ASVs x 20 samples, L = 250,
                seed 7; 7,114,790 query-parent pairs): is_bimera_denovo_table
@@ -370,6 +377,20 @@ def fuzz_case(rng, nww, len1, ncand, nops, band, wp, uniform):
     return (scal, params, s1t, s2q), geom
 
 
+def b3_inputs(nww, s1, cands, band, wp):
+    """Kernel B3's inputs for one center against candidates as
+    nw_wavefront_grouped lays them out, with the window given as wp rows
+    (which may be narrower than the band needs)."""
+    import numpy as np
+
+    s2b = np.full((len(cands), max(len(c) for c in cands)), 255, np.uint8)
+    l2b = np.array([len(c) for c in cands], np.int64)
+    for k, c in enumerate(cands):
+        s2b[k, : len(c)] = c
+    _, arrays, geom = nww.grouped_inputs(s1, len(s1), s2b, l2b, band)
+    return arrays, dict(geom, WP=wp, match=5, mismatch=-4, gap_p=-8)
+
+
 def pairs_case(rng, nww, blocks, band, wp):
     """Kernel B2 inputs: one block per (len1, npairs, nops, uniform) entry,
     each lane its own random query of length len1 against a mutated copy;
@@ -437,14 +458,15 @@ def b1_bucket_inputs(nww, be, opts, dev, center=0):
     return args, geom, scal[sel], params[sel]
 
 
-def ptxas_registers(ptxas, kernel):
+def ptxas_registers(ptxas, kernel, tail=""):
     """{rows per thread: registers} of one kernel's instantiations in an
-    `-Xptxas -v` report."""
+    `-Xptxas -v` report (tail: the mangled template arguments after the
+    rows per thread, e.g. "Lb1E" for nw_compare_kernel's B3 variant)."""
     import re
 
     regs = {}
     for chunk in ptxas.split("Compiling entry function")[1:]:
-        m = re.search(kernel + r"ILi(\d)E", chunk)
+        m = re.search(kernel + r"ILi(\d)E" + tail, chunk)
         r = re.search(r"Used (\d+) registers", chunk)
         if m and r and int(m.group(1)) not in regs:
             regs[int(m.group(1))] = int(r.group(1))
@@ -658,6 +680,30 @@ def same_result(a, b, what):
     np.testing.assert_array_equal(a.map, b.map, err_msg=what)
     np.testing.assert_array_equal(a.pval, b.pval, err_msg=what)
     np.testing.assert_array_equal(a.trans, b.trans, err_msg=what)
+
+
+def b3_every_p(nww, t, want, geom, reps=0):
+    """Kernel B3 on card tensors t at every pairs per block P that fits
+    (nww.PAIRS_PER_BLOCK forced, restored after), each against the plain
+    outputs `want`; returns {P: (max |kernel - plain|, ms or None)}, the
+    ms from CUDA events over reps launches if reps."""
+    import torch
+
+    out = {}
+    g = dict(geom, emit_kinds=True)
+    try:
+        for P in (1, 2, 4, 8, 16, 32):
+            if nww.compare_blocks_per_sm(geom["L1R"], geom["L2R"],
+                                         geom["NDP"], geom["WP"], P, 3) == 0:
+                continue
+            nww.PAIRS_PER_BLOCK = P
+            got = nww.nw_wavefront(*t, **g)
+            torch.cuda.synchronize()
+            out[P] = (max_abs_diff(got, want), cuda_ms(
+                lambda: nww.nw_wavefront(*t, **g), reps) if reps else None)
+    finally:
+        nww.PAIRS_PER_BLOCK = None
+    return out
 
 
 def kernel_vs_plain(nww, dev, arrays, geom, emit, per_block):
@@ -3359,8 +3405,9 @@ def main() -> None:
     ptxas = reports["nw_wavefront.cu"]
     entries = ptxas.count("Compiling entry function")
     if entries != 16:
-        fail(f"expected 16 kernel instantiations (4 windows x B1's kernel "
-             f"and three modes of the other body), ptxas compiled {entries}")
+        fail(f"expected 16 kernel instantiations (4 windows x B1's and B3's "
+             f"kernel and B2's and B2 stats' body), ptxas compiled "
+             f"{entries}")
     entries = reports["nw_batch.cu"].count("Compiling entry function")
     if entries != 21:
         fail(f"expected 21 instantiations of kernel B4 (the register body: "
@@ -3373,21 +3420,23 @@ def main() -> None:
              f"tiles and bits; the slot packer's follow-up, tiles and bits, "
              f"and gather mode; the small pack alone; the full mode, "
              f"screened and not), ptxas compiled {entries}")
-    b1_regs = ptxas_registers(ptxas, "nw_compare_kernel")
-    if sorted(b1_regs) != [1, 2, 3, 4]:
-        fail(f"B1's four instantiations not found in the ptxas report: "
-             f"{b1_regs}")
+    b1_regs = ptxas_registers(ptxas, "nw_compare_kernel", "Lb0E")
+    b3_regs = ptxas_registers(ptxas, "nw_compare_kernel", "Lb1E")
+    if sorted(b1_regs) != [1, 2, 3, 4] or sorted(b3_regs) != [1, 2, 3, 4]:
+        fail(f"B1's and B3's four instantiations not found in the ptxas "
+             f"report: {b1_regs}, {b3_regs}")
+    log(f"[build] registers by rows per thread: B1 {b1_regs}, B3 {b3_regs}")
 
-    def b1_fit(geom, nb):
-        """B1's pairs per block for a launch, its blocks per SM and the
-        instantiation's registers, as printed on the [kernel]/[time]
-        lines."""
+    def b1_fit(geom, nb, mode=1):
+        """B1's (mode 3: B3's) pairs per block for a launch, its blocks per
+        SM and the instantiation's registers, as printed on the
+        [kernel]/[time] lines."""
         P = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"],
-                                geom["WP"], 1, nb)
+                                geom["WP"], mode, nb)
         bps = nww.compare_blocks_per_sm(geom["L1R"], geom["L2R"],
-                                        geom["NDP"], geom["WP"], P)
-        return (f"P={P} pairs/block, {bps} blocks/SM, "
-                f"{b1_regs[geom['WP'] // 32]} registers"), P
+                                        geom["NDP"], geom["WP"], P, mode)
+        regs = (b1_regs if mode == 1 else b3_regs)[geom["WP"] // 32]
+        return f"P={P} pairs/block, {bps} blocks/SM, {regs} registers", P
 
     mark("3 B1")
     # 3. kernel B1 against its plain version, bitwise
@@ -3478,19 +3527,54 @@ def main() -> None:
         if err != 0 or not ok_tb or err_s != 0:
             fail(f"kernel B2 disagrees with its plain version (WP={wp})")
     kinds_cases = cases + [(1450, 200, 30, 16, 64, False)]
+    b3_ps = set()
     for len1, ncand, nops, band, wp, uniform in kinds_cases:
         arrays, geom = fuzz_case(rng, nww, len1, ncand, nops, band, wp,
                                  uniform)
-        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp,
-                                  3)
-        err, ok_tb, _, _ = kernel_vs_plain(nww, dev, arrays, geom, True,
-                                           False)
+        err, ok_tb, t, want = kernel_vs_plain(nww, dev, arrays, geom, True,
+                                              False)
+        every = b3_every_p(nww, t, want, geom)
+        b3_ps.update(every)
+        err = max([err] + [e for e, _ in every.values()])
         err_b["B3"] = max(err_b["B3"], err)
         log(f"[modes] B3 len1={len1} blocks={arrays[0].shape[0]} WP={wp} "
-            f"NDP={geom['NDP']} pairs/block={ppb}: max |kernel - plain| = "
-            f"{err}, tracebacks complete: {ok_tb}")
+            f"NDP={geom['NDP']} {b1_fit(geom, arrays[0].shape[0], 3)[0]}, "
+            f"also P={sorted(every)}: max |kernel - plain| = {err}, "
+            f"tracebacks complete: {ok_tb}")
         if err != 0 or not ok_tb:
             fail(f"kernel B3 disagrees with its plain version (WP={wp})")
+    # B3 where tracebacks do not complete or lengths are 0 and 1: a lane
+    # with len2 > len2max, a 40-nt center against candidates of length 0,
+    # 1 and 2, and candidates cut short by up to 294 nt under a window of
+    # WP rows (the band needs about 170: tracebacks get stuck)
+    s_cut = rng.integers(0, 4, 400).astype(np.uint8)
+    cut = [s_cut[: 400 - k] for k in range(0, 300, 6)]
+    for wp in (32, 64, 96, 128):
+        fam, fgeom = fuzz_case(rng, nww, 250, 300, 8, 16, wp, False)
+        fam[1][0, 0, 5] = fam[0][0, 1] + 1
+        s1 = rng.integers(0, 4, 40).astype(np.uint8)
+        short = b3_inputs(nww, s1, [s1[:0], s1[:1], s1[3:5]] + [
+            mutate(rng, s1, 6, False) for _ in range(20)], 4, wp)
+        stuck = b3_inputs(nww, s_cut, cut, 16, wp)
+        for label, (arrays, geom), n_bad in (
+                ("failed-geometry lane", (fam, fgeom), 1),
+                ("lengths 0, 1, 2", short, 0),
+                ("window cut", stuck, -1)):
+            err, _, t, want = kernel_vs_plain(nww, dev, arrays, geom, True,
+                                              False)
+            every = b3_every_p(nww, t, want, geom)
+            b3_ps.update(every)
+            err = max([err] + [e for e, _ in every.values()])
+            err_b["B3"] = max(err_b["B3"], err)
+            end = want[3][:, :2]
+            bad = int(((end[:, 0] != 0) | (end[:, 1] != 0)).sum())
+            log(f"[modes] B3 {label} WP={wp} blocks={arrays[0].shape[0]} "
+                f"NDP={geom['NDP']}, P={sorted(every)}: max |kernel - "
+                f"plain| = {err}, {bad} lanes end != (0, 0)")
+            if err != 0 or (bad != n_bad if n_bad >= 0 else bad == 0):
+                fail(f"kernel B3 disagrees with its plain version or the "
+                     f"case is not what it says ({label}, WP={wp})")
+    log(f"[modes] B3 pairs per block covered: {sorted(b3_ps)}")
 
     mark("4 main small")
     # 4. main path, small: card against CPU, identical
@@ -3707,22 +3791,46 @@ def main() -> None:
     _, arrays, ggeom = nww.grouped_inputs(codes[0], int(lens[0]), codes,
                                           lens, 16)
     gargs = [torch.from_numpy(a).to(dev) for a in arrays]
-    gkw3 = dict(match=5, mismatch=-4, gap_p=-8, emit_kinds=True, **ggeom)
-    got = nww.nw_wavefront(*gargs, **gkw3)
-    want = nww.nw_wavefront_ref(*gargs, **gkw3)
-    err_b["B3"] = max(err_b["B3"], max_abs_diff(got, want))
-    ms = cuda_ms(lambda: nww.nw_wavefront(*gargs, **gkw3), 20)
-    plain_ms = cuda_ms(lambda: nww.nw_wavefront_ref(*gargs, **gkw3), 2)
-    bound_ms, bound_by, detail = bound(gargs, got, arrays[0], arrays[1])
-    log(f"[time] kernel B3 at {arrays[0].shape[0]} blocks, WP="
-        f"{ggeom['WP']}: {ms:.4f} ms, plain {plain_ms:.2f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({detail}); max |kernel - plain| "
-        f"= {err_b['B3']}; card {card}")
-    if err_b["B3"] != 0:
-        fail("kernel B3 disagrees with its plain version on the grouped "
-             "path's inputs")
-    rows["B3"] = dict(launches=n_b3, ms=ms, plain_ms=plain_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
+    g8 = dict(match=5, mismatch=-4, gap_p=-8, **ggeom)
+    # B3 at three shapes: phase 8's own (its every P timed too), phase 5's
+    # B1 bucket and samPB's at BAND_SIZE 32, each with kinds emitted
+    b3_timed = []
+    for label, a3, g3, sp in (
+            ("phase 8", gargs, g8, arrays[:2]),
+            ("phase 5's B1 shape", p5["b1_args"], p5["b1_geom"],
+             (p5["b1_args"][0].cpu().numpy(), p5["b1_args"][1].cpu().numpy())),
+            ("samPB", pb_args, pb_geom, (pb_scal, pb_params))):
+        kw3 = dict(g3, emit_kinds=True)
+        got = nww.nw_wavefront(*a3, **kw3)
+        want = nww.nw_wavefront_ref(*a3, **kw3)
+        e3 = max_abs_diff(got, want)
+        nb3 = a3[0].shape[0]
+        fit, P = b1_fit(g3, nb3, 3)
+        ms = cuda_ms(lambda: nww.nw_wavefront(*a3, **kw3), 20)
+        b3_ms, b3_by, detail = bound(a3, got, *sp)
+        every = b3_every_p(nww, a3, want, g3, 20) if label == "phase 8" \
+            else {}
+        e3 = max([e3] + [e for e, _ in every.values()])
+        err_b["B3"] = max(err_b["B3"], e3)
+        row = dict(shape=label, blocks=nb3, WP=g3["WP"], NDP=g3["NDP"],
+                   pairs_per_block=P, ms=ms, bound_ms=b3_ms, bound_by=b3_by,
+                   ms_by_p={p: m for p, (_, m) in every.items()})
+        if label == "phase 8":
+            row["plain_ms"] = cuda_ms(
+                lambda: nww.nw_wavefront_ref(*a3, **kw3), 2)
+        b3_timed.append(row)
+        log(f"[time] kernel B3 at {label} ({nb3} blocks, WP={g3['WP']}, "
+            f"NDP={g3['NDP']}, L1R={g3['L1R']}, {fit}): {ms:.4f} ms"
+            + (f", plain {row['plain_ms']:.2f} ms; by P " + ", ".join(
+                f"{p}: {m:.4f}" for p, m in row["ms_by_p"].items())
+               if every else "")
+            + f"; bound {b3_ms:.4f} ms by {b3_by} ({detail}); max |kernel "
+            f"- plain| = {e3}; card {card}")
+        if e3 != 0:
+            fail(f"kernel B3 disagrees with its plain version at {label}")
+    top = b3_timed[0]
+    rows["B3"] = dict(launches=n_b3, timed=b3_timed, **{k: top[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "pairs_per_block")})
 
     mark("9 chimera table")
     # 9. the consensus chimera check at real size
@@ -3880,10 +3988,10 @@ def main() -> None:
         names = list(by_name)
         scans = [n for n in names
                  if "tensor_kernel_scan_innermost_dim" in n]
-        cls_k = [n for n in names if "nw_wavefront_kernel" in n
-                 and ", true, 2>" in n]
-        stats_k = [n for n in names if "nw_wavefront_kernel" in n
-                   and ", true, 3>" in n]
+        cls_k = [n for n in names
+                 if re.search(r"nw_wavefront_kernel<\d+, 2>", n)]
+        stats_k = [n for n in names
+                   if re.search(r"nw_wavefront_kernel<\d+, 3>", n)]
         log(f"[profile] table run: stats kernel {stats_k}, class-row "
             f"kernel {cls_k}, scan kernels {scans}")
         if scans or cls_k or not stats_k:

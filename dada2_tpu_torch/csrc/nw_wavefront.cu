@@ -1,6 +1,8 @@
 // Banded ends-free Needleman-Wunsch on the wavefront, for Hopper: one
-// fill (fill_pair) under two kernels, B1's nw_compare_kernel and one body
-// for the other three modes, chosen at compile time.
+// fill (fill_pair) under two kernels, chosen at compile time:
+// nw_compare_kernel<RPT, KINDS> serves B1 compare (KINDS false) and B3
+// kinds (KINDS true), nw_wavefront_kernel<RPT, EMIT> B2 pairs (EMIT_CLS)
+// and B2 stats (EMIT_STATS).
 //
 // Replaces the TPU kernel dada2_tpu/ops/nw_pallas.py::_make_kernel as
 // launched by _pallas_call (end_gap_p = 0) in its three modes:
@@ -85,14 +87,17 @@
 // bytes per pair, one funnel shift per cell) and never touch device
 // memory; the center and candidate columns are staged into shared memory
 // once, and the traceback runs from shared memory on one lane per pair.
-// B1 (nw_compare_kernel) holds up to 32 pairs per block and stages its
-// center once per block; after a block barrier lane p of warp 0 traces
-// pair p back, so one warp's instructions serve P tracebacks, and
+// B1 and B3 (nw_compare_kernel) hold up to 32 pairs per block and stage
+// their center once per block; after a block barrier lane p of warp 0
+// traces pair p back, so one warp's instructions serve P tracebacks, and
 // compare_pairs picks P from the geometry, the launch's size and the
-// card's occupancy. B2, B2 stats and B3 hold up to 4 pairs per block and
-// lane 0 of each pair's warp traces it back; they differ only in where the
-// s1 column is staged from and in what the traceback writes, so they are
-// template parameters of one body (nw_wavefront_kernel). In
+// card's occupancy of the instantiation at hand. B3 adds the kinds rows:
+// the prologue zeroes them (P consecutive lanes a row, beside sub and
+// mapq), and each traceback step stores its kind with one predicated
+// store at a pointer that follows d = i + j. B2 and B2 stats carry a
+// query per lane, hold up to 4 pairs per block and lane 0 of each pair's
+// warp traces it back; they differ only in what the traceback writes, so
+// they are template variants of one body (nw_wavefront_kernel). In
 // B2 stats the traceback writes each alignment column's class as one byte
 // into a per-pair column buffer in shared memory (from the end, so the m
 // columns lie in forward order at buf[NDP-m..NDP-1]) and the warp then
@@ -110,7 +115,7 @@
 #define SMEM_MAX 232448  // 227 KB: the most one block may use on sm_90
 #define FULL 0xffffffffu
 
-enum Emit { EMIT_KINDS = 1, EMIT_CLS = 2, EMIT_STATS = 3 };
+enum Emit { EMIT_CLS = 2, EMIT_STATS = 3 };
 
 struct Args {
   const int* scal;
@@ -407,7 +412,7 @@ __device__ __forceinline__ int one_side(const unsigned char* buf, int NDP,
   return q0;
 }
 
-template <int RPT, bool S1LANE, int EMIT>
+template <int RPT, int EMIT>
 __global__ void nw_wavefront_kernel(const Args a) {
   constexpr int WP = RPT * 32;
   constexpr bool STATS = EMIT == EMIT_STATS;
@@ -439,7 +444,7 @@ __global__ void nw_wavefront_kernel(const Args a) {
     int row = k / ppb, l = k % ppb;
     size_t g = ((size_t)b * L1R + row) * LANES + lane0 + l;
     CT* s1c = (CT*)(smem + (size_t)l * lay.bytes + lay.s1);
-    const int v = S1LANE ? a.s1[g] : a.s1[(size_t)row * LANES + lane0 + l];
+    const int v = a.s1[g];
     if (STATS) {
       // only equality with an nt code (0..3) matters here: any other
       // code becomes 4, which matches none
@@ -449,7 +454,7 @@ __global__ void nw_wavefront_kernel(const Args a) {
       s1c[row] = (CT)v;
     }
   }
-  if (EMIT == EMIT_KINDS || EMIT == EMIT_CLS) {
+  if (EMIT == EMIT_CLS) {
     for (int k = threadIdx.x; k < NDP * ppb; k += blockDim.x) {
       int row = k / ppb, l = k % ppb;
       a.kinds[((size_t)b * NDP + row) * LANES + lane0 + l] = 0;
@@ -503,21 +508,19 @@ __global__ void nw_wavefront_kernel(const Args a) {
   // ---- traceback from (len1, len2) ----
   // The cell in hand always lies on diagonal d = i + j (a diagonal step
   // skips one diagonal, on which the TPU kernel's loop idles and writes
-  // kind / class 0).
+  // class 0).
   if (!STATS && t != 0) return;
   int i = len1, j = l2, m = 0;
   if (t == 0) {
-    // row d of this lane's kinds / class column sits at emit[d * LANES]
-    int* emit = (EMIT == EMIT_KINDS || EMIT == EMIT_CLS)
-                    ? a.kinds + (size_t)b * NDP * LANES + lane
-                    : nullptr;
+    // row d of this lane's class column sits at emit[d * LANES]
+    int* emit =
+        EMIT == EMIT_CLS ? a.kinds + (size_t)b * NDP * LANES + lane : nullptr;
     while (i + j >= 1) {
       const int d = i + j;
       const int r = i - origin(d, C, rbmax);
       const int kind =
           (r >= 0 && r < WP) ? (slab[(d >> 4) * WP + r] >> (2 * (d & 15))) & 3
                              : 0;
-      if (EMIT == EMIT_KINDS) emit[(size_t)d * LANES] = kind;
       if (kind == 1) {
         const int c1 = s1c[i];
         const int sq = s2c[C - j];
@@ -595,16 +598,18 @@ __global__ void nw_wavefront_kernel(const Args a) {
   }
 }
 
-// ---- B1 compare: P pairs per block, the tracebacks one lane per pair ----
+// ---- B1 compare and B3 kinds: P pairs per block, the tracebacks one lane
+// per pair ----
 // The block's P warps each fill one pair with fill_pair, exactly as the
 // other modes do; then, after one block barrier, lane p of warp 0 traces
-// pair p back while the other warps have finished. In B1 every lane
+// pair p back while the other warps have finished. In B1 and B3 every lane
 // aligns the same center, so the s1 column is staged once per block (the
 // kernel reads the column of the block's first lane; the caller gives
 // 128 equal columns). Layout: the center column, then per pair its s2
 // column and its slab; the pair stride is an odd number of words, so the
 // P traceback lanes reading one offset of their own pairs fall in P
-// different banks.
+// different banks. B3 (KINDS) writes the same sub, mapq and end as B1 and
+// the kinds rows besides.
 struct CmpLayout {
   int s1, slab, stride;
 };
@@ -643,7 +648,7 @@ __device__ __forceinline__ void store_if(int* p, int v, bool on) {
 #endif
 }
 
-template <int RPT>
+template <int RPT, bool KINDS>
 __global__ void nw_compare_kernel(const Args a) {
   constexpr int WP = RPT * 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -671,6 +676,11 @@ __global__ void nw_compare_kernel(const Args a) {
   for (int k = threadIdx.x; k < L1R * P; k += blockDim.x)
     a.mapq[((size_t)b * L1R + (k >> lgP)) * LANES + lane0 + (k & (P - 1))] =
         0;
+  // B3: every kinds row starts at 0, the kind of a diagonal without a step
+  if (KINDS)
+    for (int k = threadIdx.x; k < NDP * P; k += blockDim.x)
+      a.kinds[((size_t)b * NDP + (k >> lgP)) * LANES + lane0 +
+              (k & (P - 1))] = 0;
   for (int k = threadIdx.x; k < 6 * P; k += blockDim.x)
     a.endo[((size_t)b * 8 + 2 + (k >> lgP)) * LANES + lane0 + (k & (P - 1))] =
         0;
@@ -699,8 +709,8 @@ __global__ void nw_compare_kernel(const Args a) {
   // the kind selects the moves, the stores are predicated and the lanes
   // that are done step with kind 0, so the P lanes stay converged; the
   // output addresses follow (i, j) incrementally. Lanes of one block share
-  // len1, so while their paths agree their mapq stores land in P
-  // consecutive words.
+  // len1, so while their paths agree their mapq (and B3's kinds) stores
+  // land in P consecutive words.
   const int lane = lane0 + t;
   const int l2 = a.params[((size_t)b * 8 + 0) * LANES + lane];
   const bool bad = bad_geometry(len1, l2, C, L1R, L2R, NDP);
@@ -713,6 +723,9 @@ __global__ void nw_compare_kernel(const Args a) {
   int j = bad ? 0 : l2;
   int* mq = a.mapq + ((size_t)b * L1R + i) * LANES + lane;     // row i
   int* sb = a.sub + ((size_t)b * L2R + C - j) * LANES + lane;  // row C - j
+  // B3: row d = i + j; a diagonal step leaves the skipped row at 0
+  int* kd = KINDS ? a.kinds + ((size_t)b * NDP + i + j) * LANES + lane
+                  : nullptr;
   const int h0 = 1 - rbmax;  // o(d) = max(0, d - C, (d + h0) >> 1)
   bool live = !bad && i + j >= 1;
   const unsigned lanes = P == 32 ? FULL : (1u << P) - 1u;
@@ -730,6 +743,10 @@ __global__ void nw_compare_kernel(const Args a) {
     const bool take2 = diag || kind == 2;  // consumes query position j
     store_if(sb, c1 + 1, diag && c1 != c2);
     store_if(mq, diag ? ((sq >> 2) << 17) | (j << 3) | (c2 + 2) : 1, take1);
+    if (KINDS) {
+      store_if(kd, kind, kind != 0);
+      kd -= (take1 + take2) * LANES;
+    }
     i -= take1;
     j -= take2;
     mq -= take1 ? LANES : 0;
@@ -741,41 +758,44 @@ __global__ void nw_compare_kernel(const Args a) {
   // ---- end of traceback, one lane per pair ----
 }
 
-template <int RPT>
+template <int RPT, bool KINDS>
 static int launch_compare(const Args& a, int nb, cudaStream_t stream) {
   const int bytes = compare_bytes(a.L1R, a.L2R, a.NDP, RPT * 32, a.ppb);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nw_compare_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        nw_compare_kernel<RPT, KINDS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(nb * (LANES / a.ppb)), block(32 * a.ppb);
-  nw_compare_kernel<RPT><<<grid, block, bytes, stream>>>(a);
+  nw_compare_kernel<RPT, KINDS><<<grid, block, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <bool KINDS>
 static const void* compare_fn(int WP) {
   switch (WP / 32) {
     case 1:
-      return (const void*)nw_compare_kernel<1>;
+      return (const void*)nw_compare_kernel<1, KINDS>;
     case 2:
-      return (const void*)nw_compare_kernel<2>;
+      return (const void*)nw_compare_kernel<2, KINDS>;
     case 3:
-      return (const void*)nw_compare_kernel<3>;
+      return (const void*)nw_compare_kernel<3, KINDS>;
     default:
-      return (const void*)nw_compare_kernel<4>;
+      return (const void*)nw_compare_kernel<4, KINDS>;
   }
 }
 
-// Blocks of B1 with P pairs resident on one SM (the CUDA occupancy
-// calculator, from the instantiation's registers and the block's shared
-// memory), 0 if such a block cannot run.
+// Blocks of nw_compare_kernel with P pairs resident on one SM (the CUDA
+// occupancy calculator, from the instantiation's registers and the block's
+// shared memory: B1's for mode 1, B3's for mode 3), 0 if such a block
+// cannot run or the mode is neither.
 extern "C" int nw_compare_blocks_per_sm(int L1R, int L2R, int NDP, int WP,
-                                        int P) {
-  if (WP < 32 || WP > 128 || WP % 32 || P < 1 || P > 32 || (P & (P - 1)))
+                                        int P, int mode) {
+  if (WP < 32 || WP > 128 || WP % 32 || P < 1 || P > 32 || (P & (P - 1)) ||
+      (mode != 1 && mode != 3))
     return 0;
-  const void* fn = compare_fn(WP);
+  const void* fn = mode == 3 ? compare_fn<true>(WP) : compare_fn<false>(WP);
   const int bytes = compare_bytes(L1R, L2R, NDP, WP, P);
   cudaFuncAttributes fa;
   int bps = 0;
@@ -789,16 +809,18 @@ extern "C" int nw_compare_blocks_per_sm(int L1R, int L2R, int NDP, int WP,
   return bps;
 }
 
-// B1's pairs per block for a launch of nb blocks of 128 lanes. A block
-// that is tracing back keeps its P warps' slots while one warp works, so
-// the fit takes the largest P (a power of two up to 32) that still keeps
-// four blocks resident per SM (a traceback then idles at most a quarter
-// of the SM's warps, and a larger P shares the traceback's instructions
-// among more pairs; PERF.md has the sweep of P behind this); where no P
-// keeps four, the P that keeps the most pairs resident (on a tie the
-// larger). A P is considered only if the grid still gives every SM two
-// blocks (P = 1 always is), so a small launch gets fewer pairs per block.
-static int compare_pairs(int L1R, int L2R, int NDP, int WP, int nb) {
+// Pairs per block of nw_compare_kernel (mode 1 B1, 3 B3) for a launch of
+// nb blocks of 128 lanes. A block that is tracing back keeps its P warps'
+// slots while one warp works, so the fit takes the largest P (a power of
+// two up to 32) that still keeps four blocks resident per SM (a traceback
+// then idles at most a quarter of the SM's warps, and a larger P shares
+// the traceback's instructions among more pairs; PERF.md has the sweep of
+// P behind this); where no P keeps four, the P that keeps the most pairs
+// resident (on a tie the larger). A P is considered only if the grid
+// still gives every SM two blocks (P = 1 always is), so a small launch
+// gets fewer pairs per block.
+static int compare_pairs(int L1R, int L2R, int NDP, int WP, int nb,
+                         int mode) {
   int dev = 0, nsm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) !=
@@ -807,7 +829,7 @@ static int compare_pairs(int L1R, int L2R, int NDP, int WP, int nb) {
   int best = 0, best_res = 0, four = 0;
   for (int P = 1; P <= 32; P *= 2) {
     if (P > 1 && (long long)nb * LANES / P < 2LL * nsm) break;
-    const int bps = nw_compare_blocks_per_sm(L1R, L2R, NDP, WP, P);
+    const int bps = nw_compare_blocks_per_sm(L1R, L2R, NDP, WP, P, mode);
     if (bps == 0) break;
     if (bps >= 4) four = P;
     if (P * bps >= best_res) {
@@ -822,72 +844,75 @@ static int compare_pairs(int L1R, int L2R, int NDP, int WP, int nb) {
 // launch of nb blocks of 128 lanes; 0 if even one pair does not fit, WP is
 // not a multiple of 32 up to 128, or the mode is unknown. This is the one
 // place that decides the fit (the TPU kernel's VMEM_SLAB_CAP check does
-// not carry over). B1: compare_pairs. B2, B2 stats and B3: the largest of
-// 4, 2, 1 whose shared memory fits one block's 227 KB; B2 and B3 share one
-// layout (their kinds / class rows go straight to device memory), B2 stats
-// stages bytes and adds its column buffer.
+// not carry over). B1 and B3: compare_pairs, each asking its own
+// instantiation. B2 and B2 stats: the largest of 4, 2, 1 whose shared
+// memory fits one block's 227 KB; B2 stages int32 columns (its class rows
+// go straight to device memory), B2 stats bytes and its column buffer.
 extern "C" int nw_wavefront_pairs_per_block(int L1R, int L2R, int NDP,
                                             int WP, int mode, int nb) {
   if (WP < 32 || WP > 128 || WP % 32 || mode < 1 || mode > 4) return 0;
-  if (mode == 1) return compare_pairs(L1R, L2R, NDP, WP, nb);
+  if (mode == 1 || mode == 3) return compare_pairs(L1R, L2R, NDP, WP, nb, mode);
   const int per = pair_layout(L1R, L2R, NDP, WP, mode == 4).bytes;
   for (int ppb = 4; ppb >= 1; ppb /= 2)
     if (ppb * per <= SMEM_MAX) return ppb;
   return 0;
 }
 
-template <int RPT, bool S1LANE, int EMIT>
+template <int RPT, int EMIT>
 static int launch(const Args& a, int nb, cudaStream_t stream) {
   const int bytes =
       a.ppb *
       pair_layout(a.L1R, a.L2R, a.NDP, RPT * 32, EMIT == EMIT_STATS).bytes;
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nw_wavefront_kernel<RPT, S1LANE, EMIT>,
+        nw_wavefront_kernel<RPT, EMIT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(nb * (LANES / a.ppb)), block(32 * a.ppb);
-  nw_wavefront_kernel<RPT, S1LANE, EMIT><<<grid, block, bytes, stream>>>(a);
+  nw_wavefront_kernel<RPT, EMIT><<<grid, block, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool S1LANE, int EMIT>
+template <int EMIT>
 static int launch_wp(const Args& a, int nb, int WP, cudaStream_t stream) {
   switch (WP / 32) {
     case 1:
-      return launch<1, S1LANE, EMIT>(a, nb, stream);
+      return launch<1, EMIT>(a, nb, stream);
     case 2:
-      return launch<2, S1LANE, EMIT>(a, nb, stream);
+      return launch<2, EMIT>(a, nb, stream);
     case 3:
-      return launch<3, S1LANE, EMIT>(a, nb, stream);
+      return launch<3, EMIT>(a, nb, stream);
     default:
-      return launch<4, S1LANE, EMIT>(a, nb, stream);
+      return launch<4, EMIT>(a, nb, stream);
   }
 }
 
+template <bool KINDS>
 static int launch_compare_wp(const Args& a, int nb, int WP,
                              cudaStream_t stream) {
   switch (WP / 32) {
     case 1:
-      return launch_compare<1>(a, nb, stream);
+      return launch_compare<1, KINDS>(a, nb, stream);
     case 2:
-      return launch_compare<2>(a, nb, stream);
+      return launch_compare<2, KINDS>(a, nb, stream);
     case 3:
-      return launch_compare<3>(a, nb, stream);
+      return launch_compare<3, KINDS>(a, nb, stream);
     default:
-      return launch_compare<4>(a, nb, stream);
+      return launch_compare<4, KINDS>(a, nb, stream);
   }
 }
 
-// Launches one mode on `stream`: mode 1 = B1 compare (nw_compare_kernel,
-// `ppb` pairs per block, 0 = nw_wavefront_pairs_per_block's choice), 2 =
-// B2 pairs (s1 per block and lane, class rows into `kinds`), 3 = B3 kinds
-// (shared s1, kind rows into `kinds`); `kinds` is unused in mode 1 and
-// `ppb` in modes 2 and 3. Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for an unknown mode, a window that
-// does not fit one block (nw_wavefront_pairs_per_block == 0) or a B1 `ppb`
-// that is not a power of two up to 32 fitting one block.
+// Launches one mode on `stream`: mode 1 = B1 compare
+// (nw_compare_kernel<RPT, false>), 2 = B2 pairs (nw_wavefront_kernel: s1
+// per block and lane, class rows into `kinds`), 3 = B3 kinds
+// (nw_compare_kernel<RPT, true>: shared s1, kind rows into `kinds`);
+// `kinds` is unused in mode 1. `ppb` is the pairs per block of modes 1
+// and 3 (0 = nw_wavefront_pairs_per_block's choice) and unused in mode 2.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for an unknown mode, a window that does not fit
+// one block (nw_wavefront_pairs_per_block == 0) or a given `ppb` that is
+// not a power of two up to 32 fitting one block.
 extern "C" int nw_wavefront_run(const int* scal, const int* params,
                                 const int* s1, const int* s2q, int* kinds,
                                 int* sub, int* mapq, int* endo, int nb,
@@ -896,7 +921,7 @@ extern "C" int nw_wavefront_run(const int* scal, const int* params,
                                 void* stream) {
   if (nb <= 0) return 0;
   if (mode < 1 || mode > 3) return (int)cudaErrorInvalidValue;
-  if (mode != 1 || ppb == 0)
+  if (mode == 2 || ppb == 0)
     ppb = nw_wavefront_pairs_per_block(L1R, L2R, NDP, WP, mode, nb);
   else if (ppb > 32 || (ppb & (ppb - 1)) ||
            compare_bytes(L1R, L2R, NDP, WP, ppb) > SMEM_MAX)
@@ -908,11 +933,11 @@ extern "C" int nw_wavefront_run(const int* scal, const int* params,
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 1:
-      return launch_compare_wp(a, nb, WP, s);
+      return launch_compare_wp<false>(a, nb, WP, s);
     case 2:
-      return launch_wp<true, EMIT_CLS>(a, nb, WP, s);
+      return launch_wp<EMIT_CLS>(a, nb, WP, s);
     default:
-      return launch_wp<false, EMIT_KINDS>(a, nb, WP, s);
+      return launch_compare_wp<true>(a, nb, WP, s);
   }
 }
 
@@ -933,5 +958,5 @@ extern "C" int nw_pairs_stats_run(const int* scal, const int* params,
                   nullptr, nullptr, stats, L1R, L2R,   NDP,
                   ppb,     match,   mismatch, gap_p, allow_one_off,
                   max_shift};
-  return launch_wp<true, EMIT_STATS>(a, nb, WP, (cudaStream_t)stream);
+  return launch_wp<EMIT_STATS>(a, nb, WP, (cudaStream_t)stream);
 }

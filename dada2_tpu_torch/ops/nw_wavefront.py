@@ -14,10 +14,11 @@ pairs, with the lr/ham statistics that `_lr_accum_pairs` derives from the
 class rows computed inside the kernel (one row of six int32 per pair).
 
 On CUDA tensors they launch the hand-written Hopper kernels in
-csrc/nw_wavefront.cu (one source: B1 is nw_compare_kernel, which holds up
-to 32 pairs per block and traces them back one lane per pair; B2, B2
-stats and B3 are template variants of one body; built with nvcc at first
-use, loaded through ctypes); on CPU tensors they run
+csrc/nw_wavefront.cu (one source: B1 and B3 are the two variants of
+nw_compare_kernel, which holds up to 32 pairs per block and traces them
+back one lane per pair; B2 and B2 stats are template variants of one
+body; built with nvcc at first use, loaded through ctypes); on CPU tensors
+they run
 `nw_wavefront_ref` / `nw_pairs_stats_ref`, the plain PyTorch versions of
 the same recurrences. There is no fallback between the two. `nw_compare`
 is the B1 call.
@@ -53,6 +54,10 @@ WP_MAX = 128    # widest window (rows) the kernel serves, in steps of 32
 MODES = {(False, False): ("B1", 1), ("cls", True): ("B2", 2),
          (True, False): ("B3", 3)}
 STATS_MODE = 4  # B2 stats (nw_pairs_stats); its launches count as "B2"
+# Checks' override, None in use: the pairs per block of every B1 and B3
+# launch (a power of two up to 32 that fits one block; the launch raises
+# otherwise) instead of pairs_per_block's choice.
+PAIRS_PER_BLOCK: Optional[int] = None
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "nw_wavefront.cu")
@@ -124,7 +129,7 @@ def _load():
             lib.nw_wavefront_pairs_per_block.restype = I
             lib.nw_wavefront_pairs_per_block.argtypes = [I] * 6
             lib.nw_compare_blocks_per_sm.restype = I
-            lib.nw_compare_blocks_per_sm.argtypes = [I] * 5
+            lib.nw_compare_blocks_per_sm.argtypes = [I] * 6
             _lib = lib
     return _lib
 
@@ -134,12 +139,12 @@ def pairs_per_block(L1R: int, L2R: int, NDP: int, WP: int,
     """Pairs (warps) one block of the kernel holds at this geometry in a
     mode (1 B1, 2 B2, 3 B3, STATS_MODE) for a launch of nb blocks of 128
     lanes, 0 if the window does not fit one block's shared memory. B1's
-    choice depends on nb and on the card (a launch too small to give every
-    SM two blocks gets fewer pairs per block). The shared-memory layout and
-    the fit live in csrc/nw_wavefront.cu; this asks the built library (so
-    it needs nvcc, and for B1 the current CUDA device), once per geometry,
-    launch size and device: B1's answer takes a few dozen CUDA runtime
-    calls, as long as a small launch itself."""
+    and B3's choices depend on nb and on the card (a launch too small to
+    give every SM two blocks gets fewer pairs per block). The shared-memory
+    layout and the fit live in csrc/nw_wavefront.cu; this asks the built
+    library (so it needs nvcc, and for B1 and B3 the current CUDA device),
+    once per geometry, launch size and device: their answer takes a few
+    dozen CUDA runtime calls, as long as a small launch itself."""
     return _pairs_per_block(torch.cuda.current_device(), L1R, L2R, NDP, WP,
                             mode, nb)
 
@@ -152,12 +157,14 @@ def _pairs_per_block(device: int, L1R: int, L2R: int, NDP: int, WP: int,
 
 
 def compare_blocks_per_sm(L1R: int, L2R: int, NDP: int, WP: int,
-                          P: int) -> int:
-    """Blocks of kernel B1 holding P pairs each that one SM of the current
-    CUDA device keeps resident at this geometry (the CUDA occupancy
-    calculator), 0 if such a block cannot run. For reports; B1's choice
-    of P is pairs_per_block's."""
-    return int(_load().nw_compare_blocks_per_sm(L1R, L2R, NDP, WP, P))
+                          P: int, mode: int = 1) -> int:
+    """Blocks of kernel B1 (mode 1) or B3 (mode 3) holding P pairs each
+    that one SM of the current CUDA device keeps resident at this geometry
+    (the CUDA occupancy calculator, for that mode's instantiation), 0 if
+    such a block cannot run. For reports; the choice of P is
+    pairs_per_block's."""
+    return int(_load().nw_compare_blocks_per_sm(L1R, L2R, NDP, WP, P,
+                                                mode))
 
 
 # ---- the wrapper ---------------------------------------------------------
@@ -218,6 +225,8 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
     with torch.cuda.device(dev):
         nb = s2q.shape[0]
         ppb = pairs_per_block(L1R, L2R, NDP, WP, mode[1], nb)
+        if ppb and mode[1] != 2 and PAIRS_PER_BLOCK is not None:
+            ppb = PAIRS_PER_BLOCK
         if ppb == 0:
             raise NotImplementedError(
                 f"window WP={WP}, NDP={NDP} exceeds one block's shared memory "

@@ -37,7 +37,8 @@ def test_sources_import_no_jax():
                      re.M)
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "ab_b1.py", "ab_b2.py",
-                                 "ab_b4.py", "ab_bud.py", "sass_fill.py")]
+                                 "ab_b3.py", "ab_b4.py", "ab_bud.py",
+                                 "sass_fill.py")]
     assert len(files) > 15
     for f in files:
         hits = pat.findall(f.read_text())

@@ -5,22 +5,30 @@ modes, run in interpret mode (B2 stats: followed by the JAX package's
 _lr_accum_pairs_trace); and nw_wavefront_grouped against
 nw_pallas_grouped. Tolerance: exact (every output is an integer or a
 boolean). The CUDA kernel itself is held against the plain version on the
-card by chip_smoke.py and the gpu-marked test."""
+card by chip_smoke.py and the gpu-marked tests. The JAX package is
+imported inside the tests that compare with it, so that the gpu tests run
+where jax is not installed (`pytest --noconftest -m gpu`)."""
 import functools
 import itertools
+import pathlib
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dada2_tpu.chimeras import _lr_accum_pairs_trace
-from dada2_tpu.ops import nw_pallas as nwp
 from dada2_tpu_torch.ops import nw_wavefront as nww
 from test_torch_nw_wavefront import _mutate, make_inputs
 
 LANES = nww.LANES
 GEOM = dict(match=5, mismatch=-4, gap_p=-8)
+SAM1F = pathlib.Path(__file__).parent / "extdata" / "sam1F.fastq.gz"
+GROUPED_OUTS = ("kinds", "p0", "p1", "ham", "tvec", "ok")
+
+
+def _nwp():
+    from dada2_tpu.ops import nw_pallas
+
+    return nw_pallas
 
 
 def pairs_inputs(rng, blocks, band=16):
@@ -70,7 +78,7 @@ def pairs_inputs(rng, blocks, band=16):
 
 
 def _check(arrays, geom, emit_kinds, s1_per_block, names):
-    want = nwp._pallas_call(*arrays, end_gap_p=0, interpret=True,
+    want = _nwp()._pallas_call(*arrays, end_gap_p=0, interpret=True,
                             emit_kinds=emit_kinds, halves=1,
                             s1_per_block=s1_per_block, **geom)
     got = nww.nw_wavefront(*(torch.from_numpy(a) for a in arrays),
@@ -132,7 +140,7 @@ def _pairs_case_pallas(case):
     (interpret mode), made once per mix."""
     rng = np.random.default_rng(len(case))
     arrays, geom = pairs_inputs(rng, PAIRS_CASES[case](rng))
-    cls, _sub, _mapq, end = nwp._pallas_call(
+    cls, _sub, _mapq, end = _nwp()._pallas_call(
         *arrays, end_gap_p=0, interpret=True, emit_kinds="cls", halves=1,
         s1_per_block=True, **geom)
     return arrays, geom, np.asarray(cls), np.asarray(end)
@@ -147,6 +155,10 @@ SHIFTS = [1, 4, 16]
 def test_pairs_stats_ref_matches_pallas(case, oo, max_shift):
     """nw_pairs_stats_ref against the Pallas kernel's pairs mode followed
     by the JAX package's _lr_accum_pairs_trace, and the ends' OR."""
+    import jax.numpy as jnp
+
+    from dada2_tpu.chimeras import _lr_accum_pairs_trace
+
     arrays, geom, cls, end = _pairs_case_pallas(case)
     rows = cls.transpose(0, 2, 1).reshape(-1, geom["NDP"])
     want = np.asarray(_lr_accum_pairs_trace(
@@ -247,6 +259,32 @@ def test_wrapper_modes():
                          s1_per_block=True, **geom)
 
 
+def _padded(cands):
+    """Candidates as nw_pallas_grouped takes them: codes padded with 255,
+    and their lengths."""
+    s2b = np.full((len(cands), max(1, max(len(c) for c in cands))), 255,
+                  np.uint8)
+    l2b = np.array([len(c) for c in cands], np.int64)
+    for k, c in enumerate(cands):
+        s2b[k, : len(c)] = c
+    return s2b, l2b
+
+
+def _grouped_both(s1, cands, band):
+    """nw_wavefront_grouped (the plain version) against nw_pallas_grouped
+    (interpret mode) for one center: kinds, p0, p1, ham, tvec and ok
+    exactly. Returns the port's outputs."""
+    s2b, l2b = _padded(cands)
+    want = _nwp().nw_pallas_grouped(s1, len(s1), s2b, l2b, band=band,
+                                    interpret=True, **GEOM)
+    got = nww.nw_wavefront_grouped(s1, len(s1), s2b, l2b, band=band,
+                                   device="cpu", **GEOM)
+    assert len(got) == len(want) == len(GROUPED_OUTS)
+    for name, w, g in zip(GROUPED_OUTS, want, got):
+        np.testing.assert_array_equal(w, g, err_msg=name)
+    return got
+
+
 @pytest.mark.parametrize("band", [4, 16])
 def test_grouped_matches_pallas_grouped(band):
     """nw_wavefront_grouped against nw_pallas_grouped on
@@ -256,18 +294,90 @@ def test_grouped_matches_pallas_grouped(band):
     s1 = rng.integers(0, 4, 50).astype(np.uint8)
     cands = [_mutate(rng, s1) for _ in range(9)]
     cands += [s1[5:], s1[:44], rng.integers(0, 4, 31).astype(np.uint8)]
-    s2b = np.full((len(cands), max(len(c) for c in cands)), 255, np.uint8)
-    l2b = np.array([len(c) for c in cands], np.int64)
-    for k, c in enumerate(cands):
-        s2b[k, : len(c)] = c
-    want = nwp.nw_pallas_grouped(s1, len(s1), s2b, l2b, band=band,
-                                 interpret=True, **GEOM)
-    got = nww.nw_wavefront_grouped(s1, len(s1), s2b, l2b, band=band,
-                                   device="cpu", **GEOM)
-    for name, w, g in zip(("kinds", "p0", "p1", "ham", "tvec", "ok"),
-                          want, got):
-        np.testing.assert_array_equal(w, g, err_msg=name)
+    got = _grouped_both(s1, cands, band)
     assert got[5].all()
+
+
+@functools.lru_cache(maxsize=None)
+def _sam1f_uniques():
+    """sam1F's uniques as code rows, most abundant first."""
+    import dada2_tpu_torch as dt
+    from dada2_tpu_torch.encode import pack_sequences
+
+    codes, lens = pack_sequences(dt.derep_fastq(str(SAM1F)).sequences)
+    return [codes[k, : lens[k]] for k in range(len(lens))]
+
+
+def test_grouped_matches_pallas_grouped_sam1f():
+    """Kernel B3's path on real reads: sam1F's most abundant unique against
+    24 of its uniques (every 37th, itself first) at the default band."""
+    uniq = _sam1f_uniques()
+    got = _grouped_both(uniq[0], uniq[::37][:24], 16)
+    assert got[5].all()
+    assert got[3][0] == 0 and (got[3][1:] > 0).all()
+
+
+def _narrowed(call, band, cut_wp, to_kernel):
+    """A wrapper of a kernel call (the Pallas kernel's or the port's) that
+    gives it the grouped path's inputs with each lane's band left at
+    `band` on both sides, not widened by the length difference, or with
+    the window cut to cut_wp rows."""
+    def run(scal, params, *rest, **geom):
+        scal = np.array(scal)
+        params = np.array(params)
+        if band is not None:
+            params[:, 1:3] = band
+            scal[:, 2] = band
+        if cut_wp is not None:
+            assert geom["WP"] > cut_wp
+            geom = dict(geom, WP=cut_wp)
+        return call(to_kernel(scal), to_kernel(params), *rest, **geom)
+    return run
+
+
+# (band of the grouped call, narrowed band, window rows kept): tracebacks
+# that fail because the band leaves out the end cell (len1, len2) of the
+# longer and shorter candidates, or because the cut window leaves out
+# cells their paths cross
+FAILING_CASES = {"narrow_band": (4, 4, None), "window_cut": (16, None, 32)}
+
+
+@pytest.mark.parametrize("case", sorted(FAILING_CASES))
+def test_grouped_failed_tracebacks_match_pallas(case, monkeypatch):
+    """nw_wavefront_grouped against nw_pallas_grouped where some
+    tracebacks fail (ok False): both kernels get the same narrowed inputs
+    (nw_pallas_grouped's band rule, widened on the long side, never makes
+    a traceback fail, so the band or the window is cut at the kernel
+    call); kinds, p0, p1, ham, tvec and ok exactly."""
+    import jax.numpy as jnp
+
+    band, narrow, cut = FAILING_CASES[case]
+    nwp = _nwp()
+    monkeypatch.setattr(nwp, "_pallas_call", _narrowed(
+        nwp._pallas_call, narrow, cut, jnp.asarray))
+    monkeypatch.setattr(nww, "nw_wavefront", _narrowed(
+        nww.nw_wavefront, narrow, cut, torch.from_numpy))
+    uniq = _sam1f_uniques()
+    s1 = uniq[0]
+    cands = uniq[1:9] + [s1[:240], s1[7:], np.concatenate([s1, s1[:9]]),
+                         s1[3:247], s1[:200], s1[40:]]
+    got = _grouped_both(s1, cands, band)
+    assert got[5][:8].all() and not got[5].all()
+
+
+@pytest.mark.parametrize("band", [4, 16])
+def test_grouped_short_candidates(band):
+    """nw_wavefront_grouped against nw_pallas_grouped with candidates of
+    length 0, 1 and 2 beside mutated copies of a 40-nt center."""
+    rng = np.random.default_rng(40 + band)
+    s1 = rng.integers(0, 4, 40).astype(np.uint8)
+    cands = [s1[:0], s1[:1], s1[5:7], rng.integers(0, 4, 1).astype(np.uint8)]
+    cands += [_mutate(rng, s1, nops=6) for _ in range(8)]
+    got = _grouped_both(s1, cands, band)
+    assert got[5].all()
+    # length 0: 40 up steps; length 1: one step takes the candidate's base
+    assert (got[0][0] == 3).sum() == 40 and set(got[0][0]) <= {0, 3}
+    assert ((got[0][1] == 1) | (got[0][1] == 2)).sum() == 1
 
 
 @pytest.mark.gpu
@@ -296,3 +406,76 @@ def test_modes_match_plain_on_card():
         want = nww.nw_pairs_stats_ref(*t, allow_one_off=oo, max_shift=ms,
                                       **geom)
         assert torch.equal(got, want)
+
+
+def _b3_card_cases(rng):
+    """Kernel B3's launches for the card test, (label, arrays, geom): at
+    windows of 32, 64, 96 and 128 rows, mutated candidates over three
+    blocks with one lane whose geometry fails (len2 > len2max), a 40-nt
+    center against candidates of length 0, 1 and 2, and candidates cut
+    short by up to 294 nt under a window cut to those rows (the band needs
+    about 170), whose tracebacks get stuck; and samPB-length pairs (about
+    1,450 nt) at 64 rows."""
+    s_cut = rng.integers(0, 4, 400).astype(np.uint8)
+    cut, cut_geom = make_inputs(rng, s_cut, [s_cut[: 400 - k]
+                                             for k in range(0, 300, 6)]
+                                + [_mutate(rng, s_cut, nops=8)
+                                   for _ in range(40)], 16)
+    assert cut_geom["WP"] > 128
+    out = []
+    for wp in (32, 64, 96, 128):
+        s1 = rng.integers(0, 4, 250).astype(np.uint8)
+        arrays, geom = make_inputs(rng, s1, [_mutate(rng, s1, nops=8)
+                                             for _ in range(300)], 16, wp=wp)
+        arrays[1][0, 0, 5] = arrays[0][0, 1] + 1
+        out.append((f"family WP={wp}", arrays, geom))
+        s1 = rng.integers(0, 4, 40).astype(np.uint8)
+        cands = [s1[:0], s1[:1], s1[3:5]] + [_mutate(rng, s1, nops=6)
+                                             for _ in range(20)]
+        out.append((f"short WP={wp}", *make_inputs(rng, s1, cands, 4,
+                                                   wp=wp)))
+        out.append((f"window cut to WP={wp}", cut, dict(cut_geom, WP=wp)))
+    s1 = rng.integers(0, 4, 1450).astype(np.uint8)
+    out.append(("samPB length WP=64", *make_inputs(
+        rng, s1, [_mutate(rng, s1, nops=30) for _ in range(200)], 16,
+        wp=64)))
+    return out
+
+
+@pytest.mark.gpu
+def test_b3_every_pairs_per_block_on_card(monkeypatch):
+    """Kernel B3 (nw_compare_kernel's kinds variant) bitwise against its
+    plain version on the card at every pairs per block P that fits and at
+    the fit's own choice: kinds, sub, mapq and end, where tracebacks
+    complete, get stuck and fail on their geometry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run through chip_smoke.py)")
+    tried = set()
+    for label, arrays, geom in _b3_card_cases(np.random.default_rng(17)):
+        t = [torch.from_numpy(a).cuda() for a in arrays]
+        want = nww.nw_wavefront_ref(*t, emit_kinds=True, **geom)
+        fits = [P for P in (1, 2, 4, 8, 16, 32) if nww.compare_blocks_per_sm(
+            geom["L1R"], geom["L2R"], geom["NDP"], geom["WP"], P, 3) > 0]
+        assert 1 in fits, label
+        tried.update(fits)
+        for P in [None] + fits:
+            monkeypatch.setattr(nww, "PAIRS_PER_BLOCK", P)
+            got = nww.nw_wavefront(*t, emit_kinds=True, **geom)
+            for name, x, y in zip(("kinds", "sub", "mapq", "end"), got,
+                                  want):
+                assert torch.equal(x, y), f"{label}, P={P}: {name}"
+        end = want[3][:, :2].cpu().numpy()
+        if label.startswith("window cut"):
+            assert (end != 0).any() and (end == 0).any(), label
+        elif label.startswith("family"):
+            assert end[0, :, 5].tolist() == [250, arrays[1][0, 0, 5]]
+            end[0, :, 5] = 0
+            assert (end == 0).all(), label
+        else:
+            assert (end == 0).all(), label
+    assert tried == {1, 2, 4, 8, 16, 32}
+    # B3's fit: one pair a block for a one-block launch; a larger P that
+    # keeps four blocks an SM for phase 5's 169 blocks
+    assert nww.pairs_per_block(384, 384, 512, 32, 3, 1) == 1
+    P = nww.pairs_per_block(384, 384, 512, 32, 3, 169)
+    assert P > 1 and nww.compare_blocks_per_sm(384, 384, 512, 32, P, 3) >= 4

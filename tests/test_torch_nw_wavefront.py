@@ -2,12 +2,13 @@
 what nw_compare runs on CPU tensors) against the TPU Pallas kernel in
 compare mode, run in interpret mode. Tolerance: exact (integer outputs).
 The CUDA kernel itself is held against nw_wavefront_ref on the card by
-chip_smoke.py and by the gpu-marked test below."""
+chip_smoke.py and by the gpu-marked test below. The JAX package is
+imported inside the tests that compare with it, so that the gpu test runs
+where jax is not installed (`pytest --noconftest -m gpu`)."""
 import numpy as np
 import pytest
 import torch
 
-from dada2_tpu.ops import nw_pallas as nwp
 from dada2_tpu_torch.ops import nw_wavefront as nww
 
 LANES = nww.LANES
@@ -70,6 +71,8 @@ def make_inputs(rng, s1, cands, band, wp=None, nblocks_min=1):
 
 
 def _check(arrays, geom):
+    from dada2_tpu.ops import nw_pallas as nwp
+
     want = nwp._pallas_call(*arrays, end_gap_p=0, interpret=True, **geom)
     got = nww.nw_compare(*(torch.from_numpy(a) for a in arrays), **geom)
     for name, w, g in zip(("sub", "mapq", "end"), want, got):
