@@ -51,8 +51,8 @@ def smi(query: str) -> str:
 def b3_sass(root: str):
     """{"fill": SASS instructions a diagonal, "traceback": instructions a
     step} of B3's one-row-per-thread instantiation in root's kernel source
-    (sass_fill.py's report; the change's nw_compare_kernel<1, true> or an
-    older checkout's nw_wavefront_kernel<1, false, 1>)."""
+    (sass_fill.py's report; nw_compare_kernel<1, 3>, nw_compare_kernel<1,
+    true> or an older checkout's nw_wavefront_kernel<1, false, 1>)."""
     out_dir = os.path.join(root, "build", "sass_b3")
     proc = subprocess.run(
         [sys.executable, os.path.join(HERE, "sass_fill.py"),
@@ -63,7 +63,7 @@ def b3_sass(root: str):
     fill, tb, inside = [], [], False
     for line in proc.stdout.splitlines():
         if not line.startswith("  "):
-            inside = bool(re.search(r"nw_compare_kernel<1, true>|"
+            inside = bool(re.search(r"nw_compare_kernel<1, (3|true)>|"
                                     r"nw_wavefront_kernel<1, false, 1>",
                                     line))
             continue

@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result line):
                power limit;
   2. build   — builds the three kernel sources with nvcc from the checkout,
                one nvcc each, started together: csrc/nw_wavefront.cu
-               (nw_compare_kernel for B1 and B3, and the B2, B2 stats body
-               x windows of 32..128 rows, sixteen instantiations) and
+               (nw_compare_kernel for B1, B2's class rows and B3, and B2
+               stats' body x windows of 32..128 rows, sixteen
+               instantiations) and
                csrc/nw_batch.cu
                (kernel B4: the register body, 4 row tiers x vec, scalar
                and homopolymer aligners; the wide body, the three
@@ -31,10 +32,10 @@ Phases (any failure exits non-zero and prints no result line):
                32/64/96/128 rows, several blocks of different query
                lengths, lengths near 250, and one PacBio full-length 16S
                set (len ~1450: NDP 3072, L1R 1664); every output bitwise
-               equal; B3 also at every pairs per block P that fits, and
-               on a lane whose geometry fails, a short center against
-               candidates of length 0, 1 and 2, and a window cut below
-               its band's (tracebacks stuck);
+               equal; B2's class rows and B3 also at every pairs per block
+               P that fits, and on a lane whose geometry fails, short
+               parents (B2) or candidates (B3) of length 0, 1 and 2 and a
+               window cut below its band's (tracebacks stuck);
   4. small   — derep_fastq(sam1F) -> dada(err=tperr1()) on the card and on
                the CPU: clustering, map, pval, birth_subs, trans identical,
                the init compare through B5's full mode (its launches
@@ -70,7 +71,9 @@ Phases (any failure exits non-zero and prints no result line):
                in turns on one card: the stats kernel (the route's B2)
                against the class-row kernel followed by the torch scans
                it replaces, each checked against its plain version, and
-               the stats kernel's plain version time and bound;
+               the stats kernel's plain version time and bound; the
+               class-row kernel alone, first and last, with its pairs per
+               block P and blocks per SM;
  11. profile — the table run again under torch.profiler: no class-row
                kernel and no scan kernel may appear;
  12. batch   — kernel B4's bodies (ops/nw_batch.py: the route's body,
@@ -397,37 +400,46 @@ def pairs_case(rng, nww, blocks, band, wp):
     pad lanes repeat lane 0, as the chimera route lays them out."""
     import numpy as np
 
-    L = nww.LANES
-    nb = len(blocks)
-    queries, parents = [], []
+    pairs = []
     for len1, npairs, nops, uniform in blocks:
         q = [rng.integers(0, 4, len1).astype(np.uint8)
              for _ in range(npairs)]
-        q += [q[0]] * (L - npairs)
-        queries.append(q)
-        ps = [mutate(rng, s, nops, uniform) for s in q[:npairs]]
-        parents.append(ps + [ps[0]] * (L - npairs))
-    maxlen = max(max(len(p) for p in ps) for ps in parents)
-    maxlen = max(maxlen, max(b[0] for b in blocks))
+        pairs.append((len1, [(s, mutate(rng, s, nops, uniform)) for s in q]))
+    return pairs_arrays(nww, pairs, band, wp)
+
+
+def pairs_arrays(nww, blocks, band, wp, cut=False, qrng=None):
+    """Kernel B2 inputs from (len1, [(query, parent), ...]) blocks, at most
+    128 pairs each, pad lanes repeating lane 0; raises if the band needs a
+    window wider than wp rows, unless cut (then the tracebacks that leave
+    the window get stuck). With qrng, random qualities ride in s2q."""
+    import numpy as np
+
+    L = nww.LANES
+    nb = len(blocks)
+    maxlen = max(max(max(len(q), len(p)) for q, p in ps) for _, ps in blocks)
     NDP, L1R, L2R = geometry(nww, maxlen)
     scal = np.zeros((nb, 4), np.int32)
     params = np.zeros((nb, 8, L), np.int32)
     s1 = np.zeros((nb, L1R, L), np.int32)
     s2q = np.zeros((nb, L2R, L), np.int32)
-    for b, (len1, _, _, _) in enumerate(blocks):
-        l2 = np.array([len(p) for p in parents[b]], np.int64)
+    for b, (len1, ps) in enumerate(blocks):
+        ps = ps + [ps[0]] * (L - len(ps))
+        l2 = np.array([len(p) for _, p in ps], np.int64)
         need = nww.block_window(len1, l2, band)
-        if need > wp:
+        if need > wp and not cut:
             raise ValueError(f"case needs a {need}-row window, asked {wp}")
         C = int(l2.max())
         scal[b] = (len1, C, band + max(0, C - len1), int(l2.min()))
         params[b, 0] = l2
         params[b, 1] = band + np.maximum(0, len1 - l2)
         params[b, 2] = band + np.maximum(0, l2 - len1)
-        for k in range(L):
-            s1[b, 1: 1 + len1, k] = queries[b][k]
-            p = parents[b][k]
-            s2q[b, C - len(p): C, k] = p[::-1]   # row C - j holds p[j-1]
+        for k, (q, p) in enumerate(ps):
+            s1[b, 1: 1 + len1, k] = q
+            code = p[::-1].astype(np.int32)     # row C - j holds p[j-1]
+            if qrng is not None:
+                code |= qrng.integers(2, 41, len(p)).astype(np.int32) << 2
+            s2q[b, C - len(p): C, k] = code
     geom = dict(L1R=L1R, L2R=L2R, NDP=NDP, WP=wp, match=5, mismatch=-4,
                 gap_p=-8)
     return (scal, params, s1, s2q), geom
@@ -461,7 +473,7 @@ def b1_bucket_inputs(nww, be, opts, dev, center=0):
 def ptxas_registers(ptxas, kernel, tail=""):
     """{rows per thread: registers} of one kernel's instantiations in an
     `-Xptxas -v` report (tail: the mangled template arguments after the
-    rows per thread, e.g. "Lb1E" for nw_compare_kernel's B3 variant)."""
+    rows per thread, e.g. "Li3E" for nw_compare_kernel's B3 variant)."""
     import re
 
     regs = {}
@@ -682,19 +694,27 @@ def same_result(a, b, what):
     np.testing.assert_array_equal(a.trans, b.trans, err_msg=what)
 
 
-def b3_every_p(nww, t, want, geom, reps=0):
-    """Kernel B3 on card tensors t at every pairs per block P that fits
-    (nww.PAIRS_PER_BLOCK forced, restored after), each against the plain
-    outputs `want`; returns {P: (max |kernel - plain|, ms or None)}, the
-    ms from CUDA events over reps launches if reps."""
+# nw_compare_kernel's modes with rows besides sub, mapq and end: the
+# wrapper's keywords for each
+ROW_MODES = {2: dict(emit_kinds="cls", s1_per_block=True),
+             3: dict(emit_kinds=True)}
+
+
+def every_p(nww, t, want, geom, mode, reps=0):
+    """Kernel B2's class rows (mode 2) or B3 (mode 3) on card tensors t at
+    every pairs per block P that fits (nww.PAIRS_PER_BLOCK forced,
+    restored after), each against the plain outputs `want`; returns {P:
+    (max |kernel - plain|, ms or None)}, the ms from CUDA events over reps
+    launches if reps."""
     import torch
 
     out = {}
-    g = dict(geom, emit_kinds=True)
+    g = dict(geom, **ROW_MODES[mode])
     try:
         for P in (1, 2, 4, 8, 16, 32):
             if nww.compare_blocks_per_sm(geom["L1R"], geom["L2R"],
-                                         geom["NDP"], geom["WP"], P, 3) == 0:
+                                         geom["NDP"], geom["WP"], P,
+                                         mode) == 0:
                 continue
             nww.PAIRS_PER_BLOCK = P
             got = nww.nw_wavefront(*t, **g)
@@ -3405,9 +3425,9 @@ def main() -> None:
     ptxas = reports["nw_wavefront.cu"]
     entries = ptxas.count("Compiling entry function")
     if entries != 16:
-        fail(f"expected 16 kernel instantiations (4 windows x B1's and B3's "
-             f"kernel and B2's and B2 stats' body), ptxas compiled "
-             f"{entries}")
+        fail(f"expected 16 kernel instantiations (4 windows x B1's, B2's "
+             f"class rows' and B3's kernel and B2 stats' body), ptxas "
+             f"compiled {entries}")
     entries = reports["nw_batch.cu"].count("Compiling entry function")
     if entries != 21:
         fail(f"expected 21 instantiations of kernel B4 (the register body: "
@@ -3420,22 +3440,23 @@ def main() -> None:
              f"tiles and bits; the slot packer's follow-up, tiles and bits, "
              f"and gather mode; the small pack alone; the full mode, "
              f"screened and not), ptxas compiled {entries}")
-    b1_regs = ptxas_registers(ptxas, "nw_compare_kernel", "Lb0E")
-    b3_regs = ptxas_registers(ptxas, "nw_compare_kernel", "Lb1E")
-    if sorted(b1_regs) != [1, 2, 3, 4] or sorted(b3_regs) != [1, 2, 3, 4]:
-        fail(f"B1's and B3's four instantiations not found in the ptxas "
-             f"report: {b1_regs}, {b3_regs}")
-    log(f"[build] registers by rows per thread: B1 {b1_regs}, B3 {b3_regs}")
+    regs_by_mode = {m: ptxas_registers(ptxas, "nw_compare_kernel",
+                                       f"Li{m}E") for m in (1, 2, 3)}
+    if any(sorted(r) != [1, 2, 3, 4] for r in regs_by_mode.values()):
+        fail(f"the four instantiations of B1, B2's class rows and B3 not "
+             f"found in the ptxas report: {regs_by_mode}")
+    log(f"[build] registers by rows per thread: B1 {regs_by_mode[1]}, B2 "
+        f"class rows {regs_by_mode[2]}, B3 {regs_by_mode[3]}")
 
     def b1_fit(geom, nb, mode=1):
-        """B1's (mode 3: B3's) pairs per block for a launch, its blocks per
-        SM and the instantiation's registers, as printed on the
-        [kernel]/[time] lines."""
+        """B1's (mode 2: B2's class rows', 3: B3's) pairs per block for a
+        launch, its blocks per SM and the instantiation's registers, as
+        printed on the [kernel]/[modes]/[time] lines."""
         P = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"],
                                 geom["WP"], mode, nb)
         bps = nww.compare_blocks_per_sm(geom["L1R"], geom["L2R"],
                                         geom["NDP"], geom["WP"], P, mode)
-        regs = (b1_regs if mode == 1 else b3_regs)[geom["WP"] // 32]
+        regs = regs_by_mode[mode][geom["WP"] // 32]
         return f"P={P} pairs/block, {bps} blocks/SM, {regs} registers", P
 
     mark("3 B1")
@@ -3507,23 +3528,26 @@ def main() -> None:
           (245, 128, 8, False)], 128),
         ([(1450, 128, 30, False), (1447, 100, 30, False)], 64),
     ]
+    b2_ps = set()
     for blocks, wp in pair_cases:
         arrays, geom = pairs_case(rng, nww, blocks, 16, wp)
-        ppb = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"], wp,
-                                  2)
         ppb_s = nww.pairs_per_block(geom["L1R"], geom["L2R"], geom["NDP"],
                                     wp, nww.STATS_MODE)
         err, ok_tb, t, want = kernel_vs_plain(nww, dev, arrays, geom, "cls",
                                               True)
+        every = every_p(nww, t, want, geom, 2)
+        b2_ps.update(every)
+        err = max([err] + [e for e, _ in every.values()])
         err_b["B2cls"] = max(err_b["B2cls"], err)
         err_s = stats_vs_plain(nww, t, want, geom)
         err_b["B2"] = max(err_b["B2"], err_s)
         log(f"[modes] B2 len1={[b[0] for b in blocks]} WP={wp} "
-            f"NDP={geom['NDP']} L1R={geom['L1R']} pairs/block={ppb} (stats "
-            f"{ppb_s}): class rows max |kernel - plain| = {err}, tracebacks "
-            f"complete: {ok_tb}; stats over {len(STATS_SETTINGS)} "
-            f"(allow_one_off, max_shift) settings max |kernel - plain| = "
-            f"{err_s}")
+            f"NDP={geom['NDP']} L1R={geom['L1R']}, class rows "
+            f"{b1_fit(geom, arrays[0].shape[0], 2)[0]}, also P="
+            f"{sorted(every)} (stats {ppb_s} pairs/block): class rows max "
+            f"|kernel - plain| = {err}, tracebacks complete: {ok_tb}; stats "
+            f"over {len(STATS_SETTINGS)} (allow_one_off, max_shift) settings "
+            f"max |kernel - plain| = {err_s}")
         if err != 0 or not ok_tb or err_s != 0:
             fail(f"kernel B2 disagrees with its plain version (WP={wp})")
     kinds_cases = cases + [(1450, 200, 30, 16, 64, False)]
@@ -3533,7 +3557,7 @@ def main() -> None:
                                  uniform)
         err, ok_tb, t, want = kernel_vs_plain(nww, dev, arrays, geom, True,
                                               False)
-        every = b3_every_p(nww, t, want, geom)
+        every = every_p(nww, t, want, geom, 3)
         b3_ps.update(every)
         err = max([err] + [e for e, _ in every.values()])
         err_b["B3"] = max(err_b["B3"], err)
@@ -3543,13 +3567,48 @@ def main() -> None:
             f"tracebacks complete: {ok_tb}")
         if err != 0 or not ok_tb:
             fail(f"kernel B3 disagrees with its plain version (WP={wp})")
-    # B3 where tracebacks do not complete or lengths are 0 and 1: a lane
-    # with len2 > len2max, a 40-nt center against candidates of length 0,
-    # 1 and 2, and candidates cut short by up to 294 nt under a window of
-    # WP rows (the band needs about 170: tracebacks get stuck)
+    # B2's class rows and B3 where tracebacks do not complete or lengths
+    # are 0 and 1: a lane with len2 > len2max, 40-nt queries against
+    # parents (B2) or a 40-nt center against candidates (B3) of length 0,
+    # 1 and 2, and parents or candidates cut short by up to 294 nt under a
+    # window of WP rows (the band needs about 170: tracebacks get stuck)
     s_cut = rng.integers(0, 4, 400).astype(np.uint8)
     cut = [s_cut[: 400 - k] for k in range(0, 300, 6)]
+    q_cut = [rng.integers(0, 4, 400).astype(np.uint8) for _ in cut]
     for wp in (32, 64, 96, 128):
+        fam, fgeom = pairs_case(rng, nww, [(250, 128, 8, False),
+                                           (247, 100, 8, False)], 16, wp)
+        fam[1][0, 0, 5] = fam[0][0, 1] + 1
+        q40 = [rng.integers(0, 4, 40).astype(np.uint8) for _ in range(24)]
+        short = pairs_arrays(nww, [(40, [
+            (q40[0], q40[0][:0]), (q40[1], q40[1][:1]),
+            (q40[2], q40[2][3:5]), (q40[3], q40[3][7:8])] + [
+            (q, mutate(rng, q, 6, False)) for q in q40[4:]])], 16, wp,
+            qrng=rng)
+        stuck = pairs_arrays(nww, [(400, [
+            (q, q[: 400 - 6 * k]) for k, q in enumerate(q_cut)])], 16, wp,
+            cut=True, qrng=rng)
+        for label, (arrays, geom), n_bad in (
+                ("failed-geometry lane", (fam, fgeom), 1),
+                ("parents of length 0, 1, 2", short, 0),
+                ("window cut", stuck, -1)):
+            err, _, t, want = kernel_vs_plain(nww, dev, arrays, geom, "cls",
+                                              True)
+            every = every_p(nww, t, want, geom, 2)
+            b2_ps.update(every)
+            err = max([err] + [e for e, _ in every.values()])
+            err_b["B2cls"] = max(err_b["B2cls"], err)
+            end = want[3][:, :2]
+            bad = int(((end[:, 0] != 0) | (end[:, 1] != 0)).sum())
+            log(f"[modes] B2 class rows, {label} WP={wp} blocks="
+                f"{arrays[0].shape[0]} NDP={geom['NDP']}, "
+                f"{b1_fit(geom, arrays[0].shape[0], 2)[0]}, also P="
+                f"{sorted(every)}: max |kernel - plain| = {err}, {bad} lanes "
+                f"end != (0, 0)")
+            if err != 0 or (bad != n_bad if n_bad >= 0 else bad == 0):
+                fail(f"kernel B2's class rows disagree with their plain "
+                     f"version or the case is not what it says ({label}, "
+                     f"WP={wp})")
         fam, fgeom = fuzz_case(rng, nww, 250, 300, 8, 16, wp, False)
         fam[1][0, 0, 5] = fam[0][0, 1] + 1
         s1 = rng.integers(0, 4, 40).astype(np.uint8)
@@ -3562,7 +3621,7 @@ def main() -> None:
                 ("window cut", stuck, -1)):
             err, _, t, want = kernel_vs_plain(nww, dev, arrays, geom, True,
                                               False)
-            every = b3_every_p(nww, t, want, geom)
+            every = every_p(nww, t, want, geom, 3)
             b3_ps.update(every)
             err = max([err] + [e for e, _ in every.values()])
             err_b["B3"] = max(err_b["B3"], err)
@@ -3574,7 +3633,11 @@ def main() -> None:
             if err != 0 or (bad != n_bad if n_bad >= 0 else bad == 0):
                 fail(f"kernel B3 disagrees with its plain version or the "
                      f"case is not what it says ({label}, WP={wp})")
-    log(f"[modes] B3 pairs per block covered: {sorted(b3_ps)}")
+    log(f"[modes] pairs per block covered: B2 class rows {sorted(b2_ps)}, "
+        f"B3 {sorted(b3_ps)}")
+    if b2_ps != {1, 2, 4, 8, 16, 32} or b3_ps != {1, 2, 4, 8, 16, 32}:
+        fail("phase 3b did not run B2's class rows and B3 at every pairs "
+             "per block from 1 to 32")
 
     mark("4 main small")
     # 4. main path, small: card against CPU, identical
@@ -3808,7 +3871,7 @@ def main() -> None:
         fit, P = b1_fit(g3, nb3, 3)
         ms = cuda_ms(lambda: nww.nw_wavefront(*a3, **kw3), 20)
         b3_ms, b3_by, detail = bound(a3, got, *sp)
-        every = b3_every_p(nww, a3, want, g3, 20) if label == "phase 8" \
+        every = every_p(nww, a3, want, g3, 3, 20) if label == "phase 8" \
             else {}
         e3 = max([e3] + [e for e, _ in every.values()])
         err_b["B3"] = max(err_b["B3"], e3)
@@ -3959,15 +4022,20 @@ def main() -> None:
     bound_ms, bound_by, detail = bound(args, [stats_kernel()],
                                        args[0].cpu().numpy(),
                                        args[1].cpu().numpy())
+    cls_fit, cls_P = b1_fit(g2, CH, 2)
+    # the class-row kernel's own bound: its outputs' bytes, the same cells
+    cls_bound = bound(args, nww.nw_wavefront(*args, **ckw),
+                      args[0].cpu().numpy(), args[1].cpu().numpy())
     log(f"[time] kernel B2 at one launch ({CH} blocks x 128 pairs, "
         f"WP={plan.WP}, L1R={plan.L1R} L2R={plan.L2R} NDP={plan.NDP}), in "
         f"turns: class rows + torch scans {t_route[0]:.4f} ms, stats kernel "
         f"{t_stats[0]:.4f} ms, {t_stats[1]:.4f} ms, class rows + torch "
         f"scans {t_route[1]:.4f} ms; the class-row kernel alone "
-        f"{t_cls[0]:.4f} / {t_cls[1]:.4f} ms; stats plain {plain_ms:.2f} "
-        f"ms; bound {bound_ms:.4f} ms by {bound_by} ({detail}); max "
-        f"|kernel - plain| = {err_b['B2']} (stats), {err_b['B2cls']} (class "
-        f"rows); card {card}")
+        f"{t_cls[0]:.4f} / {t_cls[1]:.4f} ms ({cls_fit}; bound "
+        f"{cls_bound[0]:.4f} ms by {cls_bound[1]}: {cls_bound[2]}); stats "
+        f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({detail}); max |kernel - plain| = {err_b['B2']} (stats), "
+        f"{err_b['B2cls']} (class rows); card {card}")
     if err_b["B2"] != 0 or err_b["B2cls"] != 0:
         fail("kernel B2 disagrees with its plain version on the table's "
              "inputs")
@@ -3975,7 +4043,8 @@ def main() -> None:
                       bound_by=bound_by)
     # the class-row mode: no route launches it (launches 0), timed here
     rows["B2cls"] = dict(launches=0, ms=t_cls[0], plain_ms=cls_plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
+                         bound_ms=cls_bound[0], bound_by=cls_bound[1],
+                         pairs_per_block=cls_P,
                          with_torch_scans_ms=t_route[0])
     del args, be
 
@@ -3989,9 +4058,9 @@ def main() -> None:
         scans = [n for n in names
                  if "tensor_kernel_scan_innermost_dim" in n]
         cls_k = [n for n in names
-                 if re.search(r"nw_wavefront_kernel<\d+, 2>", n)]
+                 if re.search(r"nw_compare_kernel<\d+, 2>", n)]
         stats_k = [n for n in names
-                   if re.search(r"nw_wavefront_kernel<\d+, 3>", n)]
+                   if re.search(r"nw_wavefront_kernel<\d+>", n)]
         log(f"[profile] table run: stats kernel {stats_k}, class-row "
             f"kernel {cls_k}, scan kernels {scans}")
         if scans or cls_k or not stats_k:

@@ -1,8 +1,8 @@
 // Banded ends-free Needleman-Wunsch on the wavefront, for Hopper: one
-// fill (fill_pair) under two kernels, chosen at compile time:
-// nw_compare_kernel<RPT, KINDS> serves B1 compare (KINDS false) and B3
-// kinds (KINDS true), nw_wavefront_kernel<RPT, EMIT> B2 pairs (EMIT_CLS)
-// and B2 stats (EMIT_STATS).
+// fill (fill_pair) under two kernels: nw_compare_kernel<RPT, MODE>
+// serves B1 compare (MODE_B1), B2 pairs' class rows (MODE_CLS) and B3
+// kinds (MODE_KINDS), chosen at compile time; nw_wavefront_kernel<RPT>
+// serves B2 stats.
 //
 // Replaces the TPU kernel dada2_tpu/ops/nw_pallas.py::_make_kernel as
 // launched by _pallas_call (end_gap_p = 0) in its three modes:
@@ -15,8 +15,8 @@
 //      class;
 //   B3 kinds (emit_kinds=True; caller nw_pallas.py nw_pallas_grouped):
 //      as B1, adds the raw per-diagonal traceback kind.
-// and a fourth mode for the chimera route, B2 stats (EMIT_STATS, entry
-// nw_pairs_stats_run): B2's alignments, with the lr/ham statistics that
+// and a fourth mode for the chimera route, B2 stats (nw_wavefront_kernel,
+// entry nw_pairs_stats_run): B2's alignments, with the lr/ham statistics that
 // dada2_tpu/chimeras.py::_lr_accum_pairs_trace derives from the class rows
 // computed inside the kernel, so that only one row of six int32 per pair
 // reaches device memory.
@@ -87,17 +87,17 @@
 // bytes per pair, one funnel shift per cell) and never touch device
 // memory; the center and candidate columns are staged into shared memory
 // once, and the traceback runs from shared memory on one lane per pair.
-// B1 and B3 (nw_compare_kernel) hold up to 32 pairs per block and stage
-// their center once per block; after a block barrier lane p of warp 0
-// traces pair p back, so one warp's instructions serve P tracebacks, and
+// B1, B2 and B3 (nw_compare_kernel) hold up to 32 pairs per block; B1
+// and B3 stage their center once per block, B2 each pair's own query
+// beside its candidate. After a block barrier lane p of warp 0 traces
+// pair p back, so one warp's instructions serve P tracebacks, and
 // compare_pairs picks P from the geometry, the launch's size and the
-// card's occupancy of the instantiation at hand. B3 adds the kinds rows:
-// the prologue zeroes them (P consecutive lanes a row, beside sub and
-// mapq), and each traceback step stores its kind with one predicated
-// store at a pointer that follows d = i + j. B2 and B2 stats carry a
-// query per lane, hold up to 4 pairs per block and lane 0 of each pair's
-// warp traces it back; they differ only in what the traceback writes, so
-// they are template variants of one body (nw_wavefront_kernel). In
+// card's occupancy of the instantiation at hand. B3 adds the kinds rows
+// and B2 the class rows: the prologue zeroes them (P consecutive lanes a
+// row, beside sub and mapq), and each traceback step stores its kind or
+// class with one predicated store at a pointer that follows d = i + j.
+// B2 stats (nw_wavefront_kernel) holds up to 4 pairs per block, and lane
+// 0 of each pair's warp traces it back. In
 // B2 stats the traceback writes each alignment column's class as one byte
 // into a per-pair column buffer in shared memory (from the end, so the m
 // columns lie in forward order at buf[NDP-m..NDP-1]) and the warp then
@@ -108,14 +108,13 @@
 // are not reproduced.
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #define LANES 128
 #define NEG (-(1 << 29))
 #define SMEM_MAX 232448  // 227 KB: the most one block may use on sm_90
 #define FULL 0xffffffffu
 
-enum Emit { EMIT_CLS = 2, EMIT_STATS = 3 };
+// nw_compare_kernel's modes, numbered as the C entry's
+enum Mode { MODE_B1 = 1, MODE_CLS = 2, MODE_KINDS = 3 };
 
 struct Args {
   const int* scal;
@@ -130,21 +129,19 @@ struct Args {
   int L1R, L2R, NDP, ppb, match, mismatch, gap_p, allow_one_off, max_shift;
 };
 
-// One pair's shared memory: the s2 and s1 columns (int32, or one byte per
-// char in B2 stats, which reads no qualities), B2 stats' column buffer
-// (NDP bytes) and the pointer slab (one word per row and 16 diagonals).
+// One pair's shared memory in B2 stats: the s2 and s1 columns (one byte
+// per char: the stats read no qualities), the column buffer (NDP bytes)
+// and the pointer slab (one word per row and 16 diagonals).
 struct Layout {
   int s1, buf, slab, bytes;
 };
 
 __host__ __device__ static inline Layout pair_layout(int L1R, int L2R,
-                                                     int NDP, int WP,
-                                                     bool stats) {
+                                                     int NDP, int WP) {
   Layout o;
-  const int cs = stats ? 1 : 4;
-  o.s1 = cs * L2R;
-  o.buf = o.s1 + cs * L1R;
-  o.slab = (o.buf + (stats ? NDP : 0) + 15) & ~15;
+  o.s1 = L2R;
+  o.buf = o.s1 + L1R;
+  o.slab = (o.buf + NDP + 15) & ~15;
   o.bytes = o.slab + 4 * ((NDP + 15) / 16) * WP;
   return o;
 }
@@ -412,66 +409,39 @@ __device__ __forceinline__ int one_side(const unsigned char* buf, int NDP,
   return q0;
 }
 
-template <int RPT, int EMIT>
+template <int RPT>
 __global__ void nw_wavefront_kernel(const Args a) {
   constexpr int WP = RPT * 32;
-  constexpr bool STATS = EMIT == EMIT_STATS;
-  // B2 stats stages one byte per char; the other modes keep the int32
-  // words (their traceback emits qualities and the raw s1 code)
-  using CT = typename std::conditional<STATS, unsigned char, int>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int L1R = a.L1R, L2R = a.L2R, NDP = a.NDP, ppb = a.ppb;
-  const Layout lay = pair_layout(L1R, L2R, NDP, WP, STATS);
+  const Layout lay = pair_layout(L1R, L2R, NDP, WP);
   const int warp = threadIdx.x >> 5;
   const int t = threadIdx.x & 31;
   const int pair0 = blockIdx.x * ppb;  // ppb divides LANES
   const int b = pair0 / LANES;
   const int lane0 = pair0 % LANES;
 
-  // ---- zero this block's output columns and stage the char columns ----
+  // ---- stage the char columns, one byte per char ----
   for (int k = threadIdx.x; k < L2R * ppb; k += blockDim.x) {
     int row = k / ppb, l = k % ppb;
     size_t g = ((size_t)b * L2R + row) * LANES + lane0 + l;
-    CT* s2c = (CT*)(smem + (size_t)l * lay.bytes);
-    if (STATS) {
-      s2c[row] = (CT)(a.s2q[g] & 3);
-    } else {
-      a.sub[g] = 0;
-      s2c[row] = (CT)a.s2q[g];
-    }
+    (smem + (size_t)l * lay.bytes)[row] = (unsigned char)(a.s2q[g] & 3);
   }
   for (int k = threadIdx.x; k < L1R * ppb; k += blockDim.x) {
     int row = k / ppb, l = k % ppb;
     size_t g = ((size_t)b * L1R + row) * LANES + lane0 + l;
-    CT* s1c = (CT*)(smem + (size_t)l * lay.bytes + lay.s1);
     const int v = a.s1[g];
-    if (STATS) {
-      // only equality with an nt code (0..3) matters here: any other
-      // code becomes 4, which matches none
-      s1c[row] = (CT)((unsigned)v < 4u ? v : 4);
-    } else {
-      a.mapq[g] = 0;
-      s1c[row] = (CT)v;
-    }
-  }
-  if (EMIT == EMIT_CLS) {
-    for (int k = threadIdx.x; k < NDP * ppb; k += blockDim.x) {
-      int row = k / ppb, l = k % ppb;
-      a.kinds[((size_t)b * NDP + row) * LANES + lane0 + l] = 0;
-    }
-  }
-  if (!STATS) {
-    for (int k = threadIdx.x; k < 6 * ppb; k += blockDim.x) {
-      int row = 2 + k / ppb, l = k % ppb;
-      a.endo[((size_t)b * 8 + row) * LANES + lane0 + l] = 0;
-    }
+    // only equality with an nt code (0..3) matters here: any other code
+    // becomes 4, which matches none
+    (smem + (size_t)l * lay.bytes + lay.s1)[row] =
+        (unsigned char)((unsigned)v < 4u ? v : 4);
   }
   __syncthreads();
 
   const int lane = lane0 + warp;
   unsigned char* mine = smem + (size_t)warp * lay.bytes;
-  const CT* s2c = (const CT*)mine;
-  const CT* s1c = (const CT*)(mine + lay.s1);
+  const unsigned char* s2c = mine;
+  const unsigned char* s1c = mine + lay.s1;
   unsigned char* buf = mine + lay.buf;
   unsigned* slab = (unsigned*)(mine + lay.slab);
 
@@ -481,40 +451,28 @@ __global__ void nw_wavefront_kernel(const Args a) {
   const int l2 = a.params[((size_t)b * 8 + 0) * LANES + lane];
   const int lb = a.params[((size_t)b * 8 + 1) * LANES + lane];
   const int rb = a.params[((size_t)b * 8 + 2) * LANES + lane];
-  const size_t e0 = ((size_t)b * 8 + 0) * LANES + lane;
-  const size_t e1 = ((size_t)b * 8 + 1) * LANES + lane;
-  int* srow_out = STATS ? a.stats + ((size_t)b * LANES + lane) * 6 : nullptr;
+  int* srow_out = a.stats + ((size_t)b * LANES + lane) * 6;
 
   // geometry the buffers cannot hold: report a failed traceback
   if (len1 < 0 || l2 < 0 || l2 > C || C > L2R || len1 >= L1R ||
       len1 + C >= NDP) {
     if (t == 0) {
-      const int fi = len1 > 0 ? len1 : 1;
-      if (STATS) {
-        for (int q = 0; q < 5; ++q) srow_out[q] = 0;
-        srow_out[5] = fi | l2;
-      } else {
-        a.endo[e0] = fi;
-        a.endo[e1] = l2;
-      }
+      for (int q = 0; q < 5; ++q) srow_out[q] = 0;
+      srow_out[5] = (len1 > 0 ? len1 : 1) | l2;
     }
     return;
   }
 
   // ---- fill ----
-  fill_pair<RPT, STATS, CT>(s1c, s2c, slab, t, a, C, rbmax, len1, l2, lb, rb);
+  fill_pair<RPT, true, unsigned char>(s1c, s2c, slab, t, a, C, rbmax, len1,
+                                      l2, lb, rb);
   // ---- end of fill ----
 
   // ---- traceback from (len1, len2) ----
-  // The cell in hand always lies on diagonal d = i + j (a diagonal step
-  // skips one diagonal, on which the TPU kernel's loop idles and writes
-  // class 0).
-  if (!STATS && t != 0) return;
+  // The cell in hand always lies on diagonal d = i + j; each step writes
+  // its column's class into buf, from the end.
   int i = len1, j = l2, m = 0;
   if (t == 0) {
-    // row d of this lane's class column sits at emit[d * LANES]
-    int* emit =
-        EMIT == EMIT_CLS ? a.kinds + (size_t)b * NDP * LANES + lane : nullptr;
     while (i + j >= 1) {
       const int d = i + j;
       const int r = i - origin(d, C, rbmax);
@@ -522,48 +480,25 @@ __global__ void nw_wavefront_kernel(const Args a) {
           (r >= 0 && r < WP) ? (slab[(d >> 4) * WP + r] >> (2 * (d & 15))) & 3
                              : 0;
       if (kind == 1) {
-        const int c1 = s1c[i];
-        const int sq = s2c[C - j];
-        const int c2 = sq & 3;
-        if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = c1 != c2 ? 3 : 4;
-        if (STATS) {
-          buf[NDP - 1 - m++] = c1 != c2 ? 3 : 4;
-        } else {
-          if (c1 != c2)
-            a.sub[((size_t)b * L2R + C - j) * LANES + lane] = c1 + 1;
-          a.mapq[((size_t)b * L1R + i) * LANES + lane] =
-              ((sq >> 2) << 17) | (j << 3) | (c2 + 2);
-        }
+        buf[NDP - 1 - m++] = s1c[i] != s2c[C - j] ? 3 : 4;
         --i;
         --j;
       } else if (kind == 3) {
-        if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = 2;
-        if (STATS) {
-          buf[NDP - 1 - m++] = 2;
-        } else {
-          a.mapq[((size_t)b * L1R + i) * LANES + lane] = 1;
-        }
+        buf[NDP - 1 - m++] = 2;
         --i;
       } else if (kind == 2) {
-        if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = 1;
-        if (STATS) buf[NDP - 1 - m++] = 1;
+        buf[NDP - 1 - m++] = 1;
         --j;
       } else {
         // no pointer here: the traceback is stuck, end != (0, 0). The TPU
         // kernel still classes this active step (as 4, "not an insertion,
-        // gap or substitution"), so the class row does too.
-        if (EMIT == EMIT_CLS) emit[(size_t)d * LANES] = 4;
-        if (STATS) buf[NDP - 1 - m++] = 4;
+        // gap or substitution"), so the column buffer does too.
+        buf[NDP - 1 - m++] = 4;
         break;
       }
     }
-    if (!STATS) {
-      a.endo[e0] = i;
-      a.endo[e1] = j;
-    }
   }
   // ---- end of traceback ----
-  if (!STATS) return;
 
   // ---- B2 stats: the warp scans the m columns ----
   __syncwarp();
@@ -598,34 +533,41 @@ __global__ void nw_wavefront_kernel(const Args a) {
   }
 }
 
-// ---- B1 compare and B3 kinds: P pairs per block, the tracebacks one lane
-// per pair ----
-// The block's P warps each fill one pair with fill_pair, exactly as the
-// other modes do; then, after one block barrier, lane p of warp 0 traces
-// pair p back while the other warps have finished. In B1 and B3 every lane
+// ---- B1 compare, B2 class rows and B3 kinds: P pairs per block, the
+// tracebacks one lane per pair ----
+// The block's P warps each fill one pair with fill_pair, as B2 stats
+// does; then, after one block barrier, lane p of warp 0 traces pair p
+// back while the other warps have finished. In B1 and B3 every lane
 // aligns the same center, so the s1 column is staged once per block (the
 // kernel reads the column of the block's first lane; the caller gives
-// 128 equal columns). Layout: the center column, then per pair its s2
-// column and its slab; the pair stride is an odd number of words, so the
+// 128 equal columns); in B2 (MODE_CLS) every lane carries its own query,
+// staged in its pair's slot. The columns stay int32: the walk writes the
+// raw s1 code into sub and s2q's quality into mapq. Layout: the center
+// column (not in B2), then per pair its s2 column, its s1 column (B2
+// only) and its slab; the pair stride is an odd number of words, so the
 // P traceback lanes reading one offset of their own pairs fall in P
-// different banks. B3 (KINDS) writes the same sub, mapq and end as B1 and
-// the kinds rows besides.
+// different banks. B2 and B3 write the same sub, mapq and end as B1, and
+// the class or kinds rows besides.
 struct CmpLayout {
-  int s1, slab, stride;
+  int center, s1, slab, stride;
 };
 
 __host__ __device__ static inline CmpLayout compare_layout(int L1R, int L2R,
-                                                          int NDP, int WP) {
+                                                          int NDP, int WP,
+                                                          int mode) {
+  const bool lane_s1 = mode == MODE_CLS;
   CmpLayout o;
-  o.s1 = (4 * L1R + 15) & ~15;
-  o.slab = 4 * L2R;
-  o.stride = 4 * ((L2R + (NDP + 15) / 16 * WP) | 1);
+  o.center = lane_s1 ? 0 : (4 * L1R + 15) & ~15;
+  o.s1 = 4 * L2R;
+  o.slab = 4 * (L2R + (lane_s1 ? L1R : 0));
+  o.stride = 4 * ((o.slab / 4 + (NDP + 15) / 16 * WP) | 1);
   return o;
 }
 
-static inline int compare_bytes(int L1R, int L2R, int NDP, int WP, int P) {
-  const CmpLayout o = compare_layout(L1R, L2R, NDP, WP);
-  return o.s1 + P * o.stride;
+static inline int compare_bytes(int L1R, int L2R, int NDP, int WP, int P,
+                                int mode) {
+  const CmpLayout o = compare_layout(L1R, L2R, NDP, WP, mode);
+  return o.center + P * o.stride;
 }
 
 // geometry the buffers cannot hold: the pair reports a failed traceback
@@ -648,36 +590,45 @@ __device__ __forceinline__ void store_if(int* p, int v, bool on) {
 #endif
 }
 
-template <int RPT, bool KINDS>
+template <int RPT, int MODE>
 __global__ void nw_compare_kernel(const Args a) {
   constexpr int WP = RPT * 32;
+  constexpr bool LANE_S1 = MODE == MODE_CLS;  // a query per lane
+  constexpr bool ROWS = MODE != MODE_B1;      // class or kinds rows
   extern __shared__ __align__(16) unsigned char smem[];
   const int L1R = a.L1R, L2R = a.L2R, NDP = a.NDP, P = a.ppb;
   const int lgP = __ffs(P) - 1;  // P is a power of two dividing LANES
-  const CmpLayout lay = compare_layout(L1R, L2R, NDP, WP);
+  const CmpLayout lay = compare_layout(L1R, L2R, NDP, WP, MODE);
   const int warp = threadIdx.x >> 5;
   const int t = threadIdx.x & 31;
   const int pair0 = blockIdx.x * P;
   const int b = pair0 / LANES;
   const int lane0 = pair0 % LANES;
-  int* s1c = (int*)smem;
-  unsigned char* pairs = smem + lay.s1;
+  int* center = (int*)smem;  // B1, B3
+  unsigned char* pairs = smem + lay.center;
 
   // ---- zero the block's output rows (P consecutive lanes each), stage
-  // the center once and every pair's s2 column ----
-  for (int k = threadIdx.x; k < L1R; k += blockDim.x)
-    s1c[k] = a.s1[(size_t)k * LANES + lane0];
+  // the center once (B1, B3) or every pair's query (B2), and every pair's
+  // s2 column ----
+  if (!LANE_S1)
+    for (int k = threadIdx.x; k < L1R; k += blockDim.x)
+      center[k] = a.s1[(size_t)k * LANES + lane0];
   for (int k = threadIdx.x; k < L2R * P; k += blockDim.x) {
     const int row = k >> lgP, l = k & (P - 1);
     const size_t g = ((size_t)b * L2R + row) * LANES + lane0 + l;
     a.sub[g] = 0;
     ((int*)(pairs + (size_t)l * lay.stride))[row] = a.s2q[g];
   }
-  for (int k = threadIdx.x; k < L1R * P; k += blockDim.x)
-    a.mapq[((size_t)b * L1R + (k >> lgP)) * LANES + lane0 + (k & (P - 1))] =
-        0;
-  // B3: every kinds row starts at 0, the kind of a diagonal without a step
-  if (KINDS)
+  for (int k = threadIdx.x; k < L1R * P; k += blockDim.x) {
+    const int row = k >> lgP, l = k & (P - 1);
+    const size_t g = ((size_t)b * L1R + row) * LANES + lane0 + l;
+    a.mapq[g] = 0;
+    if (LANE_S1)
+      ((int*)(pairs + (size_t)l * lay.stride + lay.s1))[row] = a.s1[g];
+  }
+  // B2, B3: every class or kinds row starts at 0, the value of a diagonal
+  // without a step
+  if (ROWS)
     for (int k = threadIdx.x; k < NDP * P; k += blockDim.x)
       a.kinds[((size_t)b * NDP + (k >> lgP)) * LANES + lane0 +
               (k & (P - 1))] = 0;
@@ -696,8 +647,9 @@ __global__ void nw_compare_kernel(const Args a) {
     // ---- fill ----
     if (!bad_geometry(len1, l2, C, L1R, L2R, NDP))
       fill_pair<RPT, false, int>(
-          s1c, (const int*)mine, (unsigned*)(mine + lay.slab), t, a, C,
-          rbmax, len1, l2, a.params[((size_t)b * 8 + 1) * LANES + lane],
+          LANE_S1 ? (const int*)(mine + lay.s1) : center, (const int*)mine,
+          (unsigned*)(mine + lay.slab), t, a, C, rbmax, len1, l2,
+          a.params[((size_t)b * 8 + 1) * LANES + lane],
           a.params[((size_t)b * 8 + 2) * LANES + lane]);
     // ---- end of fill ----
   }
@@ -709,23 +661,24 @@ __global__ void nw_compare_kernel(const Args a) {
   // the kind selects the moves, the stores are predicated and the lanes
   // that are done step with kind 0, so the P lanes stay converged; the
   // output addresses follow (i, j) incrementally. Lanes of one block share
-  // len1, so while their paths agree their mapq (and B3's kinds) stores
-  // land in P consecutive words.
+  // len1, so while their paths agree their mapq (and the kinds or class)
+  // stores land in P consecutive words.
   const int lane = lane0 + t;
   const int l2 = a.params[((size_t)b * 8 + 0) * LANES + lane];
   const bool bad = bad_geometry(len1, l2, C, L1R, L2R, NDP);
-  const int* s2c = (const int*)(pairs + (size_t)t * lay.stride);
-  const unsigned* slab =
-      (const unsigned*)(pairs + (size_t)t * lay.stride + lay.slab);
+  const unsigned char* slot = pairs + (size_t)t * lay.stride;
+  const int* s1c = LANE_S1 ? (const int*)(slot + lay.s1) : center;
+  const int* s2c = (const int*)slot;
+  const unsigned* slab = (const unsigned*)(slot + lay.slab);
   // a pair whose geometry fails stays at (0, 0), where every read is in
   // its buffers, and reports (max(len1, 1), len2)
   int i = bad ? 0 : len1;
   int j = bad ? 0 : l2;
   int* mq = a.mapq + ((size_t)b * L1R + i) * LANES + lane;     // row i
   int* sb = a.sub + ((size_t)b * L2R + C - j) * LANES + lane;  // row C - j
-  // B3: row d = i + j; a diagonal step leaves the skipped row at 0
-  int* kd = KINDS ? a.kinds + ((size_t)b * NDP + i + j) * LANES + lane
-                  : nullptr;
+  // B2, B3: row d = i + j; a diagonal step leaves the skipped row at 0
+  int* kd = ROWS ? a.kinds + ((size_t)b * NDP + i + j) * LANES + lane
+                 : nullptr;
   const int h0 = 1 - rbmax;  // o(d) = max(0, d - C, (d + h0) >> 1)
   bool live = !bad && i + j >= 1;
   const unsigned lanes = P == 32 ? FULL : (1u << P) - 1u;
@@ -739,14 +692,19 @@ __global__ void nw_compare_kernel(const Args a) {
     const int sq = s2c[C - j];
     const int c2 = sq & 3;
     const bool diag = kind == 1;
-    const bool take1 = diag || kind == 3;  // consumes center position i
-    const bool take2 = diag || kind == 2;  // consumes query position j
+    const bool take1 = diag || kind == 3;  // consumes s1 position i
+    const bool take2 = diag || kind == 2;  // consumes s2 position j
     store_if(sb, c1 + 1, diag && c1 != c2);
     store_if(mq, diag ? ((sq >> 2) << 17) | (j << 3) | (c2 + 2) : 1, take1);
-    if (KINDS) {
-      store_if(kd, kind, kind != 0);
-      kd -= (take1 + take2) * LANES;
+    if (MODE == MODE_KINDS) store_if(kd, kind, kind != 0);
+    if (MODE == MODE_CLS) {
+      // the column's class: 1 left, 2 up, 3 substitution, 4 match; a live
+      // lane that finds no pointer classes its last step as 4 too, as the
+      // TPU kernel does (nw_pallas.py's clsv), and then stops
+      const int cls = kind == 2 ? 1 : kind == 3 ? 2 : diag && c1 != c2 ? 3 : 4;
+      store_if(kd, cls, live);
     }
+    if (ROWS) kd -= (take1 + take2) * LANES;
     i -= take1;
     j -= take2;
     mq -= take1 ? LANES : 0;
@@ -758,45 +716,57 @@ __global__ void nw_compare_kernel(const Args a) {
   // ---- end of traceback, one lane per pair ----
 }
 
-template <int RPT, bool KINDS>
+template <int RPT, int MODE>
 static int launch_compare(const Args& a, int nb, cudaStream_t stream) {
-  const int bytes = compare_bytes(a.L1R, a.L2R, a.NDP, RPT * 32, a.ppb);
+  const int bytes =
+      compare_bytes(a.L1R, a.L2R, a.NDP, RPT * 32, a.ppb, MODE);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nw_compare_kernel<RPT, KINDS>,
+        nw_compare_kernel<RPT, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(nb * (LANES / a.ppb)), block(32 * a.ppb);
-  nw_compare_kernel<RPT, KINDS><<<grid, block, bytes, stream>>>(a);
+  nw_compare_kernel<RPT, MODE><<<grid, block, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool KINDS>
-static const void* compare_fn(int WP) {
+template <int MODE>
+static const void* compare_fn_wp(int WP) {
   switch (WP / 32) {
     case 1:
-      return (const void*)nw_compare_kernel<1, KINDS>;
+      return (const void*)nw_compare_kernel<1, MODE>;
     case 2:
-      return (const void*)nw_compare_kernel<2, KINDS>;
+      return (const void*)nw_compare_kernel<2, MODE>;
     case 3:
-      return (const void*)nw_compare_kernel<3, KINDS>;
+      return (const void*)nw_compare_kernel<3, MODE>;
     default:
-      return (const void*)nw_compare_kernel<4, KINDS>;
+      return (const void*)nw_compare_kernel<4, MODE>;
+  }
+}
+
+static const void* compare_fn(int WP, int mode) {
+  switch (mode) {
+    case MODE_B1:
+      return compare_fn_wp<MODE_B1>(WP);
+    case MODE_CLS:
+      return compare_fn_wp<MODE_CLS>(WP);
+    default:
+      return compare_fn_wp<MODE_KINDS>(WP);
   }
 }
 
 // Blocks of nw_compare_kernel with P pairs resident on one SM (the CUDA
 // occupancy calculator, from the instantiation's registers and the block's
-// shared memory: B1's for mode 1, B3's for mode 3), 0 if such a block
-// cannot run or the mode is neither.
+// shared memory: B1's for mode 1, B2's class rows for mode 2, B3's for
+// mode 3), 0 if such a block cannot run or the mode is none of these.
 extern "C" int nw_compare_blocks_per_sm(int L1R, int L2R, int NDP, int WP,
                                         int P, int mode) {
   if (WP < 32 || WP > 128 || WP % 32 || P < 1 || P > 32 || (P & (P - 1)) ||
-      (mode != 1 && mode != 3))
+      mode < MODE_B1 || mode > MODE_KINDS)
     return 0;
-  const void* fn = mode == 3 ? compare_fn<true>(WP) : compare_fn<false>(WP);
-  const int bytes = compare_bytes(L1R, L2R, NDP, WP, P);
+  const void* fn = compare_fn(WP, mode);
+  const int bytes = compare_bytes(L1R, L2R, NDP, WP, P, mode);
   cudaFuncAttributes fa;
   int bps = 0;
   if (bytes > SMEM_MAX || cudaFuncGetAttributes(&fa, fn) != cudaSuccess ||
@@ -809,16 +779,16 @@ extern "C" int nw_compare_blocks_per_sm(int L1R, int L2R, int NDP, int WP,
   return bps;
 }
 
-// Pairs per block of nw_compare_kernel (mode 1 B1, 3 B3) for a launch of
-// nb blocks of 128 lanes. A block that is tracing back keeps its P warps'
-// slots while one warp works, so the fit takes the largest P (a power of
-// two up to 32) that still keeps four blocks resident per SM (a traceback
-// then idles at most a quarter of the SM's warps, and a larger P shares
-// the traceback's instructions among more pairs; PERF.md has the sweep of
-// P behind this); where no P keeps four, the P that keeps the most pairs
-// resident (on a tie the larger). A P is considered only if the grid
-// still gives every SM two blocks (P = 1 always is), so a small launch
-// gets fewer pairs per block.
+// Pairs per block of nw_compare_kernel (mode 1 B1, 2 B2, 3 B3) for a
+// launch of nb blocks of 128 lanes. A block that is tracing back keeps its
+// P warps' slots while one warp works, so the fit takes the largest P (a
+// power of two up to 32) that still keeps four blocks resident per SM (a
+// traceback then idles at most a quarter of the SM's warps, and a larger
+// P shares the traceback's instructions among more pairs; PERF.md has the
+// sweep of P behind this); where no P keeps four, the P that keeps the
+// most pairs resident (on a tie the larger). A P is considered only if
+// the grid still gives every SM two blocks (P = 1 always is), so a small
+// launch gets fewer pairs per block.
 static int compare_pairs(int L1R, int L2R, int NDP, int WP, int nb,
                          int mode) {
   int dev = 0, nsm = 0;
@@ -844,75 +814,58 @@ static int compare_pairs(int L1R, int L2R, int NDP, int WP, int nb,
 // launch of nb blocks of 128 lanes; 0 if even one pair does not fit, WP is
 // not a multiple of 32 up to 128, or the mode is unknown. This is the one
 // place that decides the fit (the TPU kernel's VMEM_SLAB_CAP check does
-// not carry over). B1 and B3: compare_pairs, each asking its own
-// instantiation. B2 and B2 stats: the largest of 4, 2, 1 whose shared
-// memory fits one block's 227 KB; B2 stages int32 columns (its class rows
-// go straight to device memory), B2 stats bytes and its column buffer.
+// not carry over). B1, B2 and B3: compare_pairs, each asking its own
+// instantiation and its own layout. B2 stats: the largest of 4, 2, 1
+// whose shared memory (byte columns and the column buffer) fits one
+// block's 227 KB.
 extern "C" int nw_wavefront_pairs_per_block(int L1R, int L2R, int NDP,
                                             int WP, int mode, int nb) {
   if (WP < 32 || WP > 128 || WP % 32 || mode < 1 || mode > 4) return 0;
-  if (mode == 1 || mode == 3) return compare_pairs(L1R, L2R, NDP, WP, nb, mode);
-  const int per = pair_layout(L1R, L2R, NDP, WP, mode == 4).bytes;
+  if (mode != 4) return compare_pairs(L1R, L2R, NDP, WP, nb, mode);
+  const int per = pair_layout(L1R, L2R, NDP, WP).bytes;
   for (int ppb = 4; ppb >= 1; ppb /= 2)
     if (ppb * per <= SMEM_MAX) return ppb;
   return 0;
 }
 
-template <int RPT, int EMIT>
-static int launch(const Args& a, int nb, cudaStream_t stream) {
-  const int bytes =
-      a.ppb *
-      pair_layout(a.L1R, a.L2R, a.NDP, RPT * 32, EMIT == EMIT_STATS).bytes;
+template <int RPT>
+static int launch_stats(const Args& a, int nb, cudaStream_t stream) {
+  const int bytes = a.ppb * pair_layout(a.L1R, a.L2R, a.NDP, RPT * 32).bytes;
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        nw_wavefront_kernel<RPT, EMIT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        nw_wavefront_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(nb * (LANES / a.ppb)), block(32 * a.ppb);
-  nw_wavefront_kernel<RPT, EMIT><<<grid, block, bytes, stream>>>(a);
+  nw_wavefront_kernel<RPT><<<grid, block, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int EMIT>
-static int launch_wp(const Args& a, int nb, int WP, cudaStream_t stream) {
-  switch (WP / 32) {
-    case 1:
-      return launch<1, EMIT>(a, nb, stream);
-    case 2:
-      return launch<2, EMIT>(a, nb, stream);
-    case 3:
-      return launch<3, EMIT>(a, nb, stream);
-    default:
-      return launch<4, EMIT>(a, nb, stream);
-  }
-}
-
-template <bool KINDS>
+template <int MODE>
 static int launch_compare_wp(const Args& a, int nb, int WP,
                              cudaStream_t stream) {
   switch (WP / 32) {
     case 1:
-      return launch_compare<1, KINDS>(a, nb, stream);
+      return launch_compare<1, MODE>(a, nb, stream);
     case 2:
-      return launch_compare<2, KINDS>(a, nb, stream);
+      return launch_compare<2, MODE>(a, nb, stream);
     case 3:
-      return launch_compare<3, KINDS>(a, nb, stream);
+      return launch_compare<3, MODE>(a, nb, stream);
     default:
-      return launch_compare<4, KINDS>(a, nb, stream);
+      return launch_compare<4, MODE>(a, nb, stream);
   }
 }
 
-// Launches one mode on `stream`: mode 1 = B1 compare
-// (nw_compare_kernel<RPT, false>), 2 = B2 pairs (nw_wavefront_kernel: s1
-// per block and lane, class rows into `kinds`), 3 = B3 kinds
-// (nw_compare_kernel<RPT, true>: shared s1, kind rows into `kinds`);
-// `kinds` is unused in mode 1. `ppb` is the pairs per block of modes 1
-// and 3 (0 = nw_wavefront_pairs_per_block's choice) and unused in mode 2.
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for an unknown mode, a window that does not fit
-// one block (nw_wavefront_pairs_per_block == 0) or a given `ppb` that is
-// not a power of two up to 32 fitting one block.
+// Launches one mode of nw_compare_kernel on `stream`: mode 1 = B1
+// compare (shared s1), 2 = B2 pairs (s1 per block and lane, class rows
+// into `kinds`), 3 = B3 kinds (shared s1, kind rows into `kinds`); `kinds`
+// is unused in mode 1. `ppb` is the pairs per block (0 =
+// nw_wavefront_pairs_per_block's choice). Returns cudaGetLastError() after
+// the launch (0 = launched), or cudaErrorInvalidValue for an unknown mode,
+// a window that does not fit one block (nw_wavefront_pairs_per_block ==
+// 0) or a given `ppb` that is not a power of two up to 32 whose block fits
+// the mode's layout.
 extern "C" int nw_wavefront_run(const int* scal, const int* params,
                                 const int* s1, const int* s2q, int* kinds,
                                 int* sub, int* mapq, int* endo, int nb,
@@ -920,11 +873,11 @@ extern "C" int nw_wavefront_run(const int* scal, const int* params,
                                 int match, int mismatch, int gap_p, int ppb,
                                 void* stream) {
   if (nb <= 0) return 0;
-  if (mode < 1 || mode > 3) return (int)cudaErrorInvalidValue;
-  if (mode == 2 || ppb == 0)
+  if (mode < MODE_B1 || mode > MODE_KINDS) return (int)cudaErrorInvalidValue;
+  if (ppb == 0)
     ppb = nw_wavefront_pairs_per_block(L1R, L2R, NDP, WP, mode, nb);
   else if (ppb > 32 || (ppb & (ppb - 1)) ||
-           compare_bytes(L1R, L2R, NDP, WP, ppb) > SMEM_MAX)
+           compare_bytes(L1R, L2R, NDP, WP, ppb, mode) > SMEM_MAX)
     ppb = 0;
   if (ppb <= 0) return (int)cudaErrorInvalidValue;
   const Args a = {scal,  params, s1,  s2q, kinds, sub,   mapq,     endo,
@@ -932,19 +885,19 @@ extern "C" int nw_wavefront_run(const int* scal, const int* params,
                   0,     0};
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case 1:
-      return launch_compare_wp<false>(a, nb, WP, s);
-    case 2:
-      return launch_wp<EMIT_CLS>(a, nb, WP, s);
+    case MODE_B1:
+      return launch_compare_wp<MODE_B1>(a, nb, WP, s);
+    case MODE_CLS:
+      return launch_compare_wp<MODE_CLS>(a, nb, WP, s);
     default:
-      return launch_compare_wp<true>(a, nb, WP, s);
+      return launch_compare_wp<MODE_KINDS>(a, nb, WP, s);
   }
 }
 
-// Launches B2 stats (mode 4) on `stream`: B2's inputs (s1 per block and
-// lane), one row of six int32 per pair into `stats` [nb * 128, 6]. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// window that does not fit one block.
+// Launches B2 stats (mode 4, nw_wavefront_kernel) on `stream`: B2's inputs
+// (s1 per block and lane), one row of six int32 per pair into `stats`
+// [nb * 128, 6]. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a window that does not fit one block.
 extern "C" int nw_pairs_stats_run(const int* scal, const int* params,
                                   const int* s1, const int* s2q, int* stats,
                                   int nb, int L1R, int L2R, int NDP, int WP,
@@ -958,5 +911,15 @@ extern "C" int nw_pairs_stats_run(const int* scal, const int* params,
                   nullptr, nullptr, stats, L1R, L2R,   NDP,
                   ppb,     match,   mismatch, gap_p, allow_one_off,
                   max_shift};
-  return launch_wp<EMIT_STATS>(a, nb, WP, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (WP / 32) {
+    case 1:
+      return launch_stats<1>(a, nb, s);
+    case 2:
+      return launch_stats<2>(a, nb, s);
+    case 3:
+      return launch_stats<3>(a, nb, s);
+    default:
+      return launch_stats<4>(a, nb, s);
+  }
 }

@@ -14,11 +14,10 @@ pairs, with the lr/ham statistics that `_lr_accum_pairs` derives from the
 class rows computed inside the kernel (one row of six int32 per pair).
 
 On CUDA tensors they launch the hand-written Hopper kernels in
-csrc/nw_wavefront.cu (one source: B1 and B3 are the two variants of
+csrc/nw_wavefront.cu (one source: B1, B2 and B3 are the three variants of
 nw_compare_kernel, which holds up to 32 pairs per block and traces them
-back one lane per pair; B2 and B2 stats are template variants of one
-body; built with nvcc at first use, loaded through ctypes); on CPU tensors
-they run
+back one lane per pair; B2 stats is nw_wavefront_kernel; built with nvcc
+at first use, loaded through ctypes); on CPU tensors they run
 `nw_wavefront_ref` / `nw_pairs_stats_ref`, the plain PyTorch versions of
 the same recurrences. There is no fallback between the two. `nw_compare`
 is the B1 call.
@@ -54,8 +53,8 @@ WP_MAX = 128    # widest window (rows) the kernel serves, in steps of 32
 MODES = {(False, False): ("B1", 1), ("cls", True): ("B2", 2),
          (True, False): ("B3", 3)}
 STATS_MODE = 4  # B2 stats (nw_pairs_stats); its launches count as "B2"
-# Checks' override, None in use: the pairs per block of every B1 and B3
-# launch (a power of two up to 32 that fits one block; the launch raises
+# Checks' override, None in use: the pairs per block of every B1, B2 and
+# B3 launch (a power of two up to 32 that fits one block; the launch raises
 # otherwise) instead of pairs_per_block's choice.
 PAIRS_PER_BLOCK: Optional[int] = None
 
@@ -108,8 +107,8 @@ def build_library(src: str, so: str, log: str) -> str:
 
 
 def build_kernel() -> str:
-    """Build csrc/nw_wavefront.cu (window widths 32..128 x B1, B2, B2 stats
-    and B3) and return its `-Xptxas -v` report."""
+    """Build csrc/nw_wavefront.cu (window widths 32..128 x B1, B2, B3 and
+    B2 stats) and return its `-Xptxas -v` report."""
     return build_library(_SRC, _SO, _PTXAS_LOG)
 
 
@@ -138,13 +137,14 @@ def pairs_per_block(L1R: int, L2R: int, NDP: int, WP: int,
                     mode: int = 1, nb: int = 1) -> int:
     """Pairs (warps) one block of the kernel holds at this geometry in a
     mode (1 B1, 2 B2, 3 B3, STATS_MODE) for a launch of nb blocks of 128
-    lanes, 0 if the window does not fit one block's shared memory. B1's
-    and B3's choices depend on nb and on the card (a launch too small to
-    give every SM two blocks gets fewer pairs per block). The shared-memory
-    layout and the fit live in csrc/nw_wavefront.cu; this asks the built
-    library (so it needs nvcc, and for B1 and B3 the current CUDA device),
-    once per geometry, launch size and device: their answer takes a few
-    dozen CUDA runtime calls, as long as a small launch itself."""
+    lanes, 0 if the window does not fit one block's shared memory. B1's,
+    B2's and B3's choices depend on nb and on the card (a launch too small
+    to give every SM two blocks gets fewer pairs per block). The
+    shared-memory layout and the fit live in csrc/nw_wavefront.cu; this
+    asks the built library (so it needs nvcc, and for B1, B2 and B3 the
+    current CUDA device), once per geometry, launch size and device: their
+    answer takes a few dozen CUDA runtime calls, as long as a small launch
+    itself."""
     return _pairs_per_block(torch.cuda.current_device(), L1R, L2R, NDP, WP,
                             mode, nb)
 
@@ -158,11 +158,11 @@ def _pairs_per_block(device: int, L1R: int, L2R: int, NDP: int, WP: int,
 
 def compare_blocks_per_sm(L1R: int, L2R: int, NDP: int, WP: int,
                           P: int, mode: int = 1) -> int:
-    """Blocks of kernel B1 (mode 1) or B3 (mode 3) holding P pairs each
-    that one SM of the current CUDA device keeps resident at this geometry
-    (the CUDA occupancy calculator, for that mode's instantiation), 0 if
-    such a block cannot run. For reports; the choice of P is
-    pairs_per_block's."""
+    """Blocks of kernel B1 (mode 1), B2's class rows (mode 2) or B3 (mode
+    3) holding P pairs each that one SM of the current CUDA device keeps
+    resident at this geometry (the CUDA occupancy calculator, for that
+    mode's instantiation and layout), 0 if such a block cannot run. For
+    reports; the choice of P is pairs_per_block's."""
     return int(_load().nw_compare_blocks_per_sm(L1R, L2R, NDP, WP, P,
                                                 mode))
 
@@ -225,7 +225,7 @@ def nw_wavefront(scal, params, s1, s2q, *, L1R: int, L2R: int, NDP: int,
     with torch.cuda.device(dev):
         nb = s2q.shape[0]
         ppb = pairs_per_block(L1R, L2R, NDP, WP, mode[1], nb)
-        if ppb and mode[1] != 2 and PAIRS_PER_BLOCK is not None:
+        if ppb and PAIRS_PER_BLOCK is not None:
             ppb = PAIRS_PER_BLOCK
         if ppb == 0:
             raise NotImplementedError(

@@ -31,11 +31,13 @@ def _nwp():
     return nw_pallas
 
 
-def pairs_inputs(rng, blocks, band=16):
+def pairs_inputs(rng, blocks, band=16, wp=None, quals=False):
     """Pairs-mode kernel inputs: blocks is a list of (len1, pairs) with
     pairs a list of (query [len1], parent) code arrays, at most 128 per
     block; pad lanes repeat lane 0 of their block, as the chimera route
-    lays them out."""
+    lays them out. wp gives the window's rows (narrower than the band
+    needs cuts it, the buffers keep the wider window's size); quals puts
+    random qualities into s2q."""
     nb = len(blocks)
     cand, block_idx, len1s = [], [], []
     queries = np.zeros((nb, LANES), object)
@@ -52,14 +54,17 @@ def pairs_inputs(rng, blocks, band=16):
     s2b = np.full((len(cand), int(l2all.max())), 255, np.uint8)
     for k, c in enumerate(cand):
         s2b[k, : len(c)] = c
-    WP = max(nww.block_window(len1s[b], l2all[block_idx[b]], band)
-             for b in range(nb))
-    WP = nww._round_up(max(WP, 8), 32)
+    W = max(nww.block_window(len1s[b], l2all[block_idx[b]], band)
+            for b in range(nb))
+    W = nww._round_up(max(W, 8), 32)
+    WP = wp or W
     NDP = nww._round_up(max(len1s) + int(l2all.max()) + 1, 8)
-    L1R = nww._round_up(max(len1s) + 1 + WP, 8)
-    L2R = nww._round_up(int(l2all.max()) + WP, 8)
-    s2q = nww.pack_s2_blocks(s2b.astype(np.int64) & 3, l2all, block_idx,
-                             L2R)
+    L1R = nww._round_up(max(len1s) + 1 + max(W, WP), 8)
+    L2R = nww._round_up(int(l2all.max()) + max(W, WP), 8)
+    merged = s2b.astype(np.int64) & 3
+    if quals:
+        merged |= rng.integers(2, 41, s2b.shape) << 2
+    s2q = nww.pack_s2_blocks(merged, l2all, block_idx, L2R)
     scal = np.zeros((nb, 4), np.int32)
     params = np.zeros((nb, 8, LANES), np.int32)
     s1 = np.zeros((nb, L1R, LANES), np.int32)
@@ -77,7 +82,10 @@ def pairs_inputs(rng, blocks, band=16):
     return (scal, params, s1, s2q), geom
 
 
-def _check(arrays, geom, emit_kinds, s1_per_block, names):
+def _check(arrays, geom, emit_kinds, s1_per_block, names, case=None):
+    """The port's outputs (CPU tensors: the plain version) against the
+    Pallas kernel's in interpret mode, exactly; the tracebacks' ends as
+    the case expects (_assert_ends). Returns the port's outputs."""
     want = _nwp()._pallas_call(*arrays, end_gap_p=0, interpret=True,
                             emit_kinds=emit_kinds, halves=1,
                             s1_per_block=s1_per_block, **geom)
@@ -88,8 +96,7 @@ def _check(arrays, geom, emit_kinds, s1_per_block, names):
     for name, w, g in zip(names, want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy(),
                                       err_msg=name)
-    end = got[-1].numpy()
-    assert (end[:, :2] == 0).all()      # every traceback completed
+    _assert_ends(case, arrays, got[-1].numpy())
     return got
 
 
@@ -102,6 +109,33 @@ def _family(rng, len1, n, nops):
         out.append((q, _mutate(rng, q, nops=nops)))
     return out
 
+
+def _short_parents(rng, len1=40):
+    """Parents of length 0, 1 and 2 (cut from their queries, and one
+    random base) beside mutated copies."""
+    qs = [rng.integers(0, 4, len1).astype(np.uint8) for _ in range(4)]
+    return ([(qs[0], qs[0][:0]), (qs[1], qs[1][:1]), (qs[2], qs[2][3:5]),
+             (qs[3], rng.integers(0, 4, 1).astype(np.uint8))]
+            + _family(rng, len1, 20, 6))
+
+
+def _cut_parents(rng, len1=150, cut=100, step=4):
+    """Queries against their own prefixes, up to cut - step nt shorter,
+    and mutated copies: at the defaults the band needs a window of about
+    80 rows."""
+    out = []
+    for k in range(0, cut, step):
+        q = rng.integers(0, 4, len1).astype(np.uint8)
+        out.append((q, q[: len1 - k]))
+    return out + _family(rng, len1, 30, 8)
+
+
+# lanes (block, lane) given len2 = len2max + 1, a geometry the kernel's
+# buffers cannot hold: those tracebacks fail and report (len1, len2)
+FAILED_LANES = {"failed_lane": [(0, 5), (1, 0)]}
+# windows (rows) cut below what the band needs: tracebacks that leave the
+# window get stuck, and the class rows class their last step as 4
+CUT_WP = {"window_cut": 32}
 
 PAIRS_CASES = {
     # per-lane distinct queries, one len1, substitutions and indels
@@ -118,28 +152,71 @@ PAIRS_CASES = {
     # a ragged tail: pad lanes repeat lane 0
     "pad_tail": lambda rng: [(150, _family(rng, 150, 128, 20)),
                              (150, _family(rng, 150, 37, 20))],
+    # parents of length 0, 1 and 2
+    "short_parents": lambda rng: [(40, _short_parents(rng))],
+    # a window cut below the band (CUT_WP): stuck tracebacks
+    "window_cut": lambda rng: [(150, _cut_parents(rng))],
+    # lanes whose geometry fails (FAILED_LANES), one of them a pad lane's
+    # source, over two blocks
+    "failed_lane": lambda rng: [(60, _family(rng, 60, 128, 8)),
+                                (58, _family(rng, 58, 50, 8))],
 }
+
+
+def pairs_case(case):
+    """A PAIRS_CASES mix's kernel inputs (arrays, geometry), with its
+    window cut and its failed lanes applied."""
+    rng = np.random.default_rng(len(case))
+    arrays, geom = pairs_inputs(rng, PAIRS_CASES[case](rng),
+                                wp=CUT_WP.get(case),
+                                quals=case in ("short_parents", "window_cut",
+                                               "failed_lane"))
+    for b, lane in FAILED_LANES.get(case, ()):
+        arrays[1][b, 0, lane] = arrays[0][b, 1] + 1
+    return arrays, geom
+
+
+def _assert_ends(case, arrays, end):
+    """The case is what it says: every traceback completes (end (0, 0)),
+    but for FAILED_LANES, which report (len1, len2), and CUT_WP's cases,
+    where some get stuck and some complete."""
+    done = (end[:, 0] == 0) & (end[:, 1] == 0)          # [nb, 128]
+    if case in CUT_WP:
+        assert not done.all() and done.any()
+        return
+    failed = FAILED_LANES.get(case, [])
+    for b, lane in failed:
+        assert end[b, :2, lane].tolist() == [arrays[0][b, 0],
+                                             arrays[1][b, 0, lane]]
+    assert int((~done).sum()) == len(failed)
 
 
 @pytest.mark.parametrize("case", sorted(PAIRS_CASES))
 def test_pairs_mode_b2(case):
-    rng = np.random.default_rng(len(case))
-    arrays, geom = pairs_inputs(rng, PAIRS_CASES[case](rng))
-    got = _check(arrays, geom, "cls", True, ("cls", "sub", "mapq", "end"))
+    arrays, geom = pairs_case(case)
+    got = _check(arrays, geom, "cls", True, ("cls", "sub", "mapq", "end"),
+                 case)
     cls = got[0].numpy()
     assert set(np.unique(cls)) <= {0, 1, 2, 3, 4}
-    # every pair's columns: one active step per column
+    # every completed pair's columns: one active step per column
     nact = (cls != 0).sum(axis=1)
     l2 = arrays[1][:, 0]
-    assert (nact >= np.maximum(arrays[0][:, :1], l2)).all()
+    end = got[-1].numpy()
+    done = (end[:, 0] == 0) & (end[:, 1] == 0)
+    assert (nact >= np.maximum(arrays[0][:, :1], l2))[done].all()
+    # a failed lane's rows stay 0; a stuck one classes its last step 4
+    assert (nact[~done & (l2 > arrays[0][:, 1:2])] == 0).all()
+    if case in CUT_WP:
+        stuck = np.argwhere(~done)
+        assert all(cls[b, end[b, 0, k] + end[b, 1, k], k] == 4
+                   for b, k in stuck)
 
 
 @functools.lru_cache(maxsize=None)
 def _pairs_case_pallas(case):
     """A PAIRS_CASES mix and the Pallas kernel's class rows and ends on it
     (interpret mode), made once per mix."""
-    rng = np.random.default_rng(len(case))
-    arrays, geom = pairs_inputs(rng, PAIRS_CASES[case](rng))
+    arrays, geom = pairs_case(case)
     cls, _sub, _mapq, end = _nwp()._pallas_call(
         *arrays, end_gap_p=0, interpret=True, emit_kinds="cls", halves=1,
         s1_per_block=True, **geom)
@@ -172,7 +249,7 @@ def test_pairs_stats_ref_matches_pallas(case, oo, max_shift):
     np.testing.assert_array_equal(got[:, :5].numpy(), want)
     np.testing.assert_array_equal(got[:, 5].numpy(),
                                   end_rows[:, 0] | end_rows[:, 1])
-    assert (got[:, 5] == 0).all()       # every traceback completed
+    _assert_ends(case, arrays, end)
     assert (got[:, :5] >= 0).all() and got[:, :5].sum() > 0
 
 
@@ -479,3 +556,73 @@ def test_b3_every_pairs_per_block_on_card(monkeypatch):
     assert nww.pairs_per_block(384, 384, 512, 32, 3, 1) == 1
     P = nww.pairs_per_block(384, 384, 512, 32, 3, 169)
     assert P > 1 and nww.compare_blocks_per_sm(384, 384, 512, 32, P, 3) >= 4
+
+
+def _b2_card_cases(rng):
+    """Kernel B2's class-row launches for the card test, (label, arrays,
+    geom, failed lanes or None where tracebacks get stuck): at windows of
+    32, 64, 96 and 128 rows, two blocks of mutated 250-nt pairs with one
+    lane whose geometry fails, 40-nt queries against parents of length 0,
+    1 and 2, and 400-nt queries against their prefixes, up to 294 nt
+    shorter, under a window cut to those rows (the band needs about 170:
+    tracebacks get stuck); and 1,450-nt pairs (PacBio full-length 16S) at
+    64 rows. Random qualities in s2q."""
+    cut = [(400, _cut_parents(rng, 400, 300, 6))]
+    out = []
+    for wp in (32, 64, 96, 128):
+        arrays, geom = pairs_inputs(
+            rng, [(250, _family(rng, 250, 128, 8)),
+                  (247, _family(rng, 247, 100, 8))], wp=wp, quals=True)
+        arrays[1][0, 0, 5] = arrays[0][0, 1] + 1
+        out.append((f"family WP={wp}", arrays, geom, [(0, 5)]))
+        out.append((f"short parents WP={wp}", *pairs_inputs(
+            rng, [(40, _short_parents(rng))], wp=wp, quals=True), []))
+        out.append((f"window cut to WP={wp}", *pairs_inputs(
+            rng, cut, wp=wp, quals=True), None))
+    out.append(("1450 nt WP=64", *pairs_inputs(
+        rng, [(1450, _family(rng, 1450, 128, 30)),
+              (1447, _family(rng, 1447, 100, 30))], wp=64, quals=True), []))
+    return out
+
+
+@pytest.mark.gpu
+def test_b2_every_pairs_per_block_on_card(monkeypatch):
+    """Kernel B2's class rows (nw_compare_kernel's class-row variant)
+    bitwise against their plain version on the card at every pairs per
+    block P that fits and at the fit's own choice: class rows, sub, mapq
+    and end, where tracebacks complete, get stuck and fail on their
+    geometry, and parents are 0, 1 and 2 nt long."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run through chip_smoke.py)")
+    tried = set()
+    kw = dict(emit_kinds="cls", s1_per_block=True)
+    for label, arrays, geom, failed in _b2_card_cases(
+            np.random.default_rng(18)):
+        t = [torch.from_numpy(a).cuda() for a in arrays]
+        want = nww.nw_wavefront_ref(*t, **kw, **geom)
+        fits = [P for P in (1, 2, 4, 8, 16, 32) if nww.compare_blocks_per_sm(
+            geom["L1R"], geom["L2R"], geom["NDP"], geom["WP"], P, 2) > 0]
+        assert 1 in fits, label
+        tried.update(fits)
+        for P in [None] + fits:
+            monkeypatch.setattr(nww, "PAIRS_PER_BLOCK", P)
+            got = nww.nw_wavefront(*t, **kw, **geom)
+            for name, x, y in zip(("cls", "sub", "mapq", "end"), got, want):
+                assert torch.equal(x, y), f"{label}, P={P}: {name}"
+        end = want[3][:, :2].cpu().numpy()
+        done = (end[:, 0] == 0) & (end[:, 1] == 0)
+        if failed is None:
+            assert not done.all() and done.any(), label
+        else:
+            assert int((~done).sum()) == len(failed), label
+            assert all(not done[b, lane] for b, lane in failed), label
+        if label.startswith("1450"):
+            # the 49 KB slab a pair leaves room for two pairs at most
+            assert nww.compare_blocks_per_sm(geom["L1R"], geom["L2R"],
+                                             geom["NDP"], 64, 4, 2) == 0
+    assert tried == {1, 2, 4, 8, 16, 32}
+    # B2's fit: one pair a block for a one-block launch; at the chimera
+    # table's 1024-block launch a larger P that keeps four blocks an SM
+    assert nww.pairs_per_block(384, 384, 512, 32, 2, 1) == 1
+    P = nww.pairs_per_block(384, 384, 512, 32, 2, 1024)
+    assert P > 1 and nww.compare_blocks_per_sm(384, 384, 512, 32, P, 2) >= 4
