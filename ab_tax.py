@@ -86,6 +86,9 @@ def main(argv) -> int:
         fa = os.path.join(tmp, "train.fa")
         refs = cs.synthetic_train_set(rng, fa)
         queries, _ = cs.v4_queries(rng, refs, 2000)
+        # phases are recorded only while tracing is on (where the
+        # checkout has trace.enable)
+        getattr(dt.trace, "enable", lambda: None)()
         dt.PHASES.reset()
         t0 = time.time()
         dt.assign_taxonomy(queries, fa, tryRC=True, outputBootstraps=True,

@@ -3337,6 +3337,9 @@ def main() -> None:
         from dada2_tpu_torch.options import DEFAULT_OPTIONS
     except ImportError as e:
         fail(f"dada2_tpu_torch is not importable next to this script: {e}")
+    # the [phases] lines and the per-phase fetch bytes are views over
+    # the recorded spans
+    dt.trace.enable()
     if "jax" in sys.modules or "dada2_tpu" in sys.modules:
         fail("the port imported jax or dada2_tpu")
     launches = nww.nw_wavefront.launches

@@ -51,6 +51,7 @@ from .ops.nw_ref import GAP
 from .ops.nw_wavefront import (  # noqa: F401
     _first_false_t, _lr_accum_pairs, _take)
 from .options import DEFAULT_OPTIONS, current_options
+from . import trace
 from .trace import PHASES
 
 _PAD = 255  # padding code outside each pair's alignment length
@@ -198,11 +199,11 @@ def _b4_pair_stats(pairs, seqs, chunk: int, stats, device, **align):
     for lo in range(0, len(pairs), chunk):
         qi = pairs[lo: lo + chunk, 0]
         pi = pairs[lo: lo + chunk, 1]
-        sq = torch.from_numpy(mat[qi]).to(dev)
-        sp = torch.from_numpy(mat[pi]).to(dev)
+        sq = trace.put(mat[qi], dev)
+        sp = trace.put(mat[pi], dev)
         kinds, p0, p1, _, _, ok = nw_batch(sq, lens[qi], sp, lens[pi],
                                            end_gap_p=0, device=dev, **align)
-        if not bool(ok.all()):
+        if not trace.item(ok.all()):
             raise RuntimeError("N-W Align out of range.")
         rows.append(_fetch(stats(kinds, p0, p1, sq, sp)))
     return np.concatenate(rows).astype(np.int64)
@@ -838,32 +839,10 @@ def remove_bimera_denovo(unqs, method: str = "consensus",
     dev = resolve_device(device)
     if isinstance(unqs, pd.DataFrame) and "sequence" not in unqs.columns:
         # sequence table: samples x sequences
-        if method == "pooled":
-            pooled = {s: int(a) for s, a in
-                      zip(unqs.columns, unqs.values.sum(axis=0))}
-            bim = is_bimera_denovo(pooled, verbose=verbose, device=dev,
-                                   **kwargs)
-        elif method == "consensus":
-            bim = is_bimera_denovo_table(unqs, verbose=verbose, device=dev,
-                                         **kwargs)
-        elif method == "per-sample":
-            out = unqs.copy()
-            for i in range(out.shape[0]):
-                row = {s: int(a) for s, a in
-                       zip(out.columns, out.iloc[i]) if a > 0}
-                if not row:
-                    continue
-                bim_i = is_bimera_denovo(row, verbose=verbose, device=dev,
-                                         **kwargs)
-                for s, b in bim_i.items():
-                    if b:
-                        out.iloc[i, out.columns.get_loc(s)] = 0
-            keep = out.values.sum(axis=0) > 0
-            return out.loc[:, keep]
-        else:
-            raise ValueError("Valid values for method: 'pooled', "
-                             "'consensus', or 'per-sample'")
-        return unqs.loc[:, ~bim.values]
+        with PHASES("chimera.table"):
+            trace.attrs(asvs=unqs.shape[1], samples=unqs.shape[0],
+                        method=method)
+            return _remove_bimera_table(unqs, method, verbose, dev, kwargs)
     if isinstance(unqs, DadaResult):
         bim = is_bimera_denovo(unqs, verbose=verbose, device=dev, **kwargs)
         return {s: a for (s, a), b in zip(unqs.denoised.items(), bim)
@@ -881,6 +860,37 @@ def remove_bimera_denovo(unqs, method: str = "consensus",
     raise TypeError("Unrecognized format: requires uniques dict, "
                     "DadaResult, Derep, clustering DataFrame or sequence "
                     "table.")
+
+
+def _remove_bimera_table(unqs: pd.DataFrame, method: str, verbose: bool,
+                         dev, kwargs) -> pd.DataFrame:
+    """remove_bimera_denovo on a sequence table (samples x sequences)."""
+    if method == "pooled":
+        pooled = {s: int(a) for s, a in
+                  zip(unqs.columns, unqs.values.sum(axis=0))}
+        bim = is_bimera_denovo(pooled, verbose=verbose, device=dev,
+                               **kwargs)
+    elif method == "consensus":
+        bim = is_bimera_denovo_table(unqs, verbose=verbose, device=dev,
+                                     **kwargs)
+    elif method == "per-sample":
+        out = unqs.copy()
+        for i in range(out.shape[0]):
+            row = {s: int(a) for s, a in
+                   zip(out.columns, out.iloc[i]) if a > 0}
+            if not row:
+                continue
+            bim_i = is_bimera_denovo(row, verbose=verbose, device=dev,
+                                     **kwargs)
+            for s, b in bim_i.items():
+                if b:
+                    out.iloc[i, out.columns.get_loc(s)] = 0
+        keep = out.values.sum(axis=0) > 0
+        return out.loc[:, keep]
+    else:
+        raise ValueError("Valid values for method: 'pooled', "
+                         "'consensus', or 'per-sample'")
+    return unqs.loc[:, ~bim.values]
 
 
 def is_shift_denovo(unqs, minOverlap: int = 20, flagSubseqs: bool = False,

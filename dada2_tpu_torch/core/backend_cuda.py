@@ -61,6 +61,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import trace as _trace
 from ..encode import GAP_GLYPH, KMER_SIZE, N_KMERS
 from ..options import DadaOptions
 from ..ops import nw_batch as nwb
@@ -99,8 +100,7 @@ def _unpack_seqs(packed2, lens, W: int):
                        dim=2).reshape(n, -1)[:, :W]
     pos = torch.arange(W, device=packed2.device)[None, :]
     return torch.where(pos < lens[:, None], cols.to(torch.int8),
-                       torch.tensor(-1, dtype=torch.int8,
-                                    device=packed2.device))
+                       _trace.scalar(-1, torch.int8, packed2.device))
 
 
 def _pack_construction(seqs: np.ndarray, quals: Optional[np.ndarray]):
@@ -149,15 +149,8 @@ def _construct_dev(blob, lens, *, n: int, W: int, q6: bool,
     return seqs, q.reshape(n, -1)[:, :W].to(torch.uint8).contiguous()
 
 
-def _fetch(x: torch.Tensor) -> np.ndarray:
-    """Device -> host read, tallied in COUNTERS and the active phase."""
-    from ..trace import COUNTERS, PHASES
-
-    out = x.cpu().numpy()
-    COUNTERS.device_fetches += 1
-    COUNTERS.fetch_bytes += int(out.nbytes)
-    PHASES.add_bytes(int(out.nbytes))
-    return out
+# device -> host read of a tensor, counted (trace.fetch)
+_fetch = _trace.fetch
 
 
 def _kmer_tables(seqs, lens):
@@ -506,12 +499,8 @@ class CudaBackend(CompareBackend):
         self._tvec_host_cache: dict = {}
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
-        from ..trace import COUNTERS
-
-        x = np.ascontiguousarray(x)
-        COUNTERS.device_puts += 1
-        COUNTERS.put_bytes += int(x.nbytes)
-        return torch.from_numpy(x).to(self.device)
+        """Host -> device upload, counted (trace.put)."""
+        return _trace.put(x, self.device)
 
     # ---- geometry and caches ------------------------------------------
 
@@ -732,8 +721,7 @@ class CudaBackend(CompareBackend):
 
     def _rows(self, x: torch.Tensor, rows: np.ndarray) -> np.ndarray:
         """Fetch the given rows of a device tensor."""
-        idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
-        return _fetch(x[idx])
+        return _fetch(x[self._put(np.asarray(rows, np.int64))])
 
     def _screens(self, center: int):
         minsum, kmatch = _screens_dev(self.d_kmers, self.d_kords,
@@ -1093,7 +1081,7 @@ class CudaBackend(CompareBackend):
         self._bud_ordinal = 0
         sp = self._spec
         if sp is not None and sp["segs"]:
-            COUNTERS.spec_wasted += len(sp["segs"])
+            COUNTERS.add("spec_wasted", len(sp["segs"]))
         self._spec = None
         if self._centers_cur:
             self._centers_prev = self._centers_cur
@@ -1157,18 +1145,18 @@ class CudaBackend(CompareBackend):
         if sp is None or not sp["segs"]:
             return None
         if sp["key"] != (hash(err.tobytes()), self._opts_key(opts)):
-            COUNTERS.spec_wasted += len(sp["segs"])
+            COUNTERS.add("spec_wasted", len(sp["segs"]))
             self._spec = None
             return None
         seg = sp["segs"].pop(center, None)
         if seg is None:
-            COUNTERS.spec_misses += 1
+            COUNTERS.add("spec_misses")
             return None
         if any(a != sp["main"] and a not in sp["consumed"]
                for a in seg["assumed"]):
-            COUNTERS.spec_misses += 1
+            COUNTERS.add("spec_misses")
             return None
-        COUNTERS.spec_hits += 1
+        COUNTERS.add("spec_hits")
         if seg["rank"]:
             self._spec_run[0] += 1
         sp["consumed"].add(int(center))
@@ -1344,7 +1332,7 @@ class CudaBackend(CompareBackend):
         if specs:
             sp = self._spec
             if sp is not None and sp["segs"]:
-                COUNTERS.spec_wasted += len(sp["segs"])
+                COUNTERS.add("spec_wasted", len(sp["segs"]))
             segs = {g["c"]: dict(
                 buf=host[g["off"]: g["off"] + g["len"]], M0=M0s, K=Ks,
                 kind=kind, ent=g["ent"], order_u=g["order_u"],
@@ -1419,7 +1407,7 @@ class CudaBackend(CompareBackend):
             if follow is not None:
                 M, buf2 = follow
             else:
-                COUNTERS.followup_fetches += 1
+                COUNTERS.add("followup_fetches")
                 M = min(ss.bucket15(m_u - MU), self.nd - MU)
                 with PHASES("be.bud_fetch"):
                     buf2 = _fetch(ss.take_subs(
@@ -1459,7 +1447,7 @@ class CudaBackend(CompareBackend):
         if (~gl_bit).any() and not ok[~gl_bit].all():
             raise RuntimeError("N-W Align out of range.")
         ham[rows_idx] = ham_sel
-        COUNTERS.gapless += int(gl_bit.sum())
+        COUNTERS.add("gapless", int(gl_bit.sum()))
         # fetched rows decode; cached rows are complete records
         fits = (ham_sel <= K) | cmask
         fit_u = ham_sel[ucm] <= K
@@ -1489,7 +1477,7 @@ class CudaBackend(CompareBackend):
                 lam[gl_over] = self._lam_gapless(center, gl_over, err)
         al_over = rows_idx[over & ~gl_bit]
         if len(al_over):
-            COUNTERS.dense_refetches += len(al_over)
+            COUNTERS.add("dense_refetches", len(al_over))
             with PHASES("be.tvec"):
                 tvec = self._fetch_tvec_rows(ent[1], al_over)
             with PHASES("be.lambdas"):
@@ -1727,7 +1715,7 @@ class CudaBackend(CompareBackend):
         rows_idx = buf[o2:o3].copy().view(np.int32)[:m1].astype(np.int64)
         subs = buf[o3:o4].copy().view(np.uint16).reshape(M0, Kc)[:m1]
         if m > M0:
-            COUNTERS.followup_fetches += 1
+            COUNTERS.add("followup_fetches")
             M = min(ss.bucket15(m - M0), nd - M0)
             with PHASES("be.full_fetch"):
                 buf2 = _fetch(ss.take_subs(
@@ -1758,7 +1746,7 @@ class CudaBackend(CompareBackend):
             raise RuntimeError("N-W Align out of range.")
         ham[gl_idx] = ham_gl_v[gl_idx]
         ham[al_idx] = ham_all_v[al_idx]
-        COUNTERS.gapless += len(gl_idx)
+        COUNTERS.add("gapless", len(gl_idx))
         ng = gl_idx[need[gl_idx]]
         na = al_idx[need[al_idx]]
         if len(ng):
@@ -1773,7 +1761,7 @@ class CudaBackend(CompareBackend):
             fits = ham_all_v[na] <= Kc
             over = na[~fits]
             if len(over):
-                COUNTERS.dense_refetches += len(over)
+                COUNTERS.add("dense_refetches", len(over))
                 with PHASES("be.tvec"):
                     tvd = self._fetch_tvec_rows(ent[1], over)
             if screened:
@@ -1916,7 +1904,7 @@ class CudaBackend(CompareBackend):
                     continue
                 m = int(big[off: off + 4].copy().view(np.int32)[0])
                 if m > M0:
-                    COUNTERS.followup_fetches += 1
+                    COUNTERS.add("followup_fetches")
                     M = min(ss.bucket15(m - M0), nd - M0)
                     fdisp.append((ci, M, ss.take_subs(
                         d[3], d[1][1], self.d_seqs, self.d_lens,
@@ -1951,6 +1939,7 @@ class CudaBackend(CompareBackend):
 
     # ---- CompareBackend interface -------------------------------------
 
+    @_trace.phase("be.compare")
     def compare(self, center: int, skip: np.ndarray, opts: DadaOptions,
                 err: np.ndarray, use_kmers: bool, kdist_cutoff: float,
                 e_thresh: Optional[np.ndarray] = None):
@@ -2041,7 +2030,7 @@ class CudaBackend(CompareBackend):
                                      e_thresh)
         else:
             need = np.ones(n, dtype=bool)
-        COUNTERS.gapless += len(gl_idx)
+        COUNTERS.add("gapless", len(gl_idx))
         ng = gl_idx[need[gl_idx]]
         na = al_idx[need[al_idx]]
         if (err == 1.0).all():
@@ -2074,7 +2063,7 @@ class CudaBackend(CompareBackend):
         if use_kmers:
             cand &= ~self._shrouded(center, kdist_cutoff, None, None)
         idx = np.nonzero(cand)[0]
-        COUNTERS.gapless += len(idx)
+        COUNTERS.add("gapless", len(idx))
         if len(idx):
             with PHASES("be.lambdas"):
                 lam[idx] = self._lam_gapless(center, idx, err)
@@ -2097,7 +2086,7 @@ class CudaBackend(CompareBackend):
         gl_idx = np.nonzero(cand & gapless)[0]
         al_idx = np.nonzero(cand & ~gapless)[0]
         if len(gl_idx):
-            COUNTERS.gapless += len(gl_idx)
+            COUNTERS.add("gapless", len(gl_idx))
             tvec, h = self._gapless_tvec_ham(center, gl_idx)
             with PHASES("be.lambdas"):
                 lam[gl_idx] = self._lambdas(gl_idx, tvec, err)
@@ -2241,6 +2230,7 @@ class CudaBackend(CompareBackend):
         return self._subs_batch(i0, np.array([i1], np.int64), opts,
                                 use_kmers, kdist_cutoff)[0]
 
+    @_trace.phase("be.subs_pairs")
     def subs_pairs(self, pairs, opts: DadaOptions, use_kmers: bool,
                    kdist_cutoff: float):
         """Sub for every (from_center, to_center) pair with two fetches
@@ -2313,7 +2303,7 @@ class CudaBackend(CompareBackend):
             raise RuntimeError("N-W Align out of range.")
         # only the center's columns cross (backend_tpu._gather_rows_slice)
         W = _round_up(len0 + 2, 64)
-        idx = torch.from_numpy(members).to(self.device)
+        idx = self._put(members)
         mr = _fetch(ent[0][idx, :W])[:, 1: len0 + 1].astype(np.int64)
         diag = (mr & 7) >= 2
         jq = (mr >> 3) & 0x3FFF
@@ -2336,7 +2326,7 @@ class CudaBackend(CompareBackend):
         counts the substitutions among them (the Sub's nsubs)."""
         len0 = int(self.lens[center])
         kinds, p0, p1, ham, _, ok = self._align_batch(center, members, opts)
-        if not bool(ok.all()):
+        if not _trace.item(ok.all()):
             raise RuntimeError("N-W Align out of range.")
         diag = kinds == nwb.PTR_DIAG
         i64 = torch.int64
@@ -2347,6 +2337,7 @@ class CudaBackend(CompareBackend):
                        torch.where(diag, p1.to(i64), GAP_GLYPH))
         return _fetch(p1mat[:, :len0]), _fetch(ham).astype(np.int64)
 
+    @_trace.phase("be.cluster_stats")
     def cluster_stats_all(self, clusters, opts: DadaOptions, ncol: int,
                           use_quals: bool):
         """Every cluster's output tallies from the kernel's map records,
@@ -2373,7 +2364,7 @@ class CudaBackend(CompareBackend):
                 continue
             ent = self._align_ent(center, opts,
                                   self._kernel_geom(len0, opts))
-            midx = torch.from_numpy(members).to(self.device)
+            midx = self._put(members)
             w = self._put(np.where(correct, self.rs.reads[members],
                                    0).astype(np.int64))[:, None]
             rows = ent[0][midx][:, 1: len0 + 1].to(i64)
@@ -2385,8 +2376,8 @@ class CudaBackend(CompareBackend):
             qacc = torch.where(diag, q1 * w, 0).sum(dim=0)
             qcnt = torch.where(diag, w, 0).sum(dim=0)
             trans = torch.zeros(16 * ncol, dtype=i64, device=self.device)
-            trans.index_add_(0, (t * ncol + qq)[diag],
-                             w.expand_as(t)[diag])
+            trans.index_add_(0, _trace.select(t * ncol + qq, diag),
+                             _trace.select(w.expand_as(t), diag))
             sm = ent[2][midx]
             # little-endian int16 from the pack's two leading bytes
             ham = (sm[:, 1].to(i64) << 8) | (sm[:, 0].to(i64) & 0xFF)

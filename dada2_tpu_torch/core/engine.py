@@ -277,8 +277,6 @@ class Engine:
     # ----- compare (reference: src/cluster.cpp:13-204) -----
 
     def compare(self, i: int, use_kmers: bool, kdist_cutoff: float):
-        import time as _time
-
         from ..trace import COUNTERS
 
         bi = self.clusters[i]
@@ -288,7 +286,6 @@ class Engine:
             skip = (self.rs.reads > center_reads) | self.lock
         else:
             skip = np.zeros(self.n, dtype=bool)
-        t0 = _time.time()
         lam, ham = self.backend.compare(center, skip, self.opts, self.err,
                                         use_kmers, kdist_cutoff,
                                         self.E_minmax / self.total_reads)
@@ -303,10 +300,9 @@ class Engine:
             nshrouded = int(((ham < 0) & ~skip).sum())
         self.nalign += naligned
         self.nshroud += nshrouded
-        COUNTERS.compares += 1
-        COUNTERS.alignments += naligned
-        COUNTERS.shrouded += nshrouded
-        COUNTERS.compare_seconds += _time.time() - t0
+        COUNTERS.add("compares")
+        COUNTERS.add("alignments", naligned)
+        COUNTERS.add("shrouded", nshrouded)
 
         # Selective store (reference: src/cluster.cpp:179-201): keep the
         # comparison only if this cluster could attract the raw.

@@ -12,6 +12,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import pandas as pd
 
+from . import trace
 from .core.backend_cuda import CudaBackend, resolve_device
 from .core.engine import Engine
 from .core.output import finalize
@@ -78,8 +79,6 @@ def dada_uniques(
 
     reference: src/Rmain.cpp:30-295 (dada_uniques).
     """
-    from .trace import PHASES
-
     n = len(sequences)
     if n == 0:
         raise ValueError("Zero input sequences.")
@@ -152,12 +151,21 @@ def dada(
     the kernels' plain PyTorch versions on the CPU. Mutually exclusive
     with mesh.
     """
+    # verbose >= 2 traces the call and prints each sample's own counters
+    # and phases
+    with trace.tracing(int(verbose) >= 2), PHASES("dada.call"):
+        return _dada(derep, err, errorEstimationFunction, selfConsist, pool,
+                     priors, int(verbose), multithread, checkpoint, mesh,
+                     device, opt_overrides)
+
+
+def _dada(derep, err, errorEstimationFunction, selfConsist, pool, priors,
+          verbose, multithread, checkpoint, mesh, device, opt_overrides):
     if mesh is not None and device is not None:
         raise ValueError("dada(): mesh and device are mutually exclusive")
     if device is not None:
         device = resolve_device(device)
     opts = current_options().replace(**opt_overrides)
-    verbose = int(verbose)
 
     # --- derep argument handling (R/dada.R:171-180) ---
     single_input = False
@@ -267,6 +275,17 @@ def dada(
     pvals = [None] * len(derep)
 
     def _one_sample(i, drpi):
+        with PHASES("sample"):
+            if trace.is_on():
+                trace.attrs(index=i, name=sample_names[i],
+                            uniques=len(drpi.uniques),
+                            reads=int(drpi.abundances.sum()),
+                            round=nconsist)
+            _sample(i, drpi)
+            if verbose >= 2:
+                print("   " + trace.unit_report())
+
+    def _sample(i, drpi):
         seqs = drpi.sequences
         if not all(is_acgt(seqs)):
             raise ValueError("Sequences must be made up only of A/C/G/T.")
@@ -293,7 +312,6 @@ def dada(
             # one backend per sample for the WHOLE selfConsist loop:
             # packed candidate tiles, kmer tables and geometry caches
             # are error-independent, so later rounds skip their rebuild
-            from .trace import PHASES
             with PHASES("dada.backend_init"):
                 rawset = make_rawset(seqs, drpi.abundances, prior_flags,
                                      drpi.quals if opts.USE_QUALS else None)
@@ -318,11 +336,6 @@ def dada(
             nread = int(drpi.abundances.sum())
             print(f"Sample {i + 1} - {nread} reads in "
                   f"{len(seqs)} unique sequences.")
-        if verbose >= 2:
-            from .trace import COUNTERS
-            print("   " + COUNTERS.summary())
-            from .trace import PHASES
-            print("   phases: " + PHASES.summary())
 
     # multi-process mesh: each process passes (and drives) ITS OWN
     # samples — derep IO is never duplicated across processes. The 16 x Q
@@ -345,6 +358,11 @@ def dada(
         nworkers = min(len(derep),
                        int(multithread) if not isinstance(multithread, bool)
                        else max(2, (_os.cpu_count() or 2) // 2))
+
+    sample_names = (input_names if input_names is not None
+                    and len(input_names) == len(derep) else
+                    [d.name or str(k) for k, d in enumerate(derep)])
+    trace.attrs(samples=len(derep), workers=nworkers)
 
     while True:
         if nconsist > 0:
@@ -374,12 +392,11 @@ def dada(
             # meshless, or every process's identical pooled tally
             cur = accumulate_trans(trans)
 
-        from .trace import PHASES as _PH
         if errorEstimationFunction is None:
             err = None
         else:
             try:
-                with _PH("dada.errfun"):
+                with PHASES("dada.errfun"):
                     err = errorEstimationFunction(cur)
             except Exception:
                 if selfConsist or verbose >= 2:

@@ -12,6 +12,9 @@ import subprocess
 import threading
 from typing import Optional
 
+from .. import trace
+from ..trace import PHASES
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_HERE, "io_native.cpp"),
          os.path.join(_HERE, "rmath_native.cpp"),
@@ -49,17 +52,19 @@ def get_lib() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _failed:
             return _lib
-        fresh = (os.path.exists(_LIB) and
-                 all(os.path.getmtime(_LIB) >= os.path.getmtime(f)
-                     for f in _SRCS + _HDRS))
-        if not fresh and not _build():
-            _failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(_LIB)
-        except OSError:
-            _failed = True
-            return None
+        with PHASES("build.native"):
+            fresh = (os.path.exists(_LIB) and
+                     all(os.path.getmtime(_LIB) >= os.path.getmtime(f)
+                         for f in _SRCS + _HDRS))
+            trace.attrs(built=not fresh)
+            if not fresh and not _build():
+                _failed = True
+                return None
+            try:
+                lib = ctypes.CDLL(_LIB)
+            except OSError:
+                _failed = True
+                return None
         lib.derep_fastq_native.restype = ctypes.c_void_p
         lib.derep_fastq_native.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                            ctypes.c_int]

@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from . import nw_wavefront as nww
 
 NEG = -(2**29)
@@ -220,7 +221,7 @@ def slab_words(nd: int, W: int, r: int = 2) -> int:
 # ---- the wrapper -----------------------------------------------------------
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return trace.fetch(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _on(x, dtype, dev) -> torch.Tensor:
@@ -230,7 +231,7 @@ def _on(x, dtype, dev) -> torch.Tensor:
         x = np.asarray(x)
         if dtype == torch.int8 and x.dtype != np.int8:
             x = x.astype(np.int64).astype(np.int8)
-        x = torch.from_numpy(np.ascontiguousarray(x))
+        x = trace.put(x, dev)
     return x.to(device=dev, dtype=dtype).contiguous()
 
 

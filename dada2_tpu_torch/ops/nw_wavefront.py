@@ -45,6 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
+
 NEG = -(2**29)
 LANES = 128
 WP_MAX = 128    # widest window (rows) the kernel serves, in steps of 32
@@ -86,9 +88,11 @@ def build_library(src: str, so: str, log: str) -> str:
     libraries build in parallel from two threads."""
     with _lock:
         lock = _build_locks.setdefault(so, threading.Lock())
-    with lock:
+    name = os.path.splitext(os.path.basename(src))[0]
+    with lock, trace.PHASES(f"build.{name}"):
         fresh = (os.path.exists(so) and os.path.exists(log)
                  and os.path.getmtime(so) >= os.path.getmtime(src))
+        trace.attrs(built=not fresh)
         if not fresh:
             os.makedirs(os.path.dirname(so), exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
@@ -677,7 +681,7 @@ def nw_wavefront_grouped(s1: np.ndarray, len1: int, s2b, len2b, *, match,
     block_idx, arrays, geom = grouped_inputs(s1, len1, s2b, len2b, band)
 
     def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return trace.put(x, dev)
 
     kinds_blocks = nw_wavefront(
         *(put(a) for a in arrays), match=int(match), mismatch=int(mismatch),
@@ -697,9 +701,8 @@ def nw_wavefront_grouped(s1: np.ndarray, len1: int, s2b, len2b, *, match,
         put(s2b.astype(np.int8)), put(len2b), nd=geom["NDP"])
     # kinds rows are diagonal-ascending = forward alignment order; flip to
     # the traceback-reverse convention shared with nw_batch
-    return (kinds.flip(1).cpu().numpy(), p0.flip(1).cpu().numpy(),
-            p1.flip(1).cpu().numpy(), ham.cpu().numpy(),
-            tvec.cpu().numpy(), ok.cpu().numpy())
+    return tuple(trace.fetch(x) for x in (kinds.flip(1), p0.flip(1),
+                                          p1.flip(1), ham, tvec, ok))
 
 
 # ---- host helpers (copies of dada2_tpu/ops/nw_pallas.py) -------------------
