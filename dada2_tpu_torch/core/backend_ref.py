@@ -65,3 +65,45 @@ class OracleBackend(CompareBackend):
         # (reference: src/Rmain.cpp:209 passes use_kmers=false, cutoff=1.0)
         return [self._pair_sub(center, int(m), opts, False, 1.0)
                 for m in members]
+
+
+class GaplessBackend(CompareBackend):
+    """A cheap, exact stand-in for sizing and testing the engine on the
+    CPU, for substitution-only samples: each raw is compared with the
+    center position by position from the start (no gaps, no k-mer
+    screen). Its lambda is the product of the error matrix's entries
+    over the raw's positions, a position past the center's end read as
+    a match; its ham is the mismatches over the shared positions plus
+    the difference in length. It provides compare() alone, so the
+    engine runs but finalize does not."""
+
+    ROWS = 2048   # rows a block, to bound the gathered [rows, len] floats
+
+    def __init__(self, rawset: RawSet, use_quals: bool = True):
+        self.rs = rawset
+        self.use_quals = use_quals and rawset.quals is not None
+
+    def compare(self, center: int, skip: np.ndarray, opts: DadaOptions,
+                err: np.ndarray, use_kmers: bool, kdist_cutoff: float,
+                e_thresh: Optional[np.ndarray] = None):
+        rs = self.rs
+        W = rs.max_len
+        L0 = int(rs.lens[center])
+        s0 = rs.seqs[center].astype(np.int64)
+        pos = np.arange(W)
+        lam = np.zeros(rs.n)
+        ham = np.full(rs.n, -1, dtype=np.int64)
+        idx = np.flatnonzero(~skip)
+        for lo in range(0, len(idx), self.ROWS):
+            rows = idx[lo:lo + self.ROWS]
+            s1 = rs.seqs[rows].astype(np.int64)
+            mine = pos[None, :] < rs.lens[rows, None]
+            both = mine & (pos[None, :] < L0)
+            t = np.where(both, 4 * s0[None, :] + s1,
+                         np.where(mine, 5 * s1, 0))
+            q = (rs.quals[rows] if self.use_quals
+                 else np.zeros(s1.shape, np.int64))
+            lam[rows] = np.prod(np.where(mine, err[t, q], 1.0), axis=1)
+            ham[rows] = ((both & (s1 != s0[None, :])).sum(axis=1)
+                         + np.abs(rs.lens[rows].astype(np.int64) - L0))
+        return lam, ham

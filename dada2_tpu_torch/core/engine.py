@@ -11,7 +11,9 @@ shuffling, p-value updates) are exact float64 host bookkeeping.
 Slot-order semantics: the reference stores cluster members in arrays mutated
 by swap-with-last pops (src/containers.cpp:183-197); member order affects
 tie-breaking in b_bud and the order of floating-point accumulations in the
-outputs, so we reproduce the same slot discipline with plain lists.
+outputs, so we reproduce the same slot discipline. Membership is kept as
+flat arrays, updated in place (Membership), so shuffle and bud scan every
+raw with vector operations instead of walking the clusters.
 """
 from __future__ import annotations
 
@@ -29,15 +31,20 @@ from ..ops.subs import Sub, calc_pA
 MAX_SHUFFLE = 10  # reference: src/dada.h:30
 
 
-@dataclass
+@dataclass(eq=False)
 class Cluster:
-    """One partition (Bi). reference: src/dada.h:85-105."""
+    """One partition (Bi). reference: src/dada.h:85-105.
 
-    slots: List[int]                    # raw indices in slot order
-    center: int = -1                    # raw index of the center
-    reads: int = 0
-    update_e: bool = True
-    check_locks: bool = True
+    Its members, read total and center live in the engine's Membership
+    at index i, its stored comparisons in the engine's Comparisons; this
+    object reads them there and holds the birth record. It refers to
+    neither the engine nor the other clusters, so an engine and its
+    backend's device memory are freed as soon as the engine is dropped,
+    without waiting for the cycle collector."""
+
+    mem: "Membership" = field(repr=False)
+    cmp: "Comparisons" = field(repr=False)
+    i: int
     birth_type: str = "I"
     birth_from: int = 0
     birth_pval: float = 0.0
@@ -46,33 +53,161 @@ class Cluster:
     birth_comp_i: int = 0
     birth_comp_lam: float = 0.0
     birth_comp_ham: int = 0
-    # comparisons stored for this cluster: per-compare numpy chunks in
-    # insertion order, concatenated lazily (python float lists cost
-    # tens of ms per shuffle at production scale)
-    comp_chunks: list = field(default_factory=list)
-    _comp_cache: Optional[tuple] = field(default=None, repr=False)
 
-    def add_comps(self, idx: np.ndarray, lam: np.ndarray,
-                  ham: np.ndarray) -> None:
-        if len(idx):
-            self.comp_chunks.append((idx, lam, ham))
+    @property
+    def slots(self) -> np.ndarray:
+        """Member raw indices in slot order (a live view: valid until
+        the membership next changes)."""
+        return self.mem.slots(self.i)
+
+    @property
+    def reads(self) -> int:
+        return int(self.mem.reads[self.i])
+
+    @property
+    def center(self) -> int:
+        return int(self.mem.center[self.i])
 
     def comps(self):
-        """(index, lam, ham) arrays over all stored comparisons, in
-        insertion order."""
-        nch = len(self.comp_chunks)
-        if nch == 0:
-            return (np.zeros(0, np.int64), np.zeros(0),
-                    np.zeros(0, np.int64))
-        if nch == 1:
-            return self.comp_chunks[0]
-        if self._comp_cache is None or self._comp_cache[0] != nch:
-            self._comp_cache = (
-                nch,
-                np.concatenate([c[0] for c in self.comp_chunks]),
-                np.concatenate([c[1] for c in self.comp_chunks]),
-                np.concatenate([c[2] for c in self.comp_chunks]))
-        return self._comp_cache[1:]
+        """(index, lam, ham) arrays over this cluster's stored
+        comparisons, in insertion order."""
+        return self.cmp.of(self.i)
+
+
+class Comparisons:
+    """Every cluster's stored comparisons (raw index, lambda, ham), flat
+    in cluster order: cluster i's are [end[i], end[i + 1]). A cluster is
+    compared once, as the newest, so its chunk always goes at the end."""
+
+    def __init__(self, nmax: int):
+        self.end = np.zeros(nmax + 1, dtype=np.int64)
+        self.idx = np.zeros(0, dtype=np.int64)
+        self.lam = np.zeros(0)
+        self.ham = np.zeros(0, dtype=np.int64)
+        self.nclust = 0
+
+    def open(self, i: int) -> None:
+        """Cluster i is new: it holds no comparison yet."""
+        self.nclust = i + 1
+        self.end[i + 1] = self.end[i]
+
+    def of(self, i: int):
+        lo, hi = self.end[i], self.end[i + 1]
+        return self.idx[lo:hi], self.lam[lo:hi], self.ham[lo:hi]
+
+    def add(self, i: int, idx: np.ndarray, lam: np.ndarray,
+            ham: np.ndarray) -> None:
+        if i != self.nclust - 1 or self.end[i + 1] != self.end[i]:
+            raise RuntimeError("a cluster is compared once, as the newest")
+        lo = int(self.end[i])
+        hi = lo + len(idx)
+        if hi > len(self.idx):
+            cap = max(hi, 2 * len(self.idx))
+            for name in ("idx", "lam", "ham"):
+                old = getattr(self, name)
+                buf = np.empty(cap, dtype=old.dtype)
+                buf[:lo] = old[:lo]
+                setattr(self, name, buf)
+        self.idx[lo:hi] = idx
+        self.lam[lo:hi] = lam
+        self.ham[lo:hi] = ham
+        self.end[i + 1] = hi
+
+
+class Membership:
+    """Which raws each cluster holds, in slot order, as flat arrays kept
+    up to date in place.
+
+    Per cluster: its slots (a growable int64 array and a length), its
+    read total and its center. Per raw: its cluster and its slot. A pop
+    moves the last slot into the hole and an append goes to the end
+    (reference: src/containers.cpp:183-197), so slot order is the
+    reference's. Every raw is in exactly one cluster and every cluster
+    keeps its center, so there are at most n clusters."""
+
+    def __init__(self, reads: np.ndarray):
+        n = len(reads)
+        self.raw_reads = np.ascontiguousarray(reads, dtype=np.int64)
+        self.cluster_of = np.zeros(n, dtype=np.int64)
+        self.slot_of = np.arange(n, dtype=np.int64)
+        cap = max(n, 1)
+        self.lens = np.zeros(cap, dtype=np.int64)
+        self.caps = np.zeros(cap, dtype=np.int64)
+        self.reads = np.zeros(cap, dtype=np.int64)
+        self.center = np.full(cap, -1, dtype=np.int64)
+        # each slot array's address, for the native surgery
+        self.ptrs = np.zeros(cap, dtype=np.uintp)
+        self.bufs: List[np.ndarray] = []
+        self.nclust = 0
+        self.new_cluster(capacity=n)
+        self.bufs[0][:n] = self.slot_of
+        self.lens[0] = n
+        self.reads[0] = self.raw_reads.sum()
+
+    def new_cluster(self, capacity: int = 8) -> int:
+        i = self.nclust
+        self.nclust += 1
+        self.bufs.append(np.empty(0, dtype=np.int64))
+        self._reserve(i, capacity)
+        return i
+
+    def _reserve(self, i: int, size: int) -> None:
+        """Grow cluster i's slot array, by doubling, to hold size slots."""
+        cap = int(self.caps[i])
+        if size <= cap:
+            return
+        buf = np.empty(max(size, 2 * cap, 8), dtype=np.int64)
+        k = int(self.lens[i])
+        buf[:k] = self.bufs[i][:k]
+        self.bufs[i] = buf
+        self.caps[i] = len(buf)
+        self.ptrs[i] = buf.ctypes.data
+
+    def slots(self, i: int) -> np.ndarray:
+        return self.bufs[i][:self.lens[i]]
+
+    def pop(self, i: int, slot: int) -> int:
+        buf = self.bufs[i]
+        last = int(self.lens[i]) - 1
+        raw = int(buf[slot])
+        moved = buf[last]
+        buf[slot] = moved
+        self.slot_of[moved] = slot
+        self.lens[i] = last
+        self.reads[i] -= self.raw_reads[raw]
+        return raw
+
+    def append(self, i: int, raw: int) -> None:
+        k = int(self.lens[i])
+        self._reserve(i, k + 1)
+        self.bufs[i][k] = raw
+        self.lens[i] = k + 1
+        self.slot_of[raw] = k
+        self.cluster_of[raw] = i
+        self.reads[i] += self.raw_reads[raw]
+
+    def move(self, raws: np.ndarray, tgts: np.ndarray) -> None:
+        """Move raws[k] to cluster tgts[k]: first every pop, in the given
+        order (ascending cluster, descending slot: each mover still sits
+        at its slot when popped, since only tail slots, already visited,
+        move into holes), then the appends grouped by ascending target,
+        in the given order within a target."""
+        from ..native import shuffle_move_native
+
+        app = np.argsort(tgts, kind="stable")
+        app_raws, app_tgts = raws[app], tgts[app]
+        nc = self.nclust
+        need = self.lens[:nc] + np.bincount(tgts, minlength=nc)
+        for i in np.flatnonzero(need > self.caps[:nc]):
+            self._reserve(int(i), int(need[i]))
+        if shuffle_move_native(raws, app_raws, app_tgts, self.ptrs,
+                               self.lens, self.reads, self.cluster_of,
+                               self.slot_of, self.raw_reads):
+            return
+        for r in raws.tolist():
+            self.pop(int(self.cluster_of[r]), int(self.slot_of[r]))
+        for r, t in zip(app_raws.tolist(), app_tgts.tolist()):
+            self.append(t, r)
 
 
 class CompareBackend:
@@ -228,59 +363,46 @@ class Engine:
         self.comp_i = np.zeros(n, dtype=np.int64)     # raw->comp
         self.comp_lam = np.zeros(n)
         self.comp_ham = np.zeros(n, dtype=np.int64)
-        self.cluster_of = np.zeros(n, dtype=np.int64)
-        self.clusters: List[Cluster] = []
+        self.mem = Membership(rawset.reads)
+        self.cluster_of = self.mem.cluster_of
+        # per cluster: its p-values are stale; its locks need a check
+        self.update_e = np.zeros(max(n, 1), dtype=bool)
+        self.check_locks = np.zeros(max(n, 1), dtype=bool)
+        self.cmp = Comparisons(max(n, 1))
+        self.cmp.open(0)
         self.nalign = 0
         self.nshroud = 0
         self.bud_candidates = np.zeros(0, np.int64)
-        self._init_clusters()
+        c = Cluster(self.mem, self.cmp, 0)
+        c.birth_e = float(self.total_reads)
+        self.clusters: List[Cluster] = [c]
+        self.update_e[0] = True
+        self._assign_center(0)
 
     # ----- container ops (reference: src/containers.cpp) -----
 
-    def _init_clusters(self):
-        c = Cluster(slots=list(range(self.n)))
-        c.reads = self.total_reads
-        c.birth_e = float(self.total_reads)
-        self.clusters = [c]
-        self.cluster_of[:] = 0
-        self._assign_center(c)
-
-    def _assign_center(self, bi: Cluster):
+    def _assign_center(self, i: int):
         """Most abundant member becomes center; ties keep the lowest slot.
 
         reference: src/cluster.cpp:371-386. Unlocks all members.
         """
         best = -1
-        if bi.slots:
-            arr = np.asarray(bi.slots, dtype=np.int64)
+        arr = self.mem.slots(i)
+        if len(arr):
             self.lock[arr] = False
             reads = self.rs.reads[arr]
             if reads.max() > 0:
                 # strict > running max: earliest slot wins ties
                 best = int(arr[int(np.argmax(reads))])
-        bi.center = best
-        bi.check_locks = True
-
-    def _pop_raw(self, bi: Cluster, slot: int) -> int:
-        raw = bi.slots[slot]
-        bi.slots[slot] = bi.slots[-1]
-        bi.slots.pop()
-        bi.reads -= int(self.rs.reads[raw])
-        bi.update_e = True
-        return raw
-
-    def _add_raw(self, bi: Cluster, raw: int):
-        bi.slots.append(raw)
-        bi.reads += int(self.rs.reads[raw])
-        bi.update_e = True
+        self.mem.center[i] = best
+        self.check_locks[i] = True
 
     # ----- compare (reference: src/cluster.cpp:13-204) -----
 
     def compare(self, i: int, use_kmers: bool, kdist_cutoff: float):
         from ..trace import COUNTERS
 
-        bi = self.clusters[i]
-        center = bi.center
+        center = self.clusters[i].center
         center_reads = int(self.rs.reads[center])
         if self.opts.GREEDY:
             skip = (self.rs.reads > center_reads) | self.lock
@@ -314,7 +436,7 @@ class Engine:
         better = store & (lam * center_reads > self.E_minmax)
         self.E_minmax[better] = lam[better] * center_reads
         idx = np.nonzero(store)[0]
-        bi.add_comps(idx, lam[idx], ham[idx])
+        self.cmp.add(i, idx, lam[idx], ham[idx])
         if i == 0:
             self.comp_i[idx] = i
             self.comp_lam[idx] = lam[idx]
@@ -326,124 +448,81 @@ class Engine:
 
     # ----- shuffle (reference: src/cluster.cpp:210-266) -----
 
-    def shuffle(self) -> bool:
-        n = self.n
-        # Initialize best-E from cluster 0, whose comp list has one entry per
-        # raw in index order (full compare at init).
-        _, c0lam, c0ham = self.clusters[0].comps()
-        # flat concat of clusters 1+'s comps, cached across the
-        # MAX_SHUFFLE iterations of one bud (comps only change on
-        # compare; between shuffles only the cluster read totals move)
-        from ..native import get_lib, shuffle_best_native
+    def _best_e(self):
+        """For every raw, the cluster maximizing E = lambda * bi_reads over
+        its stored comparisons, in ascending cluster order with a strict >
+        (ties keep the earlier cluster): (best_i, best_lam, best_ham)."""
+        from ..native import shuffle_best_native
 
-        if get_lib() is None:
-            flat = None
-        else:
-            key = ((len(self.clusters),)
-                   + tuple(len(c.comp_chunks) for c in self.clusters))
-            flat = getattr(self, "_shuffle_flat", None)
-        if get_lib() is not None and (flat is None or flat[0] != key):
-            parts = [c.comps() for c in self.clusters[1:]]
-            offs = np.zeros(len(parts) + 1, np.int64)
-            for i, p in enumerate(parts):
-                offs[i + 1] = offs[i] + len(p[0])
-            fidx = (np.concatenate([p[0] for p in parts]) if parts
-                    else np.zeros(0, np.int64))
-            flam = (np.concatenate([p[1] for p in parts]) if parts
-                    else np.zeros(0))
-            fham = (np.concatenate([np.asarray(p[2], np.int64)
-                                    for p in parts]) if parts
-                    else np.zeros(0, np.int64))
-            flat = (key, offs, fidx, flam, fham)
-            self._shuffle_flat = flat
-        out = None
-        if flat is not None:
-            _, offs, fidx, flam, fham = flat
-            bireads = np.array([float(c.reads)
-                                for c in self.clusters[1:]])
-            out = shuffle_best_native(
-                c0lam, np.asarray(c0ham, np.int64),
-                float(self.clusters[0].reads), offs, fidx, flam, fham,
-                bireads)
+        n, nc, mem, cmp = self.n, len(self.clusters), self.mem, self.cmp
+        # cluster 0's comparisons hold every raw in index order (the
+        # store test always passes against the initial E_minmax)
+        c0lam, c0ham = cmp.lam[:n], cmp.ham[:n]
+        out = shuffle_best_native(
+            c0lam, c0ham, float(mem.reads[0]), cmp.end[1:nc + 1],
+            cmp.idx, cmp.lam, cmp.ham, mem.reads[1:nc].astype(np.float64))
         if out is not None:
-            best_i, best_lam, best_ham, emax = out
-        else:
-            emax = c0lam * self.clusters[0].reads
-            best_i = np.zeros(n, dtype=np.int64)
-            best_lam = c0lam.copy()
-            best_ham = np.asarray(c0ham, dtype=np.int64).copy()
-            for i in range(1, len(self.clusters)):
-                bi = self.clusters[i]
-                idx, lam, ham_c = bi.comps()
-                if not len(idx):
-                    continue
-                e = lam * bi.reads
-                upd = e > emax[idx]   # strict: ties keep earlier cluster
-                uidx = idx[upd]
-                emax[uidx] = e[upd]
-                best_i[uidx] = i
-                best_lam[uidx] = lam[upd]
-                best_ham[uidx] = np.asarray(ham_c, dtype=np.int64)[upd]
+            return out[:3]
+        emax = c0lam * int(mem.reads[0])
+        best_i = np.zeros(n, dtype=np.int64)
+        best_lam = c0lam.copy()
+        best_ham = c0ham.copy()
+        for i in range(1, nc):
+            idx, lam, ham_c = cmp.of(i)
+            if not len(idx):
+                continue
+            e = lam * int(mem.reads[i])
+            upd = e > emax[idx]   # strict: ties keep earlier cluster
+            uidx = idx[upd]
+            emax[uidx] = e[upd]
+            best_i[uidx] = i
+            best_lam[uidx] = lam[upd]
+            best_ham[uidx] = ham_c[upd]
+        return best_i, best_lam, best_ham
 
-        # Surgery only at mover positions. Reading movers off the
-        # pre-loop slot arrays is exact: the reference's descending
-        # visit order means position r still holds its original raw
-        # when visited (pops only rewrite the visited position and the
-        # tail, both already visited), and tail elements swapped into
-        # holes are never revisited.
-        shuffled = False
-        mv_raws, mv_tgts = [], []
-        for i in range(len(self.clusters)):
-            bi = self.clusters[i]
-            slots = bi.slots
-            if not slots:
-                continue
-            arr = np.asarray(slots, dtype=np.int64)
-            pos = np.nonzero((best_i[arr] != i)
-                             & (arr != bi.center))[0]
-            if not len(pos):
-                continue
-            raws = arr[pos]
-            for r in pos[::-1]:           # descending, movers only
-                slots[r] = slots[-1]
-                slots.pop()
-            bi.reads -= int(self.rs.reads[raws].sum())
-            bi.update_e = True
-            # append order = clusters ascending, slot position descending
-            mv_raws.append(raws[::-1])
-            mv_tgts.append(best_i[raws[::-1]])
-            shuffled = True
-        if not shuffled:
+    def shuffle(self) -> bool:
+        """Move every raw, other than a center, to the cluster that gives
+        it the largest E; True if any moved."""
+        from ..trace import COUNTERS
+
+        COUNTERS.add("shuffle_passes")
+        best_i, best_lam, best_ham = self._best_e()
+        mem = self.mem
+        cl = mem.cluster_of
+        raws = np.flatnonzero(best_i != cl)
+        raws = raws[raws != mem.center[cl[raws]]]
+        if not len(raws):
             return False
-        raws = np.concatenate(mv_raws)
-        tgts = np.concatenate(mv_tgts)
-        self.cluster_of[raws] = tgts
+        # the reference's visit order: clusters ascending, slots
+        # descending within each
+        raws = raws[np.lexsort((-mem.slot_of[raws], cl[raws]))]
+        tgts = best_i[raws]
+        self.update_e[cl[raws]] = True
+        self.update_e[tgts] = True
+        mem.move(raws, tgts)
         self.comp_i[raws] = tgts
         self.comp_lam[raws] = best_lam[raws]
         self.comp_ham[raws] = best_ham[raws]
-        for t in np.unique(tgts):
-            ti = self.clusters[t]
-            tr = raws[tgts == t]
-            ti.slots.extend(tr.tolist())
-            ti.reads += int(self.rs.reads[tr].sum())
-            ti.update_e = True
-        return shuffled
+        COUNTERS.add("shuffle_moved", len(raws))
+        return True
 
     # ----- p-value update (reference: src/pval.cpp:14-40) -----
 
     def p_update(self):
-        opts = self.opts
-        for bi in self.clusters:
-            if bi.update_e:
-                idx = np.asarray(bi.slots, dtype=np.int64)
-                self.p[idx] = self._get_pA_vec(idx, bi.reads)
-                bi.update_e = False
-            if opts.GREEDY and bi.check_locks:
-                idx = np.asarray(bi.slots, dtype=np.int64)
-                e_center = self.rs.reads[bi.center] * self.comp_lam[idx]
+        nc = len(self.clusters)
+        mem = self.mem
+        for i in np.flatnonzero(self.update_e[:nc]).tolist():
+            idx = mem.slots(i)
+            self.p[idx] = self._get_pA_vec(idx, int(mem.reads[i]))
+        self.update_e[:nc] = False
+        if self.opts.GREEDY:
+            for i in np.flatnonzero(self.check_locks[:nc]).tolist():
+                idx = mem.slots(i)
+                center = int(mem.center[i])
+                e_center = self.rs.reads[center] * self.comp_lam[idx]
                 self.lock[idx[e_center > self.rs.reads[idx]]] = True
-                self.lock[bi.center] = True
-                bi.check_locks = False
+                self.lock[center] = True
+            self.check_locks[:nc] = False
 
     def _get_pA_vec(self, idx: np.ndarray, bi_reads: int) -> np.ndarray:
         """Vectorized get_pA (reference: src/pval.cpp:67-89)."""
@@ -487,80 +566,68 @@ class Engine:
         opts = self.opts
         min_fold, min_hamming, min_abund = (
             opts.MIN_FOLD, opts.MIN_HAMMING, opts.MIN_ABUNDANCE)
+        mem = self.mem
         # Sentinel = cluster 0's center (reference init, cluster.cpp:280-281)
         c0 = self.clusters[0].center
         sentinel = (self.p[c0], -int(self.rs.reads[c0]))
 
-        # Vectorized scan over all non-center slots in (cluster, slot)
-        # iteration order; ties pick the earliest position, exactly like
-        # the reference's strict-< running minimum (cluster.cpp:283-311).
-        parts, ridx, rcl, rslot = [], [], [], []
-        for i, bi in enumerate(self.clusters):
-            ns = len(bi.slots) - 1
-            if ns <= 0:
-                continue
-            ridx.append(np.asarray(bi.slots[1:], dtype=np.int64))
-            parts.append(np.full(ns, float(bi.reads)))
-            rcl.append(np.full(ns, i, dtype=np.int64))
-            rslot.append(np.arange(1, ns + 1, dtype=np.int64))
-        if not parts:
+        # One vectorized scan over every raw the reference visits: each
+        # cluster's slots from 1 on. Ties pick the earliest (cluster,
+        # slot) position, exactly like the reference's strict-< running
+        # minimum (cluster.cpp:283-311).
+        raws = np.flatnonzero(mem.slot_of > 0)
+        if not len(raws):
             return 0
-        raws = np.concatenate(ridx)
-        bireads = np.concatenate(parts)
+        cl = mem.cluster_of[raws]
+        sl = mem.slot_of[raws]
+        pos = cl * self.n + sl           # (cluster, slot) order
         reads = self.rs.reads[raws]
         elig = reads >= min_abund
         elig &= self.comp_ham[raws] >= min_hamming
         if min_fold > 1:
             # same float op order as the scalar form:
             # (min_fold * lam) * bi.reads
+            bireads = mem.reads[cl].astype(np.float64)
             elig &= reads >= (min_fold * self.comp_lam[raws]) * bireads
+        pm = self.p[raws]
 
         def _argbest(mask):
             """Index of the lexicographic min (p, -reads) over mask;
             earliest position wins ties. None if empty/not < sentinel."""
             if not mask.any():
                 return None
-            pm = self.p[raws]
             best_p = pm[mask].min()
             m2 = mask & (pm == best_p)
             best_reads = reads[m2].max()
-            m3 = m2 & (reads == best_reads)
+            m3 = np.flatnonzero(m2 & (reads == best_reads))
             if (best_p, -int(best_reads)) >= sentinel:
                 return None
-            return int(np.nonzero(m3)[0][0])
+            return int(m3[np.argmin(pos[m3])])
 
         jA = _argbest(elig)
         jP = _argbest(elig & self.rs.priors[raws])
-        cl = np.concatenate(rcl)
-        sl = np.concatenate(rslot)
 
         # ranked next-bud candidates for speculative prefetch (pure
-        # prediction: tie order does not matter here). Raws captured by
-        # the upcoming cluster drop out of contention, so rank by the
-        # CURRENT (p, -reads) — the same key bud() minimizes — and only
-        # raws whose current p could actually pass the OMEGA gates
-        # qualify (a hint that cannot bud is a guaranteed-wasted
-        # prefetch; p-values only rise as E_minmax tightens).
-        if elig.any():
-            pe = self.p[raws[elig]]
-            re_ = reads[elig]
-            # 1e6 slack: shuffle can LOWER a raw's p before the next
-            # bud (its cluster shrinks), so only clearly-hopeless
-            # hints are filtered
-            passable = ((pe * self.n < opts.OMEGA_A * 1e6)
-                        | (self.rs.priors[raws[elig]]
-                           & (pe < opts.OMEGA_P * 1e6)))
-            order = np.lexsort((-re_, pe))
-            order = order[passable[order]][:17]
-            self.bud_candidates = raws[elig][order]
-        else:
-            self.bud_candidates = np.zeros(0, np.int64)
+        # prediction). Raws captured by the upcoming cluster drop out of
+        # contention, so rank by the CURRENT (p, -reads) — the same key
+        # bud() minimizes, ties by position — and only raws whose current
+        # p could actually pass the OMEGA gates qualify (a hint that
+        # cannot bud is a guaranteed-wasted prefetch; p-values only rise
+        # as E_minmax tightens).
+        # 1e6 slack: shuffle can LOWER a raw's p before the next bud (its
+        # cluster shrinks), so only clearly-hopeless hints are filtered
+        passable = elig & ((pm * self.n < opts.OMEGA_A * 1e6)
+                           | (self.rs.priors[raws]
+                              & (pm < opts.OMEGA_P * 1e6)))
+        hp = np.flatnonzero(passable)
+        order = np.lexsort((pos[hp], -reads[hp], pm[hp]))[:17]
+        self.bud_candidates = raws[hp[order]]
 
         def _at(j):
             return (int(cl[j]), int(sl[j]), int(raws[j]))
 
-        pA = (self.p[raws[jA]] if jA is not None else sentinel[0]) * self.n
-        pP = self.p[raws[jP]] if jP is not None else sentinel[0]
+        pA = (pm[jA] if jA is not None else sentinel[0]) * self.n
+        pP = pm[jP] if jP is not None else sentinel[0]
         # Bonferroni x nraw (reference: cluster.cpp:313)
         if pA < opts.OMEGA_A and jA is not None:
             return self._do_bud(_at(jA), "A", pA)
@@ -570,10 +637,13 @@ class Engine:
 
     def _do_bud(self, at, btype: str, pval: float) -> int:
         mini, minr, raw = at
-        bi = self.clusters[mini]
-        expected = self.comp_lam[raw] * bi.reads
-        self._pop_raw(bi, minr)
-        new = Cluster(slots=[])
+        mem = self.mem
+        expected = self.comp_lam[raw] * int(mem.reads[mini])
+        mem.pop(mini, minr)
+        self.update_e[mini] = True
+        i = mem.new_cluster()
+        self.cmp.open(i)
+        new = Cluster(mem, self.cmp, i)
         new.birth_type = btype
         # the reference leaves birth_from uninitialized for "P" births
         # (src/cluster.cpp:331-345); we set it to the source cluster.
@@ -588,10 +658,9 @@ class Engine:
         new.birth_comp_lam = float(self.comp_lam[raw])
         new.birth_comp_ham = int(self.comp_ham[raw])
         self.clusters.append(new)
-        i = len(self.clusters) - 1
-        self._add_raw(new, raw)
-        self.cluster_of[raw] = i
-        self._assign_center(new)
+        mem.append(i, raw)
+        self.update_e[i] = True
+        self._assign_center(i)
         return i
 
     # ----- main loop (reference: src/Rmain.cpp:297-336) -----

@@ -48,7 +48,7 @@ def finalize(eng: Engine, opts: DadaOptions, err_ncol: int,
     pvals = np.zeros(rs.n)
     with PHASES("finalize.pvals"):
         for i, bi in enumerate(eng.clusters):
-            mem = np.asarray(bi.slots, dtype=np.int64)
+            mem = bi.slots
             eng.p[bi.center] = 1.0
             notc = mem[mem != bi.center]
             if len(notc):
@@ -74,8 +74,7 @@ def finalize(eng: Engine, opts: DadaOptions, err_ncol: int,
         # every cluster's tallies in one fused device dispatch (one
         # round-trip instead of nclust; reference: FinalSubsParallel's
         # TBB loop, src/Rmain.cpp:179-236)
-        member_arrs = [np.asarray(bi.slots, dtype=np.int64)
-                       for bi in eng.clusters]
+        member_arrs = [bi.slots for bi in eng.clusters]
         allstats = eng.backend.cluster_stats_all(
             [(bi.center, mem, eng.correct[mem])
              for bi, mem in zip(eng.clusters, member_arrs)],
@@ -106,7 +105,7 @@ def finalize(eng: Engine, opts: DadaOptions, err_ncol: int,
     # (reference: src/Rmain.cpp:268-279, NA -> -1 here; R adds 1-indexing)
     map_ = np.full(rs.n, -1, dtype=np.int64)
     for i, bi in enumerate(eng.clusters):
-        mem = np.asarray(bi.slots, dtype=np.int64)
+        mem = bi.slots
         map_[mem[eng.correct[mem]]] = i
 
     return dict(clustering=clustering, birth_subs=birth_df, subqual=subqual,

@@ -90,14 +90,22 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.lam_subs.argtypes = [I, V, V, V, I, V, V, I, V, V, I, V]
         lib.lam_gapless.restype = None
         lib.lam_gapless.argtypes = [I, I, V, V, V, I, V, V, I, V]
+        lib.dada2_shuffle_best.restype = None
+        lib.dada2_shuffle_best.argtypes = [I, V, V, ctypes.c_double, I,
+                                           V, V, V, V, V, V, V, V, V]
+        lib.dada2_shuffle_move.restype = None
+        lib.dada2_shuffle_move.argtypes = [I, V, V, V, V, V, V, V, V, V]
+        lib.dada2_exp_neg_batch.restype = None
+        lib.dada2_exp_neg_batch.argtypes = [V, V, I]
         _lib = lib
         return _lib
 
 
 def _ptr(a):
-    import ctypes as _ct
-
-    return a.ctypes.data_as(_ct.c_void_p)
+    """The address of a numpy array's data, for a c_void_p argument (the
+    plain integer: ctypes' data_as costs several microseconds a call,
+    and the engine's shuffle passes make thousands)."""
+    return a.ctypes.data
 
 
 def lam_dense_native(tvec, idx, quals, lens, err):
@@ -176,11 +184,42 @@ def shuffle_best_native(c0lam, c0ham, c0reads, offs, idx, lam, ham,
     best_ham = np.empty(n, np.int64)
     emax = np.empty(n, np.float64)
     lib.dada2_shuffle_best(
-        ctypes.c_longlong(n), _ptr(c0lam), _ptr(c0ham),
-        ctypes.c_double(float(c0reads)), ctypes.c_longlong(nclust),
-        _ptr(offs), _ptr(idx), _ptr(lam), _ptr(ham), _ptr(bireads),
-        _ptr(best_i), _ptr(best_lam), _ptr(best_ham), _ptr(emax))
+        n, _ptr(c0lam), _ptr(c0ham), float(c0reads), nclust, _ptr(offs),
+        _ptr(idx), _ptr(lam), _ptr(ham), _ptr(bireads), _ptr(best_i),
+        _ptr(best_lam), _ptr(best_ham), _ptr(emax))
     return best_i, best_lam, best_ham, emax
+
+
+def shuffle_move_native(pop_raws, app_raws, app_tgts, ptrs, lens, reads,
+                        cluster_of, slot_of, raw_reads):
+    """Native surgery for Membership.move, in place: pops pop_raws in
+    order, then appends app_raws to app_tgts in order. ptrs holds the
+    address of each cluster's slot array, every one large enough for its
+    appends. Returns True, or None if the library is unavailable."""
+    import numpy as np
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    for a in (lens, reads, cluster_of, slot_of):
+        if a.dtype != np.int64 or not a.flags.c_contiguous:
+            raise ValueError("shuffle_move_native updates C-contiguous "
+                             "int64 arrays in place")
+    if ptrs.dtype != np.uintp or len(ptrs) < len(lens):
+        raise ValueError("ptrs must hold one address per cluster")
+    pop_raws = np.ascontiguousarray(pop_raws, np.int64)
+    app_raws = np.ascontiguousarray(app_raws, np.int64)
+    app_tgts = np.ascontiguousarray(app_tgts, np.int64)
+    raw_reads = np.ascontiguousarray(raw_reads, np.int64)
+    ptrs = np.ascontiguousarray(ptrs)
+    m = len(pop_raws)
+    if len(app_raws) != m or len(app_tgts) != m:
+        raise ValueError("every mover is popped once and appended once")
+    lib.dada2_shuffle_move(m, _ptr(pop_raws), _ptr(app_raws),
+                           _ptr(app_tgts), _ptr(ptrs), _ptr(lens),
+                           _ptr(reads), _ptr(cluster_of), _ptr(slot_of),
+                           _ptr(raw_reads))
+    return True
 
 
 def exp_neg_native(E):
@@ -193,8 +232,7 @@ def exp_neg_native(E):
         return None
     E = np.ascontiguousarray(E, np.float64)
     out = np.empty(len(E), np.float64)
-    lib.dada2_exp_neg_batch(_ptr(E), _ptr(out),
-                            ctypes.c_longlong(len(E)))
+    lib.dada2_exp_neg_batch(_ptr(E), _ptr(out), len(E))
     return out
 
 

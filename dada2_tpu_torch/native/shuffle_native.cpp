@@ -3,7 +3,7 @@
 // the cluster maximizing E = lambda * bi_reads, visited in ascending
 // cluster order with a STRICT > (ties keep the earlier cluster) —
 // bit-identical to the numpy per-cluster loop it replaces
-// (core/engine.py Engine.shuffle), but one fused GIL-free pass.
+// (core/engine.py Engine._best_e), but one fused GIL-free pass.
 extern "C" void dada2_shuffle_best(
     long long n, const double *c0lam, const long long *c0ham,
     double c0reads,
@@ -31,5 +31,37 @@ extern "C" void dada2_shuffle_best(
         best_ham[r] = ham[t];
       }
     }
+  }
+}
+
+// Native surgery for the engine's shuffle (core/engine.py
+// Membership.move): every mover leaves its cluster by a swap-with-last
+// pop (reference: src/containers.cpp:183-197), in the given order
+// (ascending cluster, descending slot), then joins its target at the
+// end, in app order (grouped by ascending target, mover order within).
+// Keeps each cluster's slots and length, every raw's cluster and slot,
+// and the clusters' read totals; the caller has grown every target's
+// slot array to hold its appends. Bit-identical to the numpy fallback.
+extern "C" void dada2_shuffle_move(
+    long long m, const long long *pop_raws, const long long *app_raws,
+    const long long *app_tgts,
+    long long *const *slots,     // [nclust] each cluster's slot array
+    long long *lens, long long *reads,      // [nclust]
+    long long *cluster_of, long long *slot_of,   // [n]
+    const long long *raw_reads) {
+  for (long long k = 0; k < m; k++) {
+    const long long r = pop_raws[k], i = cluster_of[r], s = slot_of[r];
+    long long *buf = slots[i];
+    const long long moved = buf[--lens[i]];
+    buf[s] = moved;
+    slot_of[moved] = s;
+    reads[i] -= raw_reads[r];
+  }
+  for (long long k = 0; k < m; k++) {
+    const long long r = app_raws[k], t = app_tgts[k], s = lens[t]++;
+    slots[t][s] = r;
+    slot_of[r] = s;
+    cluster_of[r] = t;
+    reads[t] += raw_reads[r];
   }
 }

@@ -336,6 +336,10 @@ class Counters:
         # overflowed their records into a dense tvec fetch
         "followup_fetches",
         "dense_refetches",
+        # the engine's shuffle: passes of the best-E scan, and raws its
+        # surgery moved to another cluster
+        "shuffle_passes",
+        "shuffle_moved",
     )
 
     def add(self, name: str, n: int = 1) -> None:
