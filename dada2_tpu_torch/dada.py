@@ -51,6 +51,37 @@ class DadaResult:
                 f"{len(self.map)} input unique sequences.")
 
 
+def _split_pooled(pooled: DadaResult, member: np.ndarray,
+                  drp: Derep) -> DadaResult:
+    """One sample's result out of the pooled one (R/dada.R:443-475): the
+    pooled clusters its uniques map to, renumbered in pooled order, with
+    the sample's own abundances; member holds each of the sample's
+    uniques' index in the pool (Derep.pool_index)."""
+    nclust = len(pooled.clustering)
+    own = pooled.map[member]            # pooled cluster, -1 not corrected
+    hit = own >= 0
+    keep = np.zeros(nclust, dtype=bool)
+    keep[own[hit]] = True
+    newBi = np.cumsum(keep) - 1         # pooled idx -> own idx
+    own_map = np.full(len(member), -1, dtype=np.int64)
+    own_map[hit] = newBi[own[hit]]
+    # per-sample abundances (R/dada.R:470-471)
+    ab = np.zeros(int(keep.sum()), dtype=np.int64)
+    np.add.at(ab, own_map[hit], drp.abundances[hit])
+    cl = pooled.clustering[keep].reset_index(drop=True)
+    cl["abundance"] = ab
+    bs = pooled.birth_subs
+    clust = bs["clust"].to_numpy() - 1
+    bs = bs[keep[clust]].copy()
+    bs["clust"] = newBi[clust[keep[clust]]] + 1
+    return DadaResult(
+        denoised=dict(zip(cl["sequence"], ab.tolist())), clustering=cl,
+        sequence=list(cl["sequence"]), quality=pooled.quality[keep],
+        birth_subs=bs, trans=pooled.trans, map=own_map, pval=None,
+        err_in=pooled.err_in, err_out=pooled.err_out, opts=pooled.opts,
+        name=drp.name)
+
+
 def _make_backend(rawset, opts, use_quals, err_ncol, device=None):
     """The CUDA backend (kernel B1, the vectorized banded aligner; B4 for
     the configurations B1 does not serve). device None takes the
@@ -215,25 +246,38 @@ def _dada(derep, err, errorEstimationFunction, selfConsist, pool, priors,
             raise ValueError("Invalid pool argument.")
     elif pool:
         derep_in = derep
-        if multihost:
-            # distributed dedup (SURVEY.md §7 hard-part 7): reads never
-            # leave their process — only each sample's dereplicated
-            # unique summaries are allgathered; every process then builds
-            # the IDENTICAL pooled derep and runs the pooled engine
-            # redundantly, splitting back only its local samples.
-            from .parallel.dist import gather_sample_summaries
+        with PHASES("dada.pool"):
+            if multihost:
+                # distributed dedup (SURVEY.md §7 hard-part 7): reads
+                # never leave their process — only each sample's
+                # dereplicated unique summaries are allgathered; every
+                # process then builds the IDENTICAL pooled derep and runs
+                # the pooled engine redundantly, splitting back only its
+                # local samples.
+                from .parallel.dist import gather_sample_summaries
 
-            items = [((my_rank << 32) + i, d.name or f"p{my_rank}s{i}",
-                      d.sequences, d.abundances, d.quals)
-                     for i, d in enumerate(derep_in)]
-            gathered = gather_sample_summaries(items)
-            all_drps = [
-                Derep(uniques={s: int(a) for s, a in zip(seqs, ab)},
-                      quals=quals, map=np.zeros(0, np.int64), name=name)
-                for _, name, seqs, ab, quals in gathered]
-            derep = [combine_dereps(all_drps)]
-        else:
-            derep = [combine_dereps(derep_in)]
+                items = [((my_rank << 32) + i, d.name or f"p{my_rank}s{i}",
+                          d.sequences, d.abundances, d.quals)
+                         for i, d in enumerate(derep_in)]
+                gathered = gather_sample_summaries(items)
+                all_drps = [
+                    Derep(uniques={s: int(a) for s, a in zip(seqs, ab)},
+                          quals=quals, map=np.zeros(0, np.int64), name=name)
+                    for _, name, seqs, ab, quals in gathered]
+                pooled_drp = combine_dereps(all_drps)
+                # this process's samples among the gathered ones
+                keys = [g[0] for g in gathered]
+                pool_index = [pooled_drp.pool_index[keys.index(it[0])]
+                              for it in items]
+            else:
+                pooled_drp = combine_dereps(derep_in)
+                pool_index = pooled_drp.pool_index
+            derep = [pooled_drp]
+            trace.COUNTERS.add("pooled_uniques", len(pooled_drp.uniques))
+            if trace.is_on():
+                trace.attrs(samples=len(pool_index),
+                            uniques_in=int(sum(len(ix) for ix in pool_index)),
+                            uniques_pooled=len(pooled_drp.uniques))
 
     # --- err validation (R/dada.R:198-205) ---
     initializeErr = False
@@ -487,44 +531,9 @@ def _dada(derep, err, errorEstimationFunction, selfConsist, pool, priors,
 
     # --- pool=True: split pooled result back per sample (R/dada.R:443-475) ---
     if derep_in is not None:
-        pooled = results[0]
-        pooled_map = maps[0]
-        pooled_names = derep[0].sequences
-        name_to_pooled = {s: k for k, s in enumerate(pooled_names)}
-        results = []
-        for drpi in derep_in:
-            member = np.array([name_to_pooled[s] for s in drpi.sequences])
-            own_clusters = pooled_map[member]
-            keep_set = set(int(c) for c in own_clusters if c >= 0)
-            nclust = len(pooled.denoised)
-            keep = np.array([k in keep_set for k in range(nclust)])
-            newBi = np.cumsum(keep) - 1  # pooled idx -> own idx
-            cl = pooled.clustering[keep].reset_index(drop=True)
-            # recalculate per-sample abundances (R/dada.R:470-471)
-            own_map = np.array([
-                newBi[pooled_map[name_to_pooled[s]]]
-                if pooled_map[name_to_pooled[s]] >= 0 else -1
-                for s in drpi.sequences], dtype=np.int64)
-            ab = np.zeros(int(keep.sum()), dtype=np.int64)
-            abund_in = drpi.abundances
-            for u, c in enumerate(own_map):
-                if c >= 0:
-                    ab[c] += int(abund_in[u])
-            cl = cl.copy()
-            cl["abundance"] = ab
-            bs = pooled.birth_subs
-            bs_keep = keep[bs["clust"].to_numpy() - 1]
-            bs = bs[bs_keep].copy()
-            bs["clust"] = newBi[bs["clust"].to_numpy() - 1] + 1
-            denoised = {s: int(a) for s, a in zip(cl["sequence"], ab)}
-            results.append(DadaResult(
-                denoised=denoised, clustering=cl,
-                sequence=list(cl["sequence"]),
-                quality=pooled.quality[keep], birth_subs=bs,
-                trans=pooled.trans, map=own_map, pval=None,
-                err_in=pooled.err_in, err_out=pooled.err_out,
-                opts=opts, name=drpi.name,
-            ))
+        with PHASES("dada.split"):
+            results = [_split_pooled(results[0], ix, drpi)
+                       for ix, drpi in zip(pool_index, derep_in)]
         derep = derep_in
 
     if len(results) == 1 and single_input:

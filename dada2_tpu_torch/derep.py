@@ -27,6 +27,8 @@ class Derep:
     quals: np.ndarray              # [n_uniques, maxlen] float64 mean quals
     map: np.ndarray                # [n_reads] int64, 0-based unique index
     name: Optional[str] = None
+    # a pool (combine_dereps): each input's uniques' indices into it
+    pool_index: Optional[List[np.ndarray]] = field(default=None, repr=False)
 
     @property
     def sequences(self) -> List[str]:
@@ -173,21 +175,29 @@ def derep_fastq(fls, n: int = 1_000_000, verbose: bool = False,
 
 
 def combine_dereps(dereps: List[Derep]) -> Derep:
-    """Pool dereps for pool=True (reference: combineDereps2, R/multiSample.R:165-203)."""
+    """Pool dereps for pool=True (reference: combineDereps2,
+    R/multiSample.R:165-203): uniques in order of first encounter, then
+    stably sorted by decreasing total abundance, abundance-weighted mean
+    qualities. The pool's ``pool_index[i]`` gives each unique of
+    dereps[i] its index in the pool."""
     maxlen = max(d.quals.shape[1] for d in dereps)
     seq_order: List[str] = []
-    seen = {}
+    seen: Dict[str, int] = {}
+    firsts = []
     for d in dereps:
-        for s in d.uniques:
-            if s not in seen:
-                seen[s] = len(seq_order)
+        idx = np.empty(len(d.uniques), np.int64)
+        for k, s in enumerate(d.uniques):
+            j = seen.get(s)
+            if j is None:
+                j = seen[s] = len(seq_order)
                 seq_order.append(s)
+            idx[k] = j
+        firsts.append(idx)
     n = len(seq_order)
     counts = np.zeros(n, dtype=np.int64)
     qsum = np.zeros((n, maxlen))
     maps = []
-    for d in dereps:
-        idx = np.array([seen[s] for s in d.uniques], dtype=np.int64)
+    for d, idx in zip(dereps, firsts):
         ab = d.abundances
         counts[idx] += ab
         q = d.quals
@@ -206,7 +216,8 @@ def combine_dereps(dereps: List[Derep]) -> Derep:
     ok = full_map >= 0
     full_map[ok] = inv[full_map[ok]]
     uniques = {seq_order[i]: int(counts[i]) for i in ord_}
-    return Derep(uniques=uniques, quals=quals[ord_], map=full_map, name="pooled")
+    return Derep(uniques=uniques, quals=quals[ord_], map=full_map,
+                 name="pooled", pool_index=[inv[idx] for idx in firsts])
 
 
 def get_derep(obj) -> Derep:

@@ -340,6 +340,14 @@ class Counters:
         # surgery moved to another cluster
         "shuffle_passes",
         "shuffle_moved",
+        # the compare backend's per-center alignment cache
+        # (backend_cuda._align_ent): kernel B1 sweeps made, sweeps of a
+        # center swept before and evicted since, sweeps evicted
+        "align_sweeps",
+        "align_resweeps",
+        "align_evictions",
+        # dada(pool=True): the uniques of each pool
+        "pooled_uniques",
     )
 
     def add(self, name: str, n: int = 1) -> None:
