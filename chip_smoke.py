@@ -3913,7 +3913,8 @@ def main() -> None:
     wall = time.time() - t0
     n_b2, n_b1_tab = launches["B2"], launches["B1"]
     peak = torch.cuda.max_memory_allocated()
-    pairs = chim._table_pairs(mat, 1.5, 2)
+    d_pairs = chim._table_pairs(torch.from_numpy(mat).to(dev), 1.5, 2)
+    pairs = d_pairs.cpu().numpy()
     qi = np.ascontiguousarray(pairs[:, 0])
     pi = np.ascontiguousarray(pairs[:, 1])
     be, bopts = chim._chimera_backend(seqs, copts.MATCH, copts.MISMATCH,
@@ -3932,9 +3933,11 @@ def main() -> None:
         fail("the table chimera check did not run through kernel B2")
     rows["B2"] = dict(launches=n_b2)
     t0 = time.time()
-    b2 = chim._pairs_lr_stats(be, bopts, qi, pi, 16, False)
+    d_b2 = chim._pairs_lr_stats(be, bopts, qi, pi, 16, False)
     t_b2 = time.time() - t0
-    nflag, nsam = chim._table_votes(mat, seqs, pairs, b2, 1.5, 2, False, 4)
+    nflag, nsam = chim._table_votes(mat, be.lens, d_pairs, d_b2, 1.5, 2,
+                                    False, 4)
+    b2 = tuple(d_b2.cpu().numpy().T)
     is_bim = (nflag >= nsam) | ((nflag > 0) & (nflag >= (nsam - 1) * 0.9))
     if not np.array_equal(is_bim, bim.values):
         fail("the table run's flags differ from kernel B2's stats' votes")
@@ -3971,8 +3974,9 @@ def main() -> None:
     stats_cpu = chim._batch_lr_stats(pairs[sub], seqs, 16, copts.MATCH,
                                      copts.MISMATCH, copts.GAP_PENALTY,
                                      False, device="cpu")
-    nflag_c, nsam_c = chim._table_votes(mat, seqs, pairs[sub], stats_cpu,
-                                        1.5, 2, False, 4)
+    nflag_c, nsam_c = chim._table_votes(mat, be.lens, pairs[sub],
+                                        np.stack(stats_cpu, 1), 1.5, 2,
+                                        False, 4)
     t_cpu = time.time() - t0
     same = (np.array_equal(nflag_c[cols], nflag[cols])
             and np.array_equal(nsam_c[cols], nsam[cols])

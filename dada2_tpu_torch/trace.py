@@ -25,8 +25,8 @@ tracing is on, to the calling thread's current ``sample`` or
 ``chimera.table`` span (its ``counters``).
 
 Crossings. Every blocking host <-> device crossing of dada() and
-chimera removal goes through ``put``, ``fetch``, ``item``, ``scalar`` or
-``select`` (SYNC_HELPERS): each is counted in ``syncs`` and
+chimera removal goes through ``put``, ``fetch``, ``item``, ``scalar``,
+``select`` or ``nonzero`` (SYNC_HELPERS): each is counted in ``syncs`` and
 ``sync_bytes`` and, while tracing is on, recorded as a ``sync.put`` or
 ``sync.fetch`` span with its ``bytes``. Those spans go straight into the
 recorder, never through ``PHASES``.
@@ -45,7 +45,7 @@ from typing import Dict, List, Optional
 from torch.autograd import profiler as _profiler
 
 # the functions through which every blocking crossing goes
-SYNC_HELPERS = ("put", "fetch", "item", "scalar", "select")
+SYNC_HELPERS = ("put", "fetch", "item", "scalar", "select", "nonzero")
 # spans whose counters tally their thread's work: a sample of dada() and
 # a sequence table of chimera removal
 UNITS = ("sample", "chimera.table")
@@ -348,6 +348,8 @@ class Counters:
         "align_evictions",
         # dada(pool=True): the uniques of each pool
         "pooled_uniques",
+        # chimera removal: the (query, parent) pairs of a consensus table
+        "chimera_pairs",
     )
 
     def add(self, name: str, n: int = 1) -> None:
@@ -460,6 +462,14 @@ def select(x, mask):
     """x[mask] for a boolean mask on the device: the host reads the
     number of selected elements (nonzero) before the result exists."""
     return _cross("sync.fetch", 8, x.__getitem__, mask)
+
+
+def nonzero(x):
+    """torch.nonzero(x) on the device ([n, x.dim()] int64, row-major): the
+    host reads n before the result exists."""
+    import torch
+
+    return _cross("sync.fetch", 8, torch.nonzero, x)
 
 
 # ---- device traces --------------------------------------------------------

@@ -149,6 +149,12 @@ def _mixed_length_pairs():
     return pairs, seqs
 
 
+def _cols(stats):
+    """The five stat arrays of kernel B2's route ([P, 5] on the device)."""
+    assert stats is not None
+    return tuple(stats.numpy().T)
+
+
 @pytest.mark.parametrize("pair_set", ["route_parity", "mixed_lengths"])
 @pytest.mark.parametrize("oo", [False, True])
 def test_batch_lr_stats_equal(pair_set, oo):
@@ -167,9 +173,9 @@ def test_pairs_route_equals_per_query_route():
     be, opts = tch._chimera_backend(seqs, 5, -4, -8, 16, "cpu")
     qi = np.array([p[0] for p in pairs], np.int64)
     pi = np.array([p[1] for p in pairs], np.int64)
-    b2 = tch._pairs_lr_stats(be, opts, qi, pi, 16, True)
+    b2 = _cols(tch._pairs_lr_stats(be, opts, qi, pi, 16, True))
     b1 = tch._per_query_lr_stats(be, opts, qi, pi, 16, True)
-    assert b2 is not None and b1 is not None
+    assert b1 is not None
     for x, y, name in zip(b2, b1, STATS):
         np.testing.assert_array_equal(x, y, err_msg=name)
     assert sum(int(x.sum()) for x in b2) > 0
@@ -189,9 +195,9 @@ def test_pairs_stats_route_matches_jax_pairs_route(monkeypatch, oo,
     be, opts = tch._chimera_backend(seqs, 5, -4, -8, max_shift, "cpu")
     qi = np.array([p[0] for p in pairs], np.int64)
     pi = np.array([p[1] for p in pairs], np.int64)
-    got = tch._pairs_lr_stats(be, opts, qi, pi, max_shift, oo)
+    got = _cols(tch._pairs_lr_stats(be, opts, qi, pi, max_shift, oo))
     b1 = tch._per_query_lr_stats(be, opts, qi, pi, max_shift, oo)
-    assert got is not None and b1 is not None
+    assert b1 is not None
     for w, g, q, name in zip(want, got, b1, STATS):
         np.testing.assert_array_equal(g, w, err_msg=name)
         np.testing.assert_array_equal(q, w, err_msg=name)
@@ -353,3 +359,227 @@ def test_alignment_code_mats_equal():
                                 True, device="cpu")
     for x, y, name in zip(host, b4, STATS):
         np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+# ---- the consensus table on the device ------------------------------------
+
+def _host_plan(be, opts, qi, pi):
+    """Kernel B2's layout of host pairs built on the host, as the port
+    built it before the plan moved to the device: (qblk, pblk, scal, pos,
+    order, WP), or None where the window does not fit."""
+    P = len(qi)
+    lens = be.lens
+    band = int(opts.BAND_SIZE)
+    l1s = lens[qi]
+    order = np.argsort(l1s, kind="stable")
+    qs, ps = qi[order], pi[order]
+    l1o = l1s[order]
+    bounds = np.nonzero(np.diff(l1o))[0] + 1
+    starts = np.concatenate([[0], bounds]).astype(np.int64)
+    ends = np.concatenate([bounds, [P]]).astype(np.int64)
+    WPmax = 8
+    for s, e in zip(starts, ends):
+        gl2 = lens[ps[s:e]]
+        WPmax = max(WPmax, tch.nww.block_window(
+            int(l1o[s]), np.array([int(gl2.min()), int(gl2.max())]), band))
+    WP = tch.nww._round_up(WPmax, 32)
+    if WP > tch.nww.WP_MAX:
+        return None
+    LANES = tch.LANES
+    gsizes = ends - starts
+    gblocks = -(-gsizes // LANES)
+    gbase = np.concatenate([[0], np.cumsum(gblocks)[:-1]])
+    nb = int(gblocks.sum())
+    gid = np.repeat(np.arange(len(starts)), gsizes)
+    t_in = np.arange(P) - starts[gid]
+    blk = gbase[gid] + t_in // LANES
+    lane = t_in % LANES
+    qblk = np.zeros((nb, LANES), np.int64)
+    pblk = np.zeros((nb, LANES), np.int64)
+    filled = np.zeros((nb, LANES), bool)
+    qblk[blk, lane] = qs
+    pblk[blk, lane] = ps
+    filled[blk, lane] = True
+    padm = ~filled
+    qblk[padm] = np.broadcast_to(qblk[:, :1], qblk.shape)[padm]
+    pblk[padm] = np.broadcast_to(pblk[:, :1], pblk.shape)[padm]
+    l2b = lens[pblk]
+    len1b = l1o[np.repeat(starts, gblocks)].astype(np.int64)
+    scal = np.stack([
+        len1b, l2b.max(axis=1),
+        band + np.maximum(0, l2b.max(axis=1) - len1b),
+        l2b.min(axis=1)], axis=1).astype(np.int32)
+    return qblk, pblk, scal, blk * LANES + lane, order, WP
+
+
+def _consensus_table(case):
+    """(mat, seqs, maxShift) of a small sequence table: parents, their
+    two-parent chimeras (some trimmed, some mutated) and near-copies.
+    "ties" deals abundances on a grid where many parent candidates sit
+    exactly at fold (1.5) x abundance or at minParentAbundance (2);
+    "absent" adds columns present in no sample and samples with no
+    parentable column; "lengths" mixes query lengths (several groups,
+    padding lanes); "wide" is aligned at maxShift 150, a window kernel
+    B2 does not fit."""
+    rng = np.random.default_rng({"random": 7, "ties": 8, "absent": 9,
+                                 "lengths": 10, "wide": 11}[case])
+    L = 130 if case == "wide" else 64
+    npar = 6
+    parents = ["".join(NT[rng.integers(0, 4, L)]) for _ in range(npar)]
+    seqs = list(parents)
+    while len(seqs) < (20 if case == "wide" else 36):
+        r = rng.random()
+        if r < 0.6:
+            i, j = rng.choice(npar, 2, replace=False)
+            cut = int(rng.integers(10, L - 10))
+            s = _mutate(rng, parents[i][:cut] + parents[j][cut:],
+                        int(rng.integers(0, 2)))
+        else:
+            s = _mutate(rng, parents[int(rng.integers(npar))],
+                        int(rng.integers(1, 4)))
+        if case == "lengths" and rng.random() < 0.6:
+            s = s[:len(s) - int(rng.integers(1, 9))]
+        if s not in seqs:
+            seqs.append(s)
+    nsam = 6
+    mat = np.zeros((nsam, len(seqs)), np.int64)
+    for a in range(nsam):
+        for b in range(len(seqs)):
+            if rng.random() < 0.7:
+                mat[a, b] = int(rng.integers(1, 40)) * \
+                    (4 if b < npar else 1)
+    if case == "ties":
+        grid = np.array([0, 1, 2, 3, 4, 6, 9])
+        mat = grid[rng.integers(0, len(grid), mat.shape)]
+    if case == "absent":
+        mat[:, [3, 17, 30]] = 0
+        mat[2] = np.minimum(mat[2], 1)
+        mat[4] = 0
+    return mat, seqs, 150 if case == "wide" else 16
+
+
+def _spy(monkeypatch, module, name, seen):
+    """Replace module.name by a wrapper that records its arguments and
+    result in seen[name]."""
+    inner = getattr(module, name)
+
+    def spy(*a, **kw):
+        out = inner(*a, **kw)
+        seen[name] = (a, out)
+        return out
+
+    monkeypatch.setattr(module, name, spy)
+
+
+@pytest.mark.parametrize("oo", [False, True])
+@pytest.mark.parametrize("case", ["random", "ties", "absent", "lengths",
+                                  "wide"])
+def test_consensus_table_on_device(monkeypatch, case, oo):
+    """The consensus table's device path on the CPU against dada2_tpu's
+    host loop, each package running is_bimera_denovo_table once: the
+    flags, (nflag, nsam), the union parent pairs (dada2_tpu's list handed
+    to its _batch_lr_stats) and the stats equal; kernel B2's device layout
+    equals the host layout element for element (or both refuse the
+    window), and the device vote alone gives (nflag, nsam). The row and
+    pair chunks are cut small, and B2's launches to 2 blocks, so that
+    every chunk, padding lane and tail launch path runs."""
+    mat, seqs, max_shift = _consensus_table(case)
+    nsam, ncol = mat.shape
+    monkeypatch.setattr(tch, "TABLE_CHUNK", 7 * nsam * ncol)
+    monkeypatch.setattr(tch, "VOTE_CHUNK", 37 * nsam)
+    monkeypatch.setattr(tch, "CH_BLOCKS", 2)
+    st = pd.DataFrame(mat, index=[f"s{i}" for i in range(nsam)],
+                      columns=seqs)
+    kw = dict(allowOneOff=oo, maxShift=max_shift)
+    jseen, tseen = {}, {}
+    for name in ("_batch_lr_stats", "_table_bimera_stats"):
+        _spy(monkeypatch, jch, name, jseen)
+    for name in ("_pairs_lr_stats", "_unplanned_lr_stats",
+                 "_table_bimera_stats"):
+        _spy(monkeypatch, tch, name, tseen)
+    pd.testing.assert_series_equal(
+        tch.is_bimera_denovo_table(st, device="cpu", **kw),
+        jch.is_bimera_denovo_table(st, **kw))
+    want = jseen["_table_bimera_stats"][1]
+    for g, w, name in zip(tseen["_table_bimera_stats"][1], want,
+                          ("nflag", "nsam")):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert want[0].any()
+    jpairs = np.asarray(jseen["_batch_lr_stats"][0][0],
+                        np.int64).reshape(-1, 2)
+    pairs = tch._table_pairs(torch.from_numpy(mat), 1.5, 2)
+    np.testing.assert_array_equal(pairs.numpy(), jpairs)
+    be, opts = tch._chimera_backend(seqs, 5, -4, -8, max_shift, "cpu")
+    plan = tch._pairs_plan(be, opts, pairs[:, 0], pairs[:, 1])
+    host = _host_plan(be, opts, jpairs[:, 0].copy(), jpairs[:, 1].copy())
+    stats = tseen["_pairs_lr_stats"][1]
+    if case == "wide":
+        assert host is None and plan is None and stats is None
+        stats = torch.from_numpy(np.stack(tseen["_unplanned_lr_stats"][1],
+                                          1))
+    else:
+        assert "_unplanned_lr_stats" not in tseen
+        got = (plan.qblk, plan.pblk, plan.scal, plan.pos, plan.order)
+        for g, h, name in zip(got, host, ("qblk", "pblk", "scal", "pos",
+                                           "order")):
+            np.testing.assert_array_equal(g.numpy(), h, err_msg=name)
+        assert plan.WP == host[5]
+        if case == "lengths":
+            lens1 = plan.scal[:, 0].numpy()
+            assert len(np.unique(lens1)) >= 3
+            assert len(lens1) > 2 and len(lens1) % 2 == 1  # a tail launch
+            assert (plan.qblk.numpy() == plan.qblk[:, :1].numpy()).all(
+                1).any()                                   # padding lanes
+    for g, w, name in zip(stats.numpy().T, jseen["_batch_lr_stats"][1],
+                          STATS):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    votes = tch._table_votes(mat, be.lens, pairs, stats, 1.5, 2, oo, 4)
+    for g, w, name in zip(votes, want, ("nflag", "nsam")):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_consensus_table_without_pairs():
+    """A table where no column has a parent (every abundance within the
+    fold of every other) has no pairs: nothing is aligned, and no column
+    is flagged, as in dada2_tpu."""
+    mat, seqs, _ = _consensus_table("random")
+    mat = np.where(mat > 0, 5, 0)
+    assert len(tch._table_pairs(mat, 1.5, 2)) == 0
+    want = jch._table_bimera_stats(mat, seqs, 1.5, 2, True, 4, 16,
+                                   current_options())
+    got = tch._table_bimera_stats(mat, seqs, 1.5, 2, True, 4, 16,
+                                  current_options(), device="cpu")
+    for g, w, name in zip(got, want, ("nflag", "nsam")):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert not got[0].any() and got[1].any()
+
+
+def test_consensus_table_fetches_little():
+    """A consensus table on kernel B2's route crosses back only its small
+    reads (the plan's per-length pair counts and extremes, the end-flag
+    check, each column's nflag and nsam): under 1 MB, and nothing that
+    grows with the pairs, whose stats (24 bytes a pair) used to cross
+    whole. The chimera_pairs counter holds the table's pair count,
+    process-wide and on its chimera.table span."""
+    from dada2_tpu_torch import trace
+
+    mat, seqs, _ = _consensus_table("random")
+    mat = np.concatenate([mat, mat[::-1] + 1])
+    st = pd.DataFrame(mat, index=[f"s{i}" for i in range(len(mat))],
+                      columns=seqs)
+    npairs = len(tch._table_pairs(mat, 1.5, 2))
+    c = trace.COUNTERS
+    f0, n0, p0 = c.fetch_bytes, c.device_fetches, c.chimera_pairs
+    trace.reset()
+    with trace.tracing():
+        out = tch.remove_bimera_denovo(st, method="consensus", device="cpu")
+    fetched = c.fetch_bytes - f0
+    maxlen = max(len(s) for s in seqs)
+    assert fetched < 1 << 20
+    assert fetched <= 8 * (3 * (maxlen + 1) + 2 * len(seqs)) < 24 * npairs
+    assert c.device_fetches - n0 == 2
+    assert c.chimera_pairs - p0 == npairs > 500
+    (table,) = [s for s in trace.spans() if s.name == "chimera.table"]
+    assert table.counters["chimera_pairs"] == npairs
+    assert table.counters["fetch_bytes"] == fetched
+    assert 0 < out.shape[1] < len(seqs)
